@@ -1,0 +1,569 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+
+1. card: name and power limit, torch/CUDA versions, the probe kernel's
+   build (``nvcc`` into ``build/``) and its time;
+2. kernel vs plain: the CUDA probe kernel against its plain torch version,
+   bitwise, on 2^25-slot tables (the full configuration's ``adj``/``epos``
+   capacity) at 50% live load plus tombstones, in both modes, plain and
+   prehashed, with present, absent and garbage keys, at every listed lane
+   count; at the end, again on a 2^24-slot table (``eab``/``snadj``/
+   ``snpos``) at the listed and the main path's lane counts, and times
+   on the card beside the byte bound (device time from CUDA-graph
+   replay, and the time of a call from Python);
+3. main path: ``BatchedSummarizer(full_config(), device="cuda")`` over a
+   fully dynamic BA stream; the probe kernel's launch count must move,
+   ``phi == phi_recomputed()`` and the lossless decode must equal the
+   stream's live edge set; us/change (whole stream and its later steps),
+   launches and host syncs per change, table load, peak device memory;
+4. reads: ``query()`` degree / has_edge / neighbors answers against the
+   live edge set, us/query; then ``torch.profiler`` over one fresh
+   full-config step (device busy share, kernels per change, top ops);
+5. the smoke configuration on the card and on the CPU, every state leaf
+   bitwise equal after every batch.
+
+It prints one JSON line of kernels, the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``.  The full
+per-shape table goes to ``build/chip_smoke.json``.  Without a CUDA
+device, or without the repository beside it, it exits non-zero and prints
+no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+LANES = (1, 3, 20, 32, 48, 64, 160, 16384, 1 << 16, 1 << 20)
+CAP = 1 << 25                     # full_config's adj / epos capacity
+CAP_SMALL = 1 << 24               # full_config's eab / snadj / snpos capacity
+NODES = 600                       # BA nodes of the main path's stream
+
+
+_T0 = time.perf_counter()
+
+
+def log(msg: str) -> None:
+    print(f"[{time.perf_counter() - _T0:7.1f}s] {msg}", flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call between CUDA events, after a warm-up:
+    a call from Python, wrapper and launch included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Mean device milliseconds per call: ``reps`` calls captured in one
+    CUDA graph and replayed, so the host's cost per call drops out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+# --------------------------------------------------------------------- #
+# phase 2: kernel vs plain
+# --------------------------------------------------------------------- #
+
+
+def bulk_table(cap: int, n_keys: int, n_tomb: int, prehashed: bool, gen):
+    """A valid linear-probe table of ``n_keys`` distinct keys, built in
+    rounds (each pending key tries its next slot; one winner per free
+    slot), then ``n_tomb`` of them tombstoned.  Every key sits behind a
+    run of slots that were occupied when it passed them, and nothing is
+    deleted during the build, so every find chain is intact."""
+    import torch
+    from repro_torch.core.engine.hashtable import EMPTY, TOMB, _probe_start
+    dev = "cuda"
+    # (node, slot)-like keys; a prehashed table is keyed by full-entropy
+    # words (k1 ^ k2 must spread over the table, as label hashes do)
+    k1 = torch.randint(0, (1 << 31) - 1 if prehashed else 1 << 20,
+                       (n_keys,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    k2 = torch.arange(n_keys, dtype=torch.int32, device=dev)
+    start = _probe_start(k1, k2, cap, prehashed)
+    off = torch.zeros_like(start)
+    tk1 = torch.full((cap,), EMPTY, dtype=torch.int32, device=dev)
+    tk2 = torch.full((cap,), EMPTY, dtype=torch.int32, device=dev)
+    tval = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    owner = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+    pending = torch.arange(n_keys, device=dev)
+    rounds = 0
+    while pending.numel():
+        slot = (start[pending] + off[pending]) & (cap - 1)
+        free = tk1[slot] == EMPTY
+        cand, cslot = pending[free], slot[free]
+        owner[cslot] = cand
+        won = owner[cslot] == cand
+        w, ws = cand[won], cslot[won]
+        tk1[ws], tk2[ws] = k1[w], k2[w]
+        tval[ws] = (w + 1).to(torch.int32)
+        placed = torch.zeros(n_keys, dtype=torch.bool, device=dev)
+        placed[w] = True
+        pending = pending[~placed[pending]]
+        off[pending] += 1
+        rounds += 1
+        if rounds > 4096:
+            raise RuntimeError(f"bulk insert: {pending.numel()} keys still "
+                               f"pending after {rounds} rounds")
+    live = (tk1 >= 0).nonzero().flatten()
+    dead = live[torch.randperm(live.numel(), generator=gen,
+                               device=dev)[:n_tomb]]
+    tk1[dead], tk2[dead], tval[dead] = TOMB, TOMB, 0
+    return (tk1, tk2, tval), rounds
+
+
+def queries(tables, lanes: int, gen):
+    """Present, absent and garbage (full int32 range) keys, in turn."""
+    import torch
+    tk1, tk2, _ = tables
+    dev = tk1.device
+    live = (tk1 >= 0).nonzero().flatten()
+    pick = live[torch.randint(0, live.numel(), (lanes,), generator=gen,
+                              device=dev)]
+    kind = torch.arange(lanes, device=dev) % 3
+    absent1 = torch.randint(0, 1 << 20, (lanes,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    absent2 = torch.randint(1 << 30, (1 << 31) - 1, (lanes,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    g1 = torch.randint(-(1 << 31), (1 << 31) - 1, (lanes,), generator=gen,
+                       device=dev, dtype=torch.int32)
+    g2 = torch.randint(-(1 << 31), (1 << 31) - 1, (lanes,), generator=gen,
+                       device=dev, dtype=torch.int32)
+    q1 = torch.where(kind == 0, tk1[pick], torch.where(kind == 1, absent1, g1))
+    q2 = torch.where(kind == 0, tk2[pick], torch.where(kind == 1, absent2, g2))
+    return q1.contiguous(), q2.contiguous()
+
+
+def bound_ms(tables, q1, q2, prehashed: bool) -> float:
+    """Least time for the bytes this call must move at the device memory
+    rate, each word read once: 4 B of k1 for every distinct slot on a
+    pass-1 chain, 4 B of k2 only for the distinct slots whose k1 equals
+    the query's, 4 B of val for each distinct chain end, and 8 B of query
+    and 9 B of output per lane.  The same in both modes: insert mode's
+    pass 2 runs only for absent keys, whose pass-1 chain ends at the first
+    EMPTY, so pass 2 stops on a slot pass 1 already read."""
+    import torch
+    from repro_torch.kernels.ht_probe import probe_chains
+    tk1, tk2, _ = tables
+    cap, n = tk1.shape[0], q1.numel()
+    start, i1, _ = probe_chains(tk1, tk2, q1, q2, prehashed=prehashed,
+                                mode="find")
+    steps = torch.clamp(i1 + 1, max=cap)
+    lane = torch.repeat_interleave(torch.arange(n, device=tk1.device), steps)
+    first = torch.repeat_interleave(torch.cumsum(steps, 0) - steps, steps)
+    off = torch.arange(lane.numel(), device=tk1.device) - first
+    slots = (start[lane] + off) & (cap - 1)
+    k1_words = torch.unique(slots).numel()
+    k2_words = torch.unique(slots[tk1[slots] == q1[lane]]).numel()
+    val_words = torch.unique((start + i1) & (cap - 1)).numel()
+    nbytes = 4 * (k1_words + k2_words + val_words) + (8 + 9) * n
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def kernel_vs_plain(tables_by_pre, lane_counts, gen, time_it: bool):
+    """Bitwise compare (and optionally time) kernel and plain version at
+    every (mode, prehashed, lanes); returns rows and the max |error|."""
+    import torch
+    from repro_torch.kernels.ht_probe import ht_probe_cuda, ht_probe_plain
+    rows, max_err = [], 0
+    for prehashed, tables in tables_by_pre.items():
+        for mode in ("find", "insert"):
+            for lanes in lane_counts:
+                q1, q2 = queries(tables, lanes, gen)
+                args = (*tables, q1, q2)
+                kw = dict(prehashed=prehashed, mode=mode)
+                got = ht_probe_cuda(*args, **kw)
+                want = ht_probe_plain(*args, **kw)
+                torch.cuda.synchronize()
+                for g, w, name in zip(got, want, ("slot", "found", "val")):
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"ht_probe {name} differs: mode={mode} "
+                            f"prehashed={prehashed} lanes={lanes}")
+                    max_err = max(max_err, int((g.long() - w.long()).abs()
+                                               .max()))
+                row = dict(mode=mode, prehashed=prehashed, lanes=lanes)
+                if time_it:
+                    reps = 200 if lanes <= 16384 else 20
+                    launch = lambda: ht_probe_cuda(*args, **kw)  # noqa: E731
+                    row["ms"] = graph_ms(launch, reps)
+                    row["call_ms"] = cuda_ms(launch, reps)
+                    row["plain_ms"] = cuda_ms(
+                        lambda: ht_probe_plain(*args, **kw),
+                        5 if lanes <= 16384 else 2)
+                    row["bound_ms"] = bound_ms(tables, q1, q2, prehashed)
+                rows.append(row)
+    return rows, max_err
+
+
+# --------------------------------------------------------------------- #
+# phases 3-5
+# --------------------------------------------------------------------- #
+
+
+def live_edges(stream):
+    live = set()
+    for (u, v, ins) in stream:
+        e = (min(u, v), max(u, v))
+        live.add(e) if ins else live.discard(e)
+    return live
+
+
+def main_path(nodes: int, deg: int, seed: int) -> dict:
+    """Drive ``full_config()`` on the card over a BA stream of ``nodes``
+    nodes; the stream's scale is far below the configuration's
+    ``n_cap``/``m_cap``, so the tables stay nearly empty (their load is
+    printed) while their capacity is full size."""
+    import torch
+    from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.core.engine import BatchedSummarizer
+    from repro_torch.core.engine.ops import host_read
+    from repro_torch.core.summary import pair_key
+    from repro_torch.graph.streams import (barabasi_albert_edges,
+                                           edges_to_fully_dynamic_stream)
+    from repro_torch.kernels import ops
+
+    cfg = full_config()
+    stream = edges_to_fully_dynamic_stream(
+        barabasi_albert_edges(nodes, deg, seed), delete_prob=0.1, seed=seed)
+    n_batches = -(-len(stream) // cfg.batch)
+    if n_batches < 2:
+        raise ValueError(f"stream of {len(stream)} changes is under two "
+                         f"batches of {cfg.batch}")
+    log(f"main path: full_config (n_cap={cfg.n_cap} m_cap={cfg.m_cap} "
+        f"d_cap={cfg.d_cap} sn_cap={cfg.sn_cap} c={cfg.c} "
+        f"batch={cfg.batch}); BA n={nodes} m={deg}, fully dynamic: "
+        f"{len(stream)} changes in {n_batches} batches")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bs = BatchedSummarizer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base
+
+    ops.reset_counts()
+    host_read.count = 0
+    step_s = []
+    t0 = time.perf_counter()
+    for off in range(0, len(stream), cfg.batch):
+        t = time.perf_counter()
+        bs.process(stream[off:off + cfg.batch])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    elapsed = time.perf_counter() - t0
+    launches = ops.ht_probe.launches
+    by_batch = dict(ops.ht_probe.by_batch)
+    syncs = host_read.count
+    if launches == 0:
+        raise AssertionError("the main path launched no probe kernel")
+
+    phi, phi_re = bs.phi, bs.phi_recomputed()
+    if phi != phi_re:
+        raise AssertionError(f"phi {phi} != phi_recomputed {phi_re}")
+    truth = live_edges(stream)
+    decoded = bs.materialize().decode_edges()
+    want = {pair_key(bs._ids[u], bs._ids[v]) for (u, v) in truth}
+    if decoded != want:
+        raise AssertionError(f"lossless decode differs from the live edge "
+                             f"set: {len(decoded ^ want)} pairs")
+    n = len(stream)
+    # steady state: the full steps of the stream's second half (the first
+    # steps, on a near-empty graph, pass most TN filters and cost most)
+    later = step_s[len(step_s) // 2:-1] or step_s[:1]
+    peak = torch.cuda.max_memory_allocated() - base
+    pressure = bs.table_pressure()     # after the peak: it allocates
+    res = dict(changes=n, batches=n_batches, seconds=elapsed,
+               us_per_change=1e6 * elapsed / n,
+               step_s=step_s,
+               later_step_s=sum(later) / len(later),
+               later_us_per_change=1e6 * sum(later) / (cfg.batch
+                                                      * len(later)),
+               table_occupancy=pressure,
+               edges_per_m_cap=len(truth) / cfg.m_cap,
+               probe_launches=launches, launches_per_change=launches / n,
+               launches_per_step=launches / n_batches,
+               host_syncs=syncs, syncs_per_change=syncs / n,
+               state_bytes=state_bytes,
+               peak_bytes=peak,
+               stats=bs.stats(), phi=phi, live_edges=len(truth),
+               by_batch={f"{m}:{b}": c for (m, b), c in
+                         sorted(by_batch.items(), key=lambda x: -x[1])})
+    log(f"main path: {n} changes in {elapsed:.3f} s = "
+        f"{res['us_per_change']:.1f} us/change; probe launches "
+        f"{launches} ({res['launches_per_change']:.2f}/change, "
+        f"{res['launches_per_step']:.1f}/step); host syncs {syncs} "
+        f"({res['syncs_per_change']:.2f}/change); phi={phi} "
+        f"|E|={len(truth)}; state {state_bytes / 2**30:.3f} GiB, peak "
+        f"{res['peak_bytes'] / 2**30:.3f} GiB; {bs.stats()}")
+    log(f"main path: later steps (second half, full) "
+        f"{res['later_step_s']:.3f} s/step = "
+        f"{res['later_us_per_change']:.1f} us/change; live edges "
+        f"{len(truth)} = {100 * res['edges_per_m_cap']:.4f}% of m_cap; "
+        f"table occupancy (live + tombstones) "
+        + ", ".join(f"{k} {100 * v:.4f}%" for k, v in pressure.items()))
+    log(f"main path: phi == phi_recomputed and the decode equals the "
+        f"stream's {len(truth)} live edges")
+    return res, bs, truth, by_batch, stream
+
+
+def profile_step(stream, n_changes: int) -> dict:
+    """Where one full-config step's time goes: ``torch.profiler`` over a
+    fresh summarizer's first ``n_changes`` changes (one padded step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.core.engine import BatchedSummarizer
+    bs = BatchedSummarizer(full_config(), device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        bs.process(stream[:n_changes])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = prof.key_averages()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total", 0) or 0
+
+    # device-side rows (kernels, copies): their self time is the device's
+    gpu = [e for e in rows if str(e.device_type).endswith("CUDA")]
+    device_us = sum(dev(e) for e in gpu)
+    kernels = sum(e.count for e in gpu)
+    top_dev = sorted(gpu, key=dev, reverse=True)[:8]
+    top_cpu = sorted(rows, key=lambda e: e.self_cpu_time_total,
+                     reverse=True)[:10]
+    res = dict(changes=n_changes, wall_s=wall, device_busy_us=device_us,
+               device_busy_share=device_us / 1e6 / wall,
+               device_kernels=kernels,
+               top_device=[(e.key, e.count, dev(e)) for e in top_dev],
+               top_cpu=[(e.key, e.count, e.self_cpu_time_total)
+                        for e in top_cpu])
+    log(f"profile: {n_changes} changes under torch.profiler: wall "
+        f"{wall:.3f} s, device busy {device_us / 1e3:.1f} ms "
+        f"({100 * res['device_busy_share']:.2f}%), {kernels} device "
+        f"kernels ({kernels / n_changes:.0f}/change)")
+    for key, count, us in res["top_device"]:
+        log(f"  device {us / 1e3:9.2f} ms  x{count:7d}  {key}")
+    for key, count, us in res["top_cpu"]:
+        log(f"  host   {us / 1e3:9.2f} ms  x{count:7d}  {key}")
+    return res
+
+
+def reads(bs, truth, n_labels: int, seed: int) -> dict:
+    import random
+    import torch
+    rng = random.Random(seed)
+    adj = {}
+    for (u, v) in truth:
+        adj.setdefault(u, set()).add(v)
+        adj.setdefault(v, set()).add(u)
+    view = bs.query()
+    labels = rng.sample(view.seen_labels(), min(n_labels,
+                                                len(view.seen_labels())))
+    edges = sorted(truth)
+    pairs = [edges[rng.randrange(len(edges))] for _ in range(n_labels // 2)]
+    pairs += [(rng.choice(labels), rng.choice(labels))
+              for _ in range(n_labels - len(pairs))]
+    out = {}
+    for name, fn, want in (
+            ("degree", lambda: view.degree_batch(labels),
+             [len(adj.get(x, ())) for x in labels]),
+            ("has_edge", lambda: view.has_edge_batch(pairs),
+             [(min(a, b), max(a, b)) in truth for (a, b) in pairs]),
+            ("neighbors", lambda: view.neighbors_batch(labels),
+             [adj.get(x, set()) for x in labels])):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if got != want:
+            bad = sum(g != w for g, w in zip(got, want))
+            raise AssertionError(f"query {name}: {bad} wrong answers")
+        n = len(want)
+        out[name] = dict(queries=n, us_per_query=1e6 * dt / n)
+        log(f"reads: {name} x{n} right, {1e6 * dt / n:.1f} us/query")
+    return out
+
+
+def cuda_vs_cpu(seed: int) -> int:
+    import numpy as np
+    from repro_torch.configs.mosso_stream import smoke_config
+    from repro_torch.core.engine import BatchedSummarizer
+    from repro_torch.core.engine.state import state_to_numpy
+    from repro_torch.graph.streams import (edges_to_fully_dynamic_stream,
+                                           sbm_edges)
+    cfg = smoke_config()
+    stream = edges_to_fully_dynamic_stream(
+        sbm_edges(60, 4, 0.5, 0.04, seed=seed), delete_prob=0.15,
+        seed=seed + 1)
+    on_card = BatchedSummarizer(cfg, device="cuda")
+    on_cpu = BatchedSummarizer(cfg, device="cpu")
+    n = 0
+    for off in range(0, len(stream), cfg.batch):
+        chunk = stream[off:off + cfg.batch]
+        on_card.process(chunk)
+        on_cpu.process(chunk)
+        a, b = state_to_numpy(on_card.state), state_to_numpy(on_cpu.state)
+        for k in a:
+            for w, x in (a[k].items() if isinstance(a[k], dict)
+                         else ((None, a[k]),)):
+                y = b[k][w] if w else b[k]
+                if not (x.dtype == y.dtype and np.array_equal(x, y)):
+                    raise AssertionError(f"leaf {k}{'.' + w if w else ''} "
+                                         f"differs after batch {n}")
+        n += 1
+    log(f"cuda vs cpu: smoke_config, {len(stream)} changes, every state "
+        f"leaf bitwise equal after each of {n} batches (phi={on_cpu.phi})")
+    return n
+
+
+# --------------------------------------------------------------------- #
+
+
+def main() -> int:
+    seed = 0
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {ROOT}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ht_probe
+
+    # 1. card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda},"
+        f" python {sys.version.split()[0]}")
+    t = time.perf_counter()
+    path, nvcc_out = ht_probe.build_library()
+    ht_probe.load_library()
+    build_s = time.perf_counter() - t
+    log(f"build: {path.name} in {build_s:.2f} s")
+    for line in nvcc_out.strip().splitlines():
+        log(f"  nvcc: {line.strip()}")
+
+    # 2. kernel vs plain at the full configuration's table size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_live, n_tomb = CAP // 2, CAP // 32
+    tables = {}
+    for pre in (False, True):
+        t = time.perf_counter()
+        tables[pre], rounds = bulk_table(CAP, n_live + n_tomb, n_tomb, pre,
+                                         gen)
+        log(f"table: cap=2^25 prehashed={pre}: {n_live} live "
+            f"+ {n_tomb} tombstones in {rounds} rounds "
+            f"({time.perf_counter() - t:.1f} s)")
+    _, max_err = kernel_vs_plain(tables, LANES, gen, time_it=False)
+    log(f"kernel vs plain: bitwise equal (slot, found, val) in find/insert "
+        f"x plain/prehashed at lanes {list(LANES)}")
+
+    # 3. main path (counts set to 0 just before, read just after)
+    path_res, bs, truth, by_batch, stream = main_path(NODES, 4, seed)
+    # 4. reads
+    read_res = reads(bs, truth, 256, seed)
+    del bs
+    # key_averages() takes ~0.7 ms per event: 8 changes are ~60k kernels
+    prof_res = profile_step(stream, 8)
+    # 5. the smoke configuration on the card and on the CPU
+    cuda_vs_cpu(seed)
+
+    # the kernel at the main path's lane counts on a table of the main
+    # path's other capacity (eab / snadj / snpos), at 50% load
+    lanes = sorted(set(LANES) | {b for (_, b) in by_batch})
+    t = time.perf_counter()
+    small, rounds = bulk_table(CAP_SMALL, CAP_SMALL // 2 + CAP_SMALL // 32,
+                               CAP_SMALL // 32, False, gen)
+    _, err = kernel_vs_plain({False: small}, lanes, gen, time_it=False)
+    max_err = max(max_err, err)
+    del small
+    log(f"kernel vs plain: bitwise equal on a cap=2^24 table ({rounds} "
+        f"rounds, {time.perf_counter() - t:.1f} s) in find/insert at lanes "
+        f"{lanes}")
+
+    # times of the kernel at the listed and the main path's shapes
+    rows, _ = kernel_vs_plain(tables, lanes, gen, time_it=True)
+    for (mode, b), count in by_batch.items():
+        for r in rows:
+            if (r["mode"], r["lanes"], r["prehashed"]) == (mode, b, False):
+                r["main_path_launches"] = count
+    for r in rows:
+        log(f"ht_probe mode={r['mode']:6s} prehashed={r['prehashed']!s:5s} "
+            f"lanes={r['lanes']:8d}: kernel {r['ms'] * 1e3:8.2f} us "
+            f"(call {r['call_ms'] * 1e3:7.2f} us), "
+            f"plain {r['plain_ms'] * 1e3:11.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:9.3f} us, main-path launches "
+            f"{r.get('main_path_launches', 0)}")
+    log("ht_probe: no single PyTorch call walks a probe chain, so "
+        "library_ms is null")
+    top = max(rows, key=lambda r: r.get("main_path_launches", 0))
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
+        card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+        build_s=build_s, kernel_rows=rows, main_path=path_res,
+        profile=prof_res, reads=read_res), indent=1))
+
+    entry = dict(name="ht_probe", route="cuda",
+                 source="src/repro_torch/csrc/ht_probe.cu",
+                 replaces="src/repro/kernels/ht_probe.py:61",
+                 launches=path_res["probe_launches"], max_abs_err=max_err,
+                 ms=top["ms"], call_ms=top["call_ms"],
+                 plain_ms=top["plain_ms"],
+                 bound_ms=top["bound_ms"], bound_by="bytes",
+                 library_ms=None, mode=top["mode"], lanes=top["lanes"])
+    print(json.dumps({"kernels": [entry]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

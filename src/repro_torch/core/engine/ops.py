@@ -1,0 +1,550 @@
+"""Primitive state transitions of the batched engine, in torch.
+
+Port of ``repro/core/engine/ops.py``: ``insert_edge`` / ``delete_edge``
+(one stream change), ``delta_phi_move`` (closed-form objective change of a
+move), ``apply_move`` (commit an accepted move) and ``recompute_phi``.
+The encoding (P / C+ / C-) stays a derived view of ``(E_AB, sizes)``.
+
+**In place.**  Every op writes the state's tensors in place and returns
+the same state object.
+
+**Predication.**  Where the JAX op takes an ``ok`` predicate, this one
+takes either a Python bool, which the caller decided on the host (False
+skips the op), or a bool tensor, which masks the writes as in JAX.  The
+PRNG is counter-based and stateless, so skipping a masked-off op leaves
+every other value bitwise the same.  Where an op needs a value on the
+host to branch on (``pair_count_add``'s 0 <-> nonzero transitions, the
+trip count of ``apply_move``), it reads it through :func:`host_read`,
+which counts the syncs.
+
+Node ids, sids and other scalars are one-lane tensors (shape ``[1]``);
+state scalars (``phi``, ``free_top``, ...) stay 0-dim, as in JAX.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.engine.hashtable import (M32, Lane, ht_add, ht_delete,
+                                               ht_lookup, ht_lookup_batch,
+                                               ht_set, mul_u32, u32)
+from repro_torch.core.engine.state import NO_CLUSTER, EngineConfig, EngineState
+
+I32_MAX = 0x7FFFFFFF
+
+# --------------------------------------------------------------------------- #
+# host reads, gathers, scalars
+# --------------------------------------------------------------------------- #
+
+
+def host_read(x: torch.Tensor) -> list:
+    """``x.tolist()``, counted in ``host_read.count``: on the card every
+    call is one device -> host sync."""
+    host_read.count += 1
+    return x.tolist()
+
+
+host_read.count = 0
+
+
+def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` with JAX's gather semantics: a negative index counts from
+    the end and an index still out of range is clamped.  Torch raises
+    instead (a device-side assert on the card), so every gather whose
+    index comes from table data goes through here."""
+    n = x.shape[0]
+    return x[torch.where(i < 0, i + n, i).clamp(0, n - 1)]
+
+
+def _sc(x: torch.Tensor) -> torch.Tensor:
+    """A one-lane result as a 0-dim state scalar."""
+    return x.reshape(())
+
+
+def _masked(ok, x, off=0):
+    return x if ok is True else torch.where(ok, x, off)
+
+
+def _add_at(x: torch.Tensor, i: torch.Tensor, d, ok=True) -> None:
+    """``x[i] += d`` in place under ``ok``."""
+    if ok is not False:
+        x[i] = x[i] + _masked(ok, d)
+
+
+# --------------------------------------------------------------------------- #
+# small math helpers
+# --------------------------------------------------------------------------- #
+
+
+def cost(e: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Optimal per-pair encoding cost min(E, T-E+1), 0 when E==0 (int32)."""
+    return torch.where(e <= 0, 0, torch.minimum(e, t - e + 1)).to(torch.int32)
+
+
+def tri(n: torch.Tensor) -> torch.Tensor:
+    return (n * (n - 1)) // 2
+
+
+def t_of(sa: torch.Tensor, sb: torch.Tensor, same: torch.Tensor,
+         ) -> torch.Tensor:
+    return torch.where(same, tri(sa), sa * sb)
+
+
+def mixhash(x: torch.Tensor) -> torch.Tensor:
+    """Node hash for min-hash clustering (non-negative int32, never the
+    ``NO_CLUSTER`` sentinel)."""
+    h = mul_u32(u32(x), 0x9E3779B9)
+    h = h ^ (h >> 16)
+    h = mul_u32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = (h & 0x7FFFFFFF).to(torch.int32)
+    return torch.where(h == NO_CLUSTER, 0x7FFFFFFE, h)
+
+
+def rnd_u32(seed: Lane, ctr: Lane) -> Lane:
+    """Counter-based splitmix32 PRNG; a uint32 value held in int64."""
+    x = (u32(seed) + mul_u32(u32(ctr), 0x9E3779B9)) & M32
+    x = mul_u32(x ^ (x >> 16), 0x21F0AAAD)
+    x = mul_u32(x ^ (x >> 15), 0x735A2D97)
+    return x ^ (x >> 15)
+
+
+def rnd_u01(seed: Lane, ctr: Lane) -> torch.Tensor:
+    """float32 in [0, 1]: the uint32 draw rounded to float32, over 2^32."""
+    return rnd_u32(seed, ctr).to(torch.float32) / 4294967296.0
+
+
+def _mulhi_u32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """High 32 bits of the 64-bit product a*b (uint32 values in int64),
+    from 16-bit halves so that no product reaches 2^63."""
+    a0, a1 = a & 0xFFFF, a >> 16
+    b0, b1 = b & 0xFFFF, b >> 16
+    lo = a0 * b0
+    mid1 = a1 * b0 + (lo >> 16)
+    mid2 = a0 * b1 + (mid1 & 0xFFFF)
+    return a1 * b1 + (mid1 >> 16) + (mid2 >> 16)
+
+
+def rnd_below(seed: Lane, ctr: Lane, n: torch.Tensor) -> torch.Tensor:
+    """Uniform int32 in [0, max(n,1)) via Lemire's multiply-shift."""
+    return _mulhi_u32(rnd_u32(seed, ctr),
+                      u32(n.clamp(min=1))).to(torch.int32)
+
+
+def canon(a: torch.Tensor, b: torch.Tensor,
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return torch.minimum(a, b), torch.maximum(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# weighted-objective quantities
+# --------------------------------------------------------------------------- #
+
+
+def node_weight(u: torch.Tensor, cfg: EngineConfig) -> torch.Tensor:
+    """w(u) = 1 + (hash(u) % weight_levels); all-ones when levels <= 1.
+    ``core.summary.host_node_weight`` is the bit-exact host mirror."""
+    if cfg.weight_levels <= 1:
+        return torch.ones_like(u, dtype=torch.int32)
+    h = rnd_u32(u, 0x5EED)
+    return (1 + h % cfg.weight_levels).to(torch.int32)
+
+
+def wtri(sw: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
+    """TW of a self-pair, (SW^2 - SQ) / 2; ``tri(s)`` under uniform
+    weights."""
+    return (sw * sw - sq) // 2
+
+
+def wt_of(st: EngineState, a: torch.Tensor, b: torch.Tensor,
+          same: torch.Tensor) -> torch.Tensor:
+    """TW_AB from the per-supernode weight sums (weighted objective)."""
+    return torch.where(same, wtri(st.wsum[a], st.wsq[a]),
+                       st.wsum[a] * st.wsum[b])
+
+
+# --------------------------------------------------------------------------- #
+# supernode-pair count + SN adjacency maintenance
+# --------------------------------------------------------------------------- #
+
+
+def _sn_insert(st: EngineState, x: torch.Tensor, y: torch.Tensor,
+               ok) -> EngineState:
+    """Append y to SN(x)'s slot list."""
+    if ok is False:
+        return st
+    i = st.sndeg[x]
+    ht_set(st.snadj, x, i, y, ok=ok)
+    ht_set(st.snpos, x, y, i, ok=ok)
+    _add_at(st.sndeg, x, 1, ok)
+    return st
+
+
+def _sn_remove(st: EngineState, x: torch.Tensor, y: torch.Tensor,
+               ok) -> EngineState:
+    """Swap-delete y from SN(x)'s slot list."""
+    if ok is False:
+        return st
+    i = ht_lookup(st.snpos, x, y)
+    last = st.sndeg[x] - 1
+    w = ht_lookup(st.snadj, x, last)
+    ht_set(st.snadj, x, i, w, ok=ok)
+    ht_set(st.snpos, x, w, i, ok=ok)
+    ht_delete(st.snadj, x, last, ok=ok)
+    ht_delete(st.snpos, x, y, ok=ok)
+    _add_at(st.sndeg, x, -1, ok)
+    return st
+
+
+def pair_count_add(st: EngineState, a: torch.Tensor, b: torch.Tensor,
+                   delta: int, ok=True) -> EngineState:
+    """E_AB += delta, maintaining the SN slot lists on 0<->nonzero edges.
+
+    The transitions are read on the host (one sync) and the slot-list
+    updates run only when one happens; JAX runs them masked.
+    """
+    if ok is False:
+        return st
+    ca, cb = canon(a, b)
+    _, new = ht_add(st.eab, ca, cb, delta, remove_if_zero=True, ok=ok)
+    old = new - delta
+    created = (old == 0) & (new != 0)
+    removed = (new == 0) & (old != 0)
+    if ok is not True:
+        created, removed = created & ok, removed & ok
+    created, removed, same = host_read(torch.cat([created, removed,
+                                                  ca == cb]))
+    if created:
+        _sn_insert(st, ca, cb, True)
+        _sn_insert(st, cb, ca, not same)
+    if removed:
+        _sn_remove(st, ca, cb, True)
+        _sn_remove(st, cb, ca, not same)
+    return st
+
+
+def pair_weight_add(st: EngineState, a: torch.Tensor, b: torch.Tensor,
+                    delta, ok=True) -> EngineState:
+    """W_AB += delta (weighted objective only; no SN side effects)."""
+    ca, cb = canon(a, b)
+    ht_add(st.weab, ca, cb, delta, remove_if_zero=True, ok=ok)
+    return st
+
+
+# --------------------------------------------------------------------------- #
+# nodes and edges
+# --------------------------------------------------------------------------- #
+
+
+def ensure_node(st: EngineState, u: torch.Tensor, cfg: EngineConfig,
+                ok=True) -> EngineState:
+    """Allocate a singleton supernode for u if unseen (masked writes)."""
+    if ok is False:
+        return st
+    need = st.n2s[u] < 0
+    if ok is not True:
+        need = need & ok
+    top = st.free_top.reshape(1) - 1
+    sid = st.free[top.clamp(min=0)]
+    st.n2s[u] = torch.where(need, sid, st.n2s[u])
+    st.ssize[sid] = torch.where(need, 1, st.ssize[sid])
+    st.free_top = _sc(torch.where(need, top, st.free_top))
+    if cfg.objective == "weighted":
+        w = node_weight(u, cfg)
+        st.wsum[sid] = torch.where(need, w, st.wsum[sid])
+        st.wsq[sid] = torch.where(need, w * w, st.wsq[sid])
+    return st
+
+
+def _adj_append(st: EngineState, u: torch.Tensor, v: torch.Tensor,
+                ok) -> EngineState:
+    i = st.deg[u]
+    ht_set(st.adj, u, i, v, ok=ok)
+    ht_set(st.epos, u, v, i, ok=ok)
+    _add_at(st.deg, u, 1, ok)
+    return st
+
+
+def _adj_remove(st: EngineState, u: torch.Tensor, v: torch.Tensor,
+                ok) -> EngineState:
+    i = ht_lookup(st.epos, u, v)
+    last = st.deg[u] - 1
+    w = ht_lookup(st.adj, u, last)
+    ht_set(st.adj, u, i, w, ok=ok)
+    ht_set(st.epos, u, w, i, ok=ok)
+    ht_delete(st.adj, u, last, ok=ok)
+    ht_delete(st.epos, u, v, ok=ok)
+    _add_at(st.deg, u, -1, ok)
+    return st
+
+
+def _slots(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def neighbor_slots(st: EngineState, y: torch.Tensor, d_cap: int,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """First min(deg, d_cap) neighbors of y (fixed-shape gather)."""
+    idx = _slots(d_cap, st.device)
+    valid = idx < st.deg[y]
+    nbrs = ht_lookup_batch(st.adj, y.expand(d_cap), idx, default=-1)
+    return torch.where(valid, nbrs, -1), valid
+
+
+def _minh_recompute(st: EngineState, u: torch.Tensor, d_cap: int,
+                    ) -> torch.Tensor:
+    """minh(u) = min hash over (up to d_cap) current neighbors."""
+    nbrs, valid = neighbor_slots(st, u, d_cap)
+    hs = torch.where(valid, mixhash(nbrs), NO_CLUSTER)
+    return hs.min().reshape(1)
+
+
+def insert_edge(st: EngineState, u: torch.Tensor, v: torch.Tensor,
+                cfg: EngineConfig, ok=True) -> EngineState:
+    if ok is False:
+        return st
+    if ok is not True:
+        u, v = torch.where(ok, u, 0), torch.where(ok, v, 0)
+    ensure_node(st, u, cfg, ok)
+    ensure_node(st, v, cfg, ok)
+    a, b = st.n2s[u], st.n2s[v]
+    ca, cb = canon(a, b)
+    if cfg.objective == "weighted":
+        wuv = node_weight(u, cfg) * node_weight(v, cfg)
+        w = ht_lookup(st.weab, ca, cb)
+        tw = wt_of(st, a, b, a == b)
+        st.phi = _sc(st.phi + _masked(ok, cost(w + wuv, tw) - cost(w, tw)))
+        pair_weight_add(st, a, b, wuv, ok)
+    else:
+        e = ht_lookup(st.eab, ca, cb)
+        t = t_of(st.ssize[a], st.ssize[b], a == b)
+        st.phi = _sc(st.phi + _masked(ok, cost(e + 1, t) - cost(e, t)))
+    pair_count_add(st, a, b, 1, ok)
+    _adj_append(st, u, v, ok)
+    _adj_append(st, v, u, ok)
+    # min with INT32_MAX is the identity, so a masked call leaves minh alone
+    st.minh[u] = torch.minimum(st.minh[u], _masked(ok, mixhash(v), I32_MAX))
+    st.minh[v] = torch.minimum(st.minh[v], _masked(ok, mixhash(u), I32_MAX))
+    st.num_edges = _sc(st.num_edges + _masked(ok, 1))
+    return st
+
+
+def delete_edge(st: EngineState, u: torch.Tensor, v: torch.Tensor,
+                cfg: EngineConfig, ok=True) -> EngineState:
+    if ok is False:
+        return st
+    if ok is not True:
+        u, v = torch.where(ok, u, 0), torch.where(ok, v, 0)
+    a, b = st.n2s[u], st.n2s[v]
+    ca, cb = canon(a, b)
+    if cfg.objective == "weighted":
+        wuv = node_weight(u, cfg) * node_weight(v, cfg)
+        w = ht_lookup(st.weab, ca, cb)
+        tw = wt_of(st, a, b, a == b)
+        st.phi = _sc(st.phi + _masked(ok, cost(w - wuv, tw) - cost(w, tw)))
+        pair_weight_add(st, a, b, -wuv, ok)
+    else:
+        e = ht_lookup(st.eab, ca, cb)
+        t = t_of(st.ssize[a], st.ssize[b], a == b)
+        st.phi = _sc(st.phi + _masked(ok, cost(e - 1, t) - cost(e, t)))
+    pair_count_add(st, a, b, -1, ok)
+    _adj_remove(st, u, v, ok)
+    _adj_remove(st, v, u, ok)
+    st.num_edges = _sc(st.num_edges - _masked(ok, 1))
+    for x, other in ((u, v), (v, u)):
+        upd = st.minh[x] == mixhash(other)
+        if ok is not True:
+            upd = upd & ok
+        mh = _minh_recompute(st, x, cfg.d_cap)
+        st.minh[x] = torch.where(upd, mh, st.minh[x])
+    return st
+
+
+# --------------------------------------------------------------------------- #
+# moves
+# --------------------------------------------------------------------------- #
+
+
+def _first_occurrence(x: torch.Tensor) -> torch.Tensor:
+    """Mask of first occurrences (dedupe) for a small 1-D int tensor."""
+    eq = x[None, :] == x[:, None]
+    return ~torch.tril(eq, diagonal=-1).any(dim=1)
+
+
+def _sn_list(st: EngineState, x: torch.Tensor, n: torch.Tensor,
+             sn_cap: int) -> torch.Tensor:
+    """The first ``n`` entries of SN(x)'s slot list, -1 beyond."""
+    sl = _slots(sn_cap, st.device)
+    nbr = ht_lookup_batch(st.snadj, x.expand(sn_cap), sl, default=-1)
+    return torch.where(sl < n, nbr, -1)
+
+
+def _move_lists(st: EngineState, y: torch.Tensor, a: torch.Tensor,
+                target: torch.Tensor, is_fresh: bool, cfg: EngineConfig):
+    """The candidate pairs of a move: y's neighbors (slots, validity and
+    sids) and the deduped supernodes X it touches, with their mask."""
+    nbrs, nvalid = neighbor_slots(st, y, cfg.d_cap)
+    nsid = torch.where(nvalid, st.n2s[nbrs.clamp(min=0)], -1)
+    sn_a = _sn_list(st, a, st.sndeg[a], cfg.sn_cap)
+    if is_fresh:
+        sn_b = torch.full_like(sn_a, -1)
+    else:
+        sn_b = _sn_list(st, target, st.sndeg[target], cfg.sn_cap)
+    xs = torch.cat([nsid, sn_a, sn_b])                   # [L]
+    is_ab = (xs == a) | (xs == target)
+    ok = (xs >= 0) & _first_occurrence(xs) & ~is_ab
+    return nbrs, nvalid, nsid, xs, ok
+
+
+def _special_pairs(table, a: torch.Tensor, target: torch.Tensor,
+                   is_fresh: bool):
+    """Values of the (A,A), (B,B) and (A,B) pairs, one 3-lane probe; the
+    last two are 0 for a fresh B."""
+    pa, pb = canon(a, target)
+    v = ht_lookup_batch(table, torch.cat([a, target, pa]),
+                        torch.cat([a, target, pb]))
+    if is_fresh:
+        return v[0:1], torch.zeros_like(a), torch.zeros_like(a)
+    return v[0:1], v[1:2], v[2:3]
+
+
+def delta_phi_move(st: EngineState, y: torch.Tensor, target: torch.Tensor,
+                   is_fresh: bool, cfg: EngineConfig,
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dphi, nbrs, nvalid): closed-form phi change of moving y -> target.
+
+    ``is_fresh`` (a host bool here) marks an escape to a brand-new
+    singleton.  Caller guarantees deg(y) <= d_cap and sndeg <= sn_cap.
+    """
+    a = st.n2s[y]
+    sa = st.ssize[a]
+    sb = torch.zeros_like(sa) if is_fresh else st.ssize[target]
+    nbrs, nvalid, nsid, xs, ok = _move_lists(st, y, a, target, is_fresh, cfg)
+
+    # h[X] = |N(y) ∩ X|
+    h = (xs[:, None] == nsid[None, :]).sum(dim=1).to(torch.int32)
+    sx = st.ssize[xs.clamp(min=0)]
+    e_ax = ht_lookup_batch(st.eab, torch.minimum(a, xs), torch.maximum(a, xs))
+    e_bx = ht_lookup_batch(st.eab, torch.minimum(target, xs),
+                           torch.maximum(target, xs))
+    d_gen = (cost(e_ax - h, (sa - 1) * sx) - cost(e_ax, sa * sx)
+             + cost(e_bx + h, (sb + 1) * sx) - cost(e_bx, sb * sx))
+    d = torch.where(ok, d_gen, 0).sum().to(torch.int32).reshape(1)
+
+    # special pairs (A,A), (B,B), (A,B)
+    h_a = (nsid == a).sum().to(torch.int32)
+    h_b = (nsid == target).sum().to(torch.int32)
+    e_aa, e_bb, e_ab = _special_pairs(st.eab, a, target, is_fresh)
+    d = d + cost(e_aa - h_a, tri(sa - 1)) - cost(e_aa, tri(sa))
+    d = d + cost(e_bb + h_b, tri(sb + 1)) - cost(e_bb, tri(sb))
+    d = d + (cost(e_ab - h_b + h_a, (sa - 1) * (sb + 1)) - cost(e_ab, sa * sb))
+    return d, nbrs, nvalid
+
+
+def delta_phi_move_weighted(st: EngineState, y: torch.Tensor,
+                            target: torch.Tensor, is_fresh: bool,
+                            cfg: EngineConfig,
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Weighted-objective :func:`delta_phi_move`: (E, T, sizes) replaced
+    by (W, TW, weight sums)."""
+    a = st.n2s[y]
+    wy = node_weight(y, cfg)
+    swa, sqa = st.wsum[a], st.wsq[a]
+    if is_fresh:
+        swb, sqb = torch.zeros_like(swa), torch.zeros_like(sqa)
+    else:
+        swb, sqb = st.wsum[target], st.wsq[target]
+    nbrs, nvalid, nsid, xs, ok = _move_lists(st, y, a, target, is_fresh, cfg)
+    nw = torch.where(nvalid, node_weight(nbrs.clamp(min=0), cfg), 0)
+
+    # hw[X] = w(y) * sum of w(nbr) over N(y) ∩ X  (weighted h[X])
+    hw = wy * torch.where(xs[:, None] == nsid[None, :], nw[None, :], 0
+                          ).sum(dim=1).to(torch.int32)
+    swx = st.wsum[xs.clamp(min=0)]
+    w_ax = ht_lookup_batch(st.weab, torch.minimum(a, xs), torch.maximum(a, xs))
+    w_bx = ht_lookup_batch(st.weab, torch.minimum(target, xs),
+                           torch.maximum(target, xs))
+    d_gen = (cost(w_ax - hw, (swa - wy) * swx) - cost(w_ax, swa * swx)
+             + cost(w_bx + hw, (swb + wy) * swx) - cost(w_bx, swb * swx))
+    d = torch.where(ok, d_gen, 0).sum().to(torch.int32).reshape(1)
+
+    # special pairs (A,A), (B,B), (A,B)
+    hw_a = wy * torch.where(nsid == a, nw, 0).sum().to(torch.int32)
+    hw_b = wy * torch.where(nsid == target, nw, 0).sum().to(torch.int32)
+    w_aa, w_bb, w_ab = _special_pairs(st.weab, a, target, is_fresh)
+    d = d + (cost(w_aa - hw_a, wtri(swa - wy, sqa - wy * wy))
+             - cost(w_aa, wtri(swa, sqa)))
+    d = d + (cost(w_bb + hw_b, wtri(swb + wy, sqb + wy * wy))
+             - cost(w_bb, wtri(swb, sqb)))
+    d = d + (cost(w_ab - hw_b + hw_a, (swa - wy) * (swb + wy))
+             - cost(w_ab, swa * swb))
+    return d, nbrs, nvalid
+
+
+def apply_move(st: EngineState, y: torch.Tensor, target: torch.Tensor,
+               dphi: torch.Tensor, nbrs: torch.Tensor, nvalid: torch.Tensor,
+               cfg: EngineConfig, ok: bool = True) -> EngineState:
+    """Commit the move (target sid already allocated by the caller).
+
+    ``ok`` is a host bool: the trial branches on its commit predicate.
+    ``nvalid`` is a prefix mask (slot < deg), read once for the trip count.
+    """
+    if not ok:
+        return st
+    a = st.n2s[y]
+    weighted = cfg.objective == "weighted"
+    wy = node_weight(y, cfg)
+    n_upd = host_read(nvalid.sum())
+    for i in range(n_upd):
+        w = nbrs[i:i + 1]
+        sw = st.n2s[w]
+        pair_count_add(st, a, sw, -1)
+        pair_count_add(st, target, sw, 1)
+        if weighted:
+            wyv = wy * node_weight(w, cfg)
+            pair_weight_add(st, a, sw, -wyv)
+            pair_weight_add(st, target, sw, wyv)
+    _add_at(st.ssize, a, -1)
+    _add_at(st.ssize, target, 1)
+    st.n2s[y] = target
+    st.phi = _sc(st.phi + dphi)
+    if weighted:
+        _add_at(st.wsum, a, -wy)
+        _add_at(st.wsum, target, wy)
+        _add_at(st.wsq, a, -wy * wy)
+        _add_at(st.wsq, target, wy * wy)
+
+    # a emptied -> push it back on the free stack (masked write otherwise)
+    push = st.ssize[a] == 0
+    slot = st.free_top.reshape(1).clamp(max=st.free.shape[0] - 1)
+    st.free[slot] = torch.where(push, a, st.free[slot])
+    st.free_top = _sc(st.free_top + push.to(torch.int32))
+    return st
+
+
+def alloc_sid(st: EngineState, ok=True) -> Tuple[EngineState, torch.Tensor]:
+    sid = st.free[(st.free_top.reshape(1) - 1).clamp(min=0)]
+    if ok is not False:
+        st.free_top = _sc(st.free_top - _masked(ok, 1))
+    return st, sid
+
+
+# --------------------------------------------------------------------------- #
+# audits (host/test use)
+# --------------------------------------------------------------------------- #
+
+
+def recompute_phi(st: EngineState,
+                  cfg: EngineConfig | None = None) -> torch.Tensor:
+    """Fold the optimal-encoding cost over all live pair entries (int32)."""
+    if cfg is not None and cfg.objective == "weighted":
+        tab = st.weab
+        a, b = tab.k1.clamp(min=0), tab.k2.clamp(min=0)
+        t = wt_of(st, a, b, a == b)
+    else:
+        tab = st.eab
+        a, b = tab.k1.clamp(min=0), tab.k2.clamp(min=0)
+        t = t_of(st.ssize[a], st.ssize[b], a == b)
+    return torch.where(tab.k1 >= 0, cost(tab.val, t), 0).sum().to(torch.int32)

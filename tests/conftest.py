@@ -13,6 +13,11 @@ if str(SRC) not in sys.path:
 # semantics are tested via subprocesses in tests/test_dist.py.
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; the test skips without one")
+
+
 def ground_truth_edges(stream):
     g = set()
     for (u, v, ins) in stream:
