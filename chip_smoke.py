@@ -5,32 +5,51 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. card: name and power limit, torch/CUDA versions, the probe kernel's
-   build (``nvcc`` into ``build/``) and its time;
-2. kernel vs plain: the CUDA probe kernel against its plain torch version,
-   bitwise, on 2^25-slot tables (the full configuration's ``adj``/``epos``
-   capacity) at 50% live load plus tombstones, in both modes, plain and
-   prehashed, with present, absent and garbage keys, at every listed lane
-   count; at the end, again on a 2^24-slot table (``eab``/``snadj``/
-   ``snpos``) at the listed and the main path's lane counts, and times
-   on the card beside the byte bound (device time from CUDA-graph
-   replay, and the time of a call from Python);
-3. main path: ``BatchedSummarizer(full_config(), device="cuda")`` over a
-   fully dynamic BA stream; the probe kernel's launch count must move,
-   ``phi == phi_recomputed()`` and the lossless decode must equal the
+1. card: name and power limit, torch/CUDA versions; both kernels built at
+   once (one ``nvcc`` per source in ``src/repro_torch/csrc/``, into
+   ``build/``), with ``nvcc``'s register and spill lines;
+2. probe kernel vs plain: the CUDA probe kernel against its plain torch
+   version, bitwise, on 2^25-slot tables (the full configuration's
+   ``adj``/``epos`` capacity) at 50% live load plus tombstones, in both
+   modes, plain and prehashed, with present, absent and garbage keys, at
+   every listed lane count; at the end, again on a 2^24-slot table
+   (``eab``/``snadj``/``snpos``) at the listed and the main path's lane
+   counts, and times on the card beside the byte bound (device time from
+   CUDA-graph replay, and the time of a call from Python);
+3. summarizer path: ``BatchedSummarizer(full_config(), device="cuda")``
+   over a fully dynamic BA stream; the probe kernel's launch count must
+   move, ``phi == phi_recomputed()`` and the lossless decode must equal the
    stream's live edge set; us/change (whole stream and its later steps),
    launches and host syncs per change, table load, peak device memory;
 4. reads: ``query()`` degree / has_edge / neighbors answers against the
-   live edge set, us/query; then ``torch.profiler`` over one fresh
-   full-config step (device busy share, kernels per change, top ops);
+   live edge set, us/query; then graph ops over that live summary: the
+   query-served ``spmm`` == ``summary_spmm`` == the dense plain sum over
+   the live edges (rtol = atol = 1e-4), both through the CSR kernel, and
+   ``minhash_signature`` through the kernel equal to the plain oracle;
+   then ``torch.profiler`` over one fresh full-config step (device busy
+   share, kernels per change, top ops);
 5. the smoke configuration on the card and on the CPU, every state leaf
-   bitwise equal after every batch.
+   bitwise equal after every batch;
+6. CSR kernel vs plain: ``csr_segment`` against its plain version for
+   sum (rtol = atol = 1e-5), min and max (bitwise), with ±inf inputs and
+   empty rows, at the ``full_graph_sm``, ``minibatch_lg`` (F = 128 and
+   602) and ``ogb_products`` shapes; kernel, plain and ``torch.sparse.mm``
+   times beside the byte bound;
+7. GraphSAGE path: one graphsage-reddit ``full_config()`` inference
+   request on a synthetic graph of Reddit's size (232,965 nodes,
+   114,615,892 directed edges, on the host): 1024 seeds sampled 15-10,
+   padded to ``minibatch_lg`` (n = e = 262,144, 602 features), forward on
+   the card; its logits against the plain path's (the same forward on the
+   CPU), rtol = atol = 1e-4; sampler seconds, ms per request, kernel
+   launches per request, and where the forward's device time goes;
+8. the egnn, dimenet and graphcast smoke configurations: the forward on
+   the card against the plain forward on the CPU, rtol = atol = 1e-4.
 
-It prints one JSON line of kernels, the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``.  The full
-per-shape table goes to ``build/chip_smoke.json``.  Without a CUDA
-device, or without the repository beside it, it exits non-zero and prints
-no result.
+Matrix products run in full float32 (TF32 off).  It prints one JSON line
+of kernels, the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.  The full per-shape tables go to
+``build/chip_smoke.json``.  Without a CUDA device, or without the
+repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -46,6 +65,15 @@ LANES = (1, 3, 20, 32, 48, 64, 160, 16384, 1 << 16, 1 << 20)
 CAP = 1 << 25                     # full_config's adj / epos capacity
 CAP_SMALL = 1 << 24               # full_config's eab / snadj / snpos capacity
 NODES = 600                       # BA nodes of the main path's stream
+FP32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
+REDDIT_NODES = 232_965            # PyG's Reddit
+REDDIT_EDGES = 114_615_892        # its directed edges
+SEEDS = 1024                      # seed nodes of one GraphSAGE request
+# (name, n, e, f) of the CSR kernel's comparisons: repro configs GNN_SHAPES
+CSR_SHAPES = (("full_graph_sm", 3072, 10752, 1433),
+              ("minibatch_lg", 262144, 262144, 128),
+              ("minibatch_lg", 262144, 262144, 602),
+              ("ogb_products", 2449408, 61859328, 100))
 
 
 _T0 = time.perf_counter()
@@ -455,6 +483,366 @@ def cuda_vs_cpu(seed: int) -> int:
     return n
 
 
+
+# --------------------------------------------------------------------- #
+# graph ops: the CSR segment-reduce kernel and the paths that run it
+# --------------------------------------------------------------------- #
+
+
+def close(got, want, reduce: str, rtol: float = 1e-5,
+          atol: float = 1e-5) -> float:
+    """Max |got - want| after holding them equal: min/max bitwise, sum
+    within the tolerances (NaN nowhere)."""
+    import torch
+    if reduce == "sum":
+        bad = ~((got - want).abs() <= atol + rtol * want.abs())
+        if bool(bad.any()):
+            raise AssertionError(f"sum differs in {int(bad.sum())} entries "
+                                 f"beyond rtol={rtol} atol={atol}")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{reduce} differs in "
+                             f"{int((got != want).sum())} entries")
+    fin = torch.isfinite(want)
+    if not bool((torch.isfinite(got) == fin).all()):
+        raise AssertionError(f"{reduce}: ±inf pattern differs")
+    d = (got - want)[fin].abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def csr_bound_ms(layout, x) -> tuple:
+    """Least time for one segment-reduce at the device memory rate, each
+    input read once (the senders, the offsets, the distinct rows of x
+    that an edge gathers) and the output written once; and the gather
+    count, which reads every edge's row: E (4 + 4F) + 4 (N + 1) + 4 N F.
+    The adds (E F at the float32 rate) take far less."""
+    import torch
+    e = int(layout.row_off[-1] - layout.row_off[0])
+    n, f = layout.row_off.numel() - 1, x.shape[1]
+    used = torch.unique(layout.senders[int(layout.row_off[0]):
+                                       int(layout.row_off[-1])]).numel()
+    once = 4 * e + 4 * (n + 1) + 4 * f * used + 4 * n * f
+    gather = e * (4 + 4 * f) + 4 * (n + 1) + 4 * n * f
+    ops_ms = 1e3 * e * f / FP32_OPS_PER_S
+    return (max(1e3 * once / HBM_BYTES_PER_S, ops_ms),
+            1e3 * gather / HBM_BYTES_PER_S)
+
+
+def library_spmm(layout, x):
+    """``torch.sparse.mm`` on the CSR adjacency: the yardstick for sum,
+    timed here and used nowhere in the port."""
+    import warnings
+    import torch
+    lo, hi = int(layout.row_off[0]), int(layout.row_off[-1])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # "beta", invariants
+        adj = torch.sparse_csr_tensor(
+            (layout.row_off - lo).to(torch.int64),
+            layout.senders[lo:hi].to(torch.int64),
+            torch.ones(hi - lo, dtype=torch.float32, device=x.device),
+            size=(layout.row_off.numel() - 1, x.shape[0]))
+    return lambda: torch.sparse.mm(adj, x)
+
+
+def time_csr(layout, x, reduce: str, big: bool) -> dict:
+    import torch
+    from repro_torch.kernels.csr_segment import (csr_segment_cuda,
+                                                 csr_segment_plain)
+    launch = lambda: csr_segment_cuda(*layout, x, reduce)  # noqa: E731
+    row = dict(ms=graph_ms(launch, 3 if big else 20, 3),
+               call_ms=cuda_ms(launch, 3 if big else 20),
+               plain_ms=cuda_ms(lambda: csr_segment_plain(*layout, x,
+                                                          reduce),
+                                1 if big else 3))
+    row["bound_ms"], row["gather_bound_ms"] = csr_bound_ms(layout, x)
+    row["library_ms"] = (cuda_ms(library_spmm(layout, x), 3 if big else 20)
+                         if reduce == "sum" else None)
+    torch.cuda.empty_cache()
+    return row
+
+
+def csr_vs_plain(gen) -> tuple:
+    """Kernel vs plain for sum/min/max at each shape of ``CSR_SHAPES``,
+    uniform random edges (empty rows where e/n is small); min/max on x
+    with ±inf planted in some rows.  Returns the rows and the max error."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.csr_segment import (csr_segment_cuda,
+                                                 csr_segment_plain)
+    rows, max_err = [], 0.0
+    for name, n, e, f in CSR_SHAPES:
+        t = time.perf_counter()
+        s = torch.randint(0, n, (e,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        r = torch.randint(0, n, (e,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        x = torch.randn((n, f), generator=gen, device="cuda")
+        x_inf = x.clone()
+        x_inf[:64:2, :8] = float("inf")
+        x_inf[1:64:2, :8] = float("-inf")
+        layout = ops.csr_layout(s, r, n)
+        empty = int((layout.degree() == 0).sum())
+        for reduce in ("sum", "min", "max"):
+            xin = x if reduce == "sum" else x_inf
+            got = csr_segment_cuda(*layout, xin, reduce)
+            want = csr_segment_plain(*layout, xin, reduce)
+            torch.cuda.synchronize()
+            err = close(got, want, reduce)
+            max_err = max(max_err, err)
+            del got, want
+            row = dict(shape=name, n=n, e=e, f=f, reduce=reduce,
+                       empty_rows=empty, max_abs_err=err,
+                       **time_csr(layout, xin, reduce, big=e > 10 ** 7))
+            rows.append(row)
+            lib = ("" if row["library_ms"] is None else
+                   f", torch.sparse.mm {row['library_ms'] * 1e3:.1f} us")
+            log(f"csr_segment {name} n={n} e={e} F={f} {reduce}: kernel == "
+                f"plain (max |err| {err:.2e}; {empty} empty rows); kernel "
+                f"{row['ms'] * 1e3:.1f} us (call {row['call_ms'] * 1e3:.1f}"
+                f" us), plain {row['plain_ms'] * 1e3:.1f} us{lib}; bound "
+                f"{row['bound_ms'] * 1e3:.1f} us (each input once), "
+                f"{row['gather_bound_ms'] * 1e3:.1f} us (every edge's row)")
+        del s, r, x, x_inf, layout
+        torch.cuda.empty_cache()
+        log(f"csr_segment {name}: {time.perf_counter() - t:.1f} s")
+    return rows, max_err
+
+
+def graph_ops_over_summary(bs, truth, seed: int) -> dict:
+    """Query-served spmm == summary_spmm == dense over the live summary,
+    and the min-hash signatures through the kernel == the plain oracle."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.gnn_over_summary import (aggregate_three_ways,
+                                                     check_agree)
+    n = max(max(e) for e in truth) + 1
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(n, 64)).astype(np.float32)).cuda()
+    ops.reset_counts()
+    t = time.perf_counter()
+    ys = aggregate_three_ways(bs, sorted(truth), x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = ops.segment_reduce.launches
+    if launches == 0:
+        raise AssertionError("graph ops over the summary launched no "
+                             "segment-reduce kernel")
+    err = check_agree(ys)
+    s = torch.tensor([u for (u, v) in truth] + [v for (u, v) in truth],
+                     dtype=torch.int32, device="cuda")
+    r = torch.tensor([v for (u, v) in truth] + [u for (u, v) in truth],
+                     dtype=torch.int32, device="cuda")
+    ops.reset_counts()
+    sig = ops.minhash_signature(s, r, n, seed + 11)
+    if ops.segment_reduce.launches != 1:
+        raise AssertionError("minhash_signature did not launch the kernel")
+    want = ref.minhash_signature_ref(s.cpu(), r.cpu(), n, seed + 11)
+    if not torch.equal(sig.cpu(), want):
+        raise AssertionError("minhash_signature differs from the oracle")
+    log(f"graph ops over the live summary: query-served spmm == "
+        f"summary_spmm == dense over {len(truth)} live edges, n={n} "
+        f"(max |diff| {err:.2e}; {launches} kernel launches; {wall:.2f} s "
+        f"with the neighbor queries); minhash_signature of {n} nodes "
+        f"equals the oracle")
+    return dict(nodes=n, live_edges=len(truth), launches=launches,
+                max_abs_diff=err, seconds=wall)
+
+
+def forward_breakdown(params, batch, cfg) -> dict:
+    """Device time of one forward by kind, from ``torch.profiler``: the CSR
+    kernel, the layout pass (sort, search, scan), matrix products, and the
+    rest (elementwise, norms, gathers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.gnn import gnn_forward
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gnn_forward(params, batch, cfg)
+        torch.cuda.synchronize()
+    kinds = {"csr_segment kernel": 0.0, "layout (sort/search)": 0.0,
+             "matmul": 0.0, "other": 0.0}
+    top = {k: [] for k in kinds}
+    count = 0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", 0) or 0
+        count += e.count
+        key = e.key.lower()
+        if "csr_segment" in key:
+            kind = "csr_segment kernel"
+        elif any(w in key for w in ("sort", "radix", "search", "scan",
+                                    "nonzero", "select")):
+            kind = "layout (sort/search)"
+        elif any(w in key for w in ("gemm", "cutlass", "xmma", "matmul",
+                                    "sm90")):
+            kind = "matmul"
+        else:
+            kind = "other"
+        kinds[kind] += us
+        top[kind].append((us, e.count, e.key[:120]))
+    return dict(device_us=kinds, device_kernels=count,
+                top={k: sorted(v, reverse=True)[:4] for k, v in top.items()})
+
+
+def graphsage_request(seed: int) -> dict:
+    """One graphsage-reddit full_config() inference request at full width
+    (see phase 7), held to the plain path on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.graphsage_reddit import FANOUTS, full_config
+    from repro_torch.data.synthetic import random_csr_graph
+    from repro_torch.graph.sampling import pad_subgraph, sample_fanout
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.csr_segment import (csr_segment_cuda,
+                                                 csr_segment_plain)
+    from repro_torch.models.gnn import (GraphBatch, gnn_forward, init_gnn,
+                                        params_to)
+
+    cfg = full_config()
+    shape = GNN_SHAPES["minibatch_lg"]
+    t = time.perf_counter()
+    g = random_csr_graph(REDDIT_NODES, REDDIT_EDGES, seed)
+    feats = np.random.default_rng(seed + 1).standard_normal(
+        (REDDIT_NODES, cfg.d_in), dtype=np.float32)
+    setup_s = time.perf_counter() - t
+    log(f"graphsage: graph of {g.n_nodes} nodes, {int(g.indptr[-1])} "
+        f"directed edges and {cfg.d_in} features on the host in "
+        f"{setup_s:.1f} s")
+    params = init_gnn(cfg, seed, device="cuda")
+
+    def serve(rng):
+        """One request: sample, pad, batch to the card, forward.  Returns
+        the batch, the logits and the host seconds of each part."""
+        t0 = time.perf_counter()
+        seeds = rng.choice(g.n_nodes, SEEDS, replace=False)
+        nodes, s, r = sample_fanout(g, seeds, FANOUTS, rng)
+        padded = pad_subgraph(nodes, s, r, shape["n"], shape["e"])
+        t1 = time.perf_counter()
+        nodes_p, s_p, r_p, nmask, emask = padded
+        arrays = (feats[nodes_p], s_p, r_p, emask, nmask,
+                  np.zeros(shape["n"], np.int32))
+        batch = GraphBatch(*(torch.from_numpy(a).cuda() for a in arrays))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        logits = gnn_forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return batch, logits, dict(nodes=len(nodes), edges=len(s),
+                                   sampler_s=t1 - t0, batch_s=t2 - t1,
+                                   forward_s=t3 - t2, request_s=t3 - t0)
+
+    rng = np.random.default_rng(seed + 2)
+    torch.cuda.synchronize()
+    # the path: counts set to 0 just before, read just after
+    ops.reset_counts()
+    batch, logits, first = serve(rng)
+    launches = ops.segment_reduce.launches
+    if launches == 0:
+        raise AssertionError("the GraphSAGE request launched no "
+                             "segment-reduce kernel")
+    if tuple(logits.shape) != (shape["n"], cfg.n_classes) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite "
+                             f"[{shape['n']}, {cfg.n_classes}]")
+    # the plain path: the same forward on the CPU
+    t = time.perf_counter()
+    want = gnn_forward(params_to(params, "cpu"), batch.to("cpu"), cfg)
+    plain_s = time.perf_counter() - t
+    got = logits.cpu()
+    bad = ~((got - want).abs() <= 1e-4 + 1e-4 * want.abs())
+    if bool(bad.any()):
+        raise AssertionError(f"GraphSAGE logits differ from the plain path "
+                             f"in {int(bad.sum())} entries (rtol=atol=1e-4)")
+    logit_err = float((got - want).abs().max())
+    # steady forward time on the card (the same batch), and warm requests
+    fwd_ms = cuda_ms(lambda: gnn_forward(params, batch, cfg), 20)
+    warm = [serve(rng)[2] for _ in range(5)]
+    med = {k: sorted(w[k] for w in warm)[len(warm) // 2]
+           for k in ("sampler_s", "batch_s", "forward_s", "request_s")}
+    breakdown = forward_breakdown(params, batch, cfg)
+    # the kernel at this request's inputs: layer 1's projected rows, F=128
+    layout = ops.csr_layout(batch.senders, batch.receivers, shape["n"],
+                            batch.edge_mask)
+    z = batch.node_feat @ params["layers"][0]["w_nbr"]
+    k_err = close(csr_segment_cuda(*layout, z, "sum"),
+                  csr_segment_plain(*layout, z, "sum"), "sum")
+    kernel = dict(max_abs_err=k_err, **time_csr(layout, z, "sum", False))
+    res = dict(graph_setup_s=setup_s, first=first, warm=warm,
+               warm_median=med, launches=launches, forward_ms=fwd_ms,
+               plain_forward_s=plain_s, logit_max_abs_err=logit_err,
+               breakdown=breakdown, kernel=kernel)
+    log(f"graphsage request: {SEEDS} seeds, fanout {FANOUTS}: "
+        f"{first['nodes']} nodes, {first['edges']} edges, padded to "
+        f"n=e={shape['n']}; {launches} segment-reduce launches per request;"
+        f" logits [{shape['n']}, {cfg.n_classes}] == the CPU plain path "
+        f"(max |err| {logit_err:.2e}; CPU forward {plain_s:.2f} s)")
+    for name, r in (("first (cold)", first), ("warm median of 5", med)):
+        log(f"graphsage {name}: request {1e3 * r['request_s']:.1f} ms = "
+            f"sampler {1e3 * r['sampler_s']:.1f} ms (host) + batch to the "
+            f"card {1e3 * r['batch_s']:.1f} ms + forward "
+            f"{1e3 * r['forward_s']:.2f} ms")
+    log(f"graphsage forward on one batch, CUDA events over 20: "
+        f"{fwd_ms:.3f} ms")
+    # the forward's matmuls: per layer x @ w_self and x @ w_nbr, then the head
+    dims = [cfg.d_in] + [cfg.d_hidden] * cfg.n_layers
+    flops = 2 * shape["n"] * (sum(2 * a * b for a, b in zip(dims, dims[1:]))
+                              + cfg.d_hidden * cfg.n_classes)
+    res["matmul_flops"] = flops
+    us = breakdown["device_us"]
+    log("graphsage forward device time (torch.profiler): " + ", ".join(
+        f"{k} {v:.1f} us" for k, v in us.items())
+        + f" ({breakdown['device_kernels']} device kernels); matmuls "
+        f"{flops / 1e9:.1f} GFLOP = "
+        f"{flops / max(us['matmul'], 1e-9) / 1e6:.1f} TFLOP/s")
+    for kind, rows in breakdown["top"].items():
+        for t_us, count, key in rows:
+            log(f"  {kind:22s} {t_us:9.1f} us  x{count:3d}  {key}")
+    log(f"csr_segment at the request's layer-1 input (F=128, "
+        f"{int(layout.row_off[-1])} edges): kernel {kernel['ms'] * 1e3:.1f}"
+        f" us, plain {kernel['plain_ms'] * 1e3:.1f} us, torch.sparse.mm "
+        f"{kernel['library_ms'] * 1e3:.1f} us, bound "
+        f"{kernel['bound_ms'] * 1e3:.1f} us")
+    return res
+
+
+def smoke_archs(seed: int) -> dict:
+    """egnn / dimenet / graphcast smoke configs: the forward on the card
+    (the CSR kernel) against the same forward on the CPU (plain)."""
+    import torch
+    from repro_torch.configs import dimenet, egnn, graphcast
+    from repro_torch.data.synthetic import graph_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import gnn_forward, init_gnn, params_to
+    out = {}
+    for mod, coords in ((egnn, True), (dimenet, True), (graphcast, False)):
+        cfg = mod.smoke_config()
+        batch = graph_batch(2048, 8192, cfg.d_in, cfg.n_classes, seed=seed,
+                            with_coords=coords, device="cpu")
+        params = init_gnn(cfg, seed, device="cpu")
+        want = gnn_forward(params, batch, cfg)
+        card = params_to(params, "cuda")
+        ops.reset_counts()
+        got = gnn_forward(card, batch.to("cuda"), cfg)
+        torch.cuda.synchronize()
+        launches = ops.segment_reduce.launches
+        if launches == 0:
+            raise AssertionError(f"{cfg.name} launched no kernel")
+        got = got.cpu()
+        bad = ~((got - want).abs() <= 1e-4 + 1e-4 * want.abs())
+        if bool(bad.any()):
+            raise AssertionError(f"{cfg.name}: card forward differs from "
+                                 f"the CPU in {int(bad.sum())} entries")
+        err = float((got - want).abs().max())
+        out[cfg.name] = dict(launches=launches, max_abs_err=err)
+        log(f"{cfg.name}: forward on the card == plain forward on the CPU "
+            f"(n=2048, e=8192; max |err| {err:.2e}; {launches} kernel "
+            f"launches)")
+    return out
+
+
 # --------------------------------------------------------------------- #
 
 
@@ -470,7 +858,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import ht_probe
+    from repro_torch.kernels import _build, csr_segment, ht_probe
+    # full float32 matrix products on the card, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. card
     smi = subprocess.run(
@@ -481,12 +872,13 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda},"
         f" python {sys.version.split()[0]}")
     t = time.perf_counter()
-    path, nvcc_out = ht_probe.build_library()
-    ht_probe.load_library()
+    built = _build.build_all([ht_probe.SOURCE, csr_segment.SOURCE])
     build_s = time.perf_counter() - t
-    log(f"build: {path.name} in {build_s:.2f} s")
-    for line in nvcc_out.strip().splitlines():
-        log(f"  nvcc: {line.strip()}")
+    log(f"build: {', '.join(p.name for p, _ in built.values())} in "
+        f"{build_s:.2f} s (one nvcc per source, started together)")
+    for _, nvcc_out in built.values():
+        for line in nvcc_out.strip().splitlines():
+            log(f"  nvcc: {line.strip()}")
 
     # 2. kernel vs plain at the full configuration's table size
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -507,6 +899,8 @@ def main() -> int:
     path_res, bs, truth, by_batch, stream = main_path(NODES, 4, seed)
     # 4. reads
     read_res = reads(bs, truth, 256, seed)
+    #    and the graph ops over the live summary (counts set to 0 inside)
+    summary_ops = graph_ops_over_summary(bs, truth, seed)
     del bs
     # key_averages() takes ~0.7 ms per event: 8 changes are ~60k kernels
     prof_res = profile_step(stream, 8)
@@ -542,12 +936,23 @@ def main() -> int:
     log("ht_probe: no single PyTorch call walks a probe chain, so "
         "library_ms is null")
     top = max(rows, key=lambda r: r.get("main_path_launches", 0))
+    del tables
+    torch.cuda.empty_cache()
+
+    # 6. the CSR kernel vs plain at the GNN shapes
+    csr_rows, csr_err = csr_vs_plain(gen)
+    # 7. the GraphSAGE path (counts set to 0 inside, just before it)
+    sage = graphsage_request(seed)
+    # 8. the other archs' smoke configs, card vs CPU
+    archs = smoke_archs(seed)
+
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, kernel_rows=rows, main_path=path_res,
-        profile=prof_res, reads=read_res), indent=1))
+        profile=prof_res, reads=read_res, summary_ops=summary_ops,
+        csr_rows=csr_rows, graphsage=sage, smoke_archs=archs), indent=1))
 
     entry = dict(name="ht_probe", route="cuda",
                  source="src/repro_torch/csrc/ht_probe.cu",
@@ -557,7 +962,17 @@ def main() -> int:
                  plain_ms=top["plain_ms"],
                  bound_ms=top["bound_ms"], bound_by="bytes",
                  library_ms=None, mode=top["mode"], lanes=top["lanes"])
-    print(json.dumps({"kernels": [entry]}))
+    k = sage["kernel"]
+    csr_entry = dict(name="csr_segment", route="cuda",
+                     source="src/repro_torch/csrc/csr_segment.cu",
+                     replaces="src/repro/kernels/csr_segment.py:34",
+                     launches=sage["launches"],
+                     max_abs_err=max(csr_err, k["max_abs_err"]),
+                     ms=k["ms"], call_ms=k["call_ms"],
+                     plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+                     bound_by="bytes", library_ms=k["library_ms"],
+                     shape="graphsage request, layer 1, F=128, sum")
+    print(json.dumps({"kernels": [entry, csr_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

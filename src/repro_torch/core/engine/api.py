@@ -21,6 +21,7 @@ from repro_torch.core.engine.trial import step_fn
 from repro_torch.core.summary import (SummaryOutput, encoding_cost,
                                       host_node_weight, is_superedge,
                                       pair_key)
+from repro_torch.device import resolve_device
 
 Change = Tuple[int, int, bool]
 
@@ -151,17 +152,6 @@ def state_phi_recomputed(state: EngineState,
 # --------------------------------------------------------------------------- #
 
 
-def _resolve_device(device) -> torch.device:
-    """The engine's device; a CUDA device must be there, never a silent
-    CPU fallback."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is visible; pass device='cpu' to run the "
-            "engine on the CPU")
-    return device
-
-
 class BatchedSummarizer:
     """Feed a fully dynamic graph stream through the engine step.
 
@@ -182,7 +172,7 @@ class BatchedSummarizer:
         elif overrides:
             cfg = dataclasses.replace(cfg, **overrides)
         self.cfg = cfg
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.state: EngineState = new_state(cfg, self.device)
         self._ids: Dict[object, int] = {}
         self._rev: List[object] = []

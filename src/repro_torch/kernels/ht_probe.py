@@ -12,7 +12,7 @@ is bitwise: the probe sequence is the table layout.
 * :func:`ht_probe_cuda` launches ``csrc/ht_probe.cu`` (one thread per
   lane; the source says what bounds it).  The shared library is built
   with ``nvcc`` at first use into ``build/`` at the repository root, from
-  this checkout's source, and loaded with ``ctypes``.
+  this checkout's source, and loaded with ``ctypes`` (``kernels/_build.py``).
 * :func:`ht_probe_plain` is the uniform masked loop over the whole batch
   of ``_probe_kernel``, in ``int64`` torch.  The CPU tests run it, and
   ``chip_smoke.py`` holds the kernel to it on the card.
@@ -23,25 +23,15 @@ this module.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch.core.engine.hashtable import EMPTY, TOMB, _probe_start
+from repro_torch.kernels import _build
 
 MODES = ("find", "insert")
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ht_probe.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-
-_LIB: Optional[ctypes.CDLL] = None
+SOURCE = _build.CSRC / "ht_probe.cu"
 
 
 def check_args(tk1, tk2, tval, q1, q2, mode: str) -> None:
@@ -125,47 +115,11 @@ def ht_probe_plain(tk1, tk2, tval, q1, q2, *, prehashed: bool = False,
 # --------------------------------------------------------------------- #
 
 
-def build_library() -> Tuple[Path, str]:
-    """Compile ``csrc/ht_probe.cu`` unless this source's build exists.
-
-    Returns the library's path and what ``nvcc`` printed (registers and
-    spills, from ``-Xptxas -v``; empty when the build was already there).
-    The name carries the source's hash, so an edited source rebuilds.
-    """
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"ht_probe_{digest}.so"
-    if out.exists():
-        return out, ""
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)   # atomic: a concurrent build cannot tear it
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's shared library."""
-    global _LIB
-    if _LIB is None:
-        path, _ = build_library()
-        lib = ctypes.CDLL(str(path))
-        lib.ht_probe_launch.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.ht_probe_launch.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.ht_probe_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.ht_probe_launch.restype = ctypes.c_int
 
 
 def ht_probe_cuda(tk1, tk2, tval, q1, q2, *, prehashed: bool = False,
@@ -182,7 +136,7 @@ def ht_probe_cuda(tk1, tk2, tval, q1, q2, *, prehashed: bool = False,
     slot = torch.empty_like(q1)
     found = torch.empty(q1.shape, dtype=torch.bool, device=q1.device)
     val = torch.empty_like(q1)
-    lib = load_library()
+    lib = _build.load(SOURCE, _bind)
     with torch.cuda.device(tk1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ht_probe_launch(

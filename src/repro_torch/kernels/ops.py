@@ -2,19 +2,39 @@
 
 Each wrapper picks by device: the hand-written kernel for CUDA tensors,
 its plain torch version for CPU tensors.  A CUDA tensor goes to the
-kernel or the call raises; nothing falls back.  Each wrapper counts its
-kernel launches in a plain integer attribute (``ht_probe.launches``), and
-``ht_probe.by_batch`` counts them by ``(mode, lanes)``, so a run can show
-that its main path went through the kernel and with which shapes.
+kernel or the call raises; nothing falls back.  Each kernel counts its
+launches in a plain integer attribute of its wrapper, set where the
+wrapper launches it and nowhere else: ``ht_probe.launches`` (with
+``ht_probe.by_batch`` by ``(mode, lanes)``) and ``segment_reduce.launches``
+(incremented by :func:`segment_reduce_csr`, the one place that launches
+the CSR kernel), so a run can show that its path went through them.
+
+The graph ops (port of ``repro/kernels/ops.py``) all reduce through the
+CSR segment-reduce kernel: :func:`segment_reduce`, :func:`spmm`,
+:func:`summary_spmm` (four segment sums), :func:`embedding_bag` and
+:func:`minhash_signature`.
 """
 from __future__ import annotations
 
 from collections import Counter
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ref
+from repro_torch.kernels.csr_segment import (build_csr, csr_segment_cuda,
+                                             csr_segment_plain)
 from repro_torch.kernels.ht_probe import ht_probe_cuda, ht_probe_plain
+
+
+def _route(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the
+    plain version); raises for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors: {t.device}")
+    return False
 
 
 def ht_probe(tk1: torch.Tensor, tk2: torch.Tensor, tval: torch.Tensor,
@@ -26,15 +46,12 @@ def ht_probe(tk1: torch.Tensor, tk2: torch.Tensor, tval: torch.Tensor,
     Tables ``int32[cap]`` (``cap`` a power of two), queries ``int32[B]``;
     ``mode`` is ``"find"`` or ``"insert"`` (see ``kernels/ht_probe.py``).
     """
-    if tk1.device.type == "cuda":
+    if _route(tk1, "ht_probe"):
         out = ht_probe_cuda(tk1, tk2, tval, q1, q2, prehashed=prehashed,
                             mode=mode)
         ht_probe.launches += 1
         ht_probe.by_batch[mode, q1.shape[0]] += 1
         return out
-    if tk1.device.type != "cpu":
-        raise ValueError(f"ht_probe runs on CUDA or CPU tensors: "
-                         f"{tk1.device}")
     return ht_probe_plain(tk1, tk2, tval, q1, q2, prehashed=prehashed,
                           mode=mode)
 
@@ -43,7 +60,113 @@ ht_probe.launches = 0
 ht_probe.by_batch = Counter()
 
 
+# --------------------------------------------------------------------- #
+# graph ops over the CSR segment-reduce kernel
+# --------------------------------------------------------------------- #
+
+
+class Csr(NamedTuple):
+    """An edge list laid out by destination row: ``senders`` (int32, in
+    row order) and ``row_off`` (int32[n_out + 1]); row ``r``'s edges are
+    ``senders[row_off[r]:row_off[r + 1]]``."""
+    senders: torch.Tensor
+    row_off: torch.Tensor
+
+    def degree(self) -> torch.Tensor:
+        """Edges per row (int32[n_out])."""
+        return self.row_off[1:] - self.row_off[:-1]
+
+
+def csr_layout(senders: torch.Tensor, receivers: torch.Tensor, n_out: int,
+               edge_mask: Optional[torch.Tensor] = None) -> Csr:
+    """Sort the edges by receiver (stably) into a :class:`Csr`; edges
+    whose mask is false, and receivers outside ``[0, n_out)``, drop out."""
+    order, row_off = build_csr(receivers, n_out, edge_mask)
+    return Csr(senders.reshape(-1)[order].to(torch.int32).contiguous(),
+               row_off)
+
+
+def segment_reduce_csr(layout: Csr, x: torch.Tensor,
+                       reduce: str = "sum") -> torch.Tensor:
+    """``out[r] = reduce over row r's edges of x[sender]`` (float32
+    ``x[N, F]``); rows with no edge get 0, ±inf inputs pass min/max."""
+    x = x.contiguous()
+    if _route(x, "segment_reduce"):
+        out = csr_segment_cuda(layout.senders, layout.row_off, x, reduce)
+        if out.numel():
+            segment_reduce.launches += 1
+        return out
+    return csr_segment_plain(layout.senders, layout.row_off, x, reduce)
+
+
+def segment_reduce(senders: torch.Tensor, receivers: torch.Tensor,
+                   x: torch.Tensor, n_out: int,
+                   reduce: str = "sum") -> torch.Tensor:
+    """Graph message passing: ``out[r] = reduce_{e: receivers[e]==r}
+    x[senders[e]]``."""
+    return segment_reduce_csr(csr_layout(senders, receivers, n_out), x,
+                              reduce)
+
+
+segment_reduce.launches = 0
+
+
+def spmm(senders: torch.Tensor, receivers: torch.Tensor,
+         x: torch.Tensor) -> torch.Tensor:
+    """A @ X for an edge-list adjacency (destination-major)."""
+    return segment_reduce(senders, receivers, x, x.shape[0], "sum")
+
+
+def summary_spmm(x, n2s, n_super, p_src, p_dst, cp_src, cp_dst,
+                 cm_src, cm_dst, self_loop_super) -> torch.Tensor:
+    """A @ X straight from (G*, C): |P|+|C+|+|C-| work instead of |E|.
+
+    The terms of ``ref.summary_spmm_ref``, with each of its four segment
+    sums through :func:`segment_reduce`.
+    """
+    n = x.shape[0]
+    nodes = torch.arange(n, device=x.device)
+    z = segment_reduce(nodes, n2s, x, n_super)          # supernode sums
+    w = segment_reduce(p_src, p_dst, z, n_super)
+    n2s = n2s.to(torch.int64)
+    y = w[n2s]
+    self_mask = self_loop_super[n2s][:, None]
+    y = y + torch.where(self_mask, z[n2s] - x, torch.zeros_like(x))
+    y = y + segment_reduce(cp_src, cp_dst, x, n)
+    return y - segment_reduce(cm_src, cm_dst, x, n)
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  offsets: torch.Tensor, mode: str = "sum") -> torch.Tensor:
+    """EmbeddingBag: bag ``b`` reduces ``table[indices[offsets[b]:
+    offsets[b + 1]]]``.  The bags are already rows of a CSR (``offsets``
+    is its ``row_off``), so no sort is needed."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean': {mode!r}")
+    layout = Csr(indices.to(torch.int32).contiguous(),
+                 offsets.to(torch.int32).contiguous())
+    out = segment_reduce_csr(layout, table, "sum")
+    if mode == "mean":
+        counts = torch.clamp(layout.degree(), min=1)
+        out = out / counts[:, None].to(out.dtype)
+    return out
+
+
+def minhash_signature(senders: torch.Tensor, receivers: torch.Tensor,
+                      n_nodes: int, seed: int = 0) -> torch.Tensor:
+    """Bulk min-hash signatures (coarse clustering over a whole snapshot):
+    the min over a node's in-edges of ``_mixhash(sender)``, taken in
+    float32 through the kernel; isolated nodes get ``2^31 - 1``."""
+    h = ref._mixhash(senders, seed).to(torch.float32)[:, None]
+    layout = csr_layout(torch.arange(senders.shape[0], device=h.device),
+                        receivers, n_nodes)
+    out = ref.to_int32_saturating(segment_reduce_csr(layout, h, "min")[:, 0])
+    return torch.where(layout.degree() > 0, out,
+                       torch.full_like(out, ref.INT32_MAX))
+
+
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
     ht_probe.launches = 0
     ht_probe.by_batch = Counter()
+    segment_reduce.launches = 0

@@ -25,6 +25,8 @@ def test_port_imports_nothing_of_jax_or_repro():
         repro_torch.__path__, "repro_torch."))
     assert "repro_torch.kernels.ht_probe" in names
     assert "repro_torch.launch.stream" in names
+    assert "repro_torch.kernels.csr_segment" in names
+    assert "repro_torch.models.gnn" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
