@@ -5,8 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. card: name and power limit, torch/CUDA versions; both kernels built at
-   once (one ``nvcc`` per source in ``src/repro_torch/csrc/``, into
+1. card: name and power limit, torch/CUDA versions; the three kernels
+   built at once (one ``nvcc`` per source in ``src/repro_torch/csrc/``, into
    ``build/``), with ``nvcc``'s register and spill lines;
 2. probe kernel vs plain: the CUDA probe kernel against its plain torch
    version, bitwise, on 2^25-slot tables (the full configuration's
@@ -43,7 +43,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CPU), rtol = atol = 1e-4; sampler seconds, ms per request, kernel
    launches per request, and where the forward's device time goes;
 8. the egnn, dimenet and graphcast smoke configurations: the forward on
-   the card against the plain forward on the CPU, rtol = atol = 1e-4.
+   the card against the plain forward on the CPU, rtol = atol = 1e-4;
+9. flash-attention kernel vs plain: the CUDA kernel against its plain
+   torch version at the sweep shapes of ``tests/test_kernels.py`` in
+   float32 (rtol = atol = 2e-3) and bfloat16 (3e-2), at the smoke head
+   widths 8 and 16, and at internlm2-20b's layer shape (B = 2, H = 48,
+   Hkv = 8, T = 4096, D = 128, bf16, causal, q/k/v as the strided views
+   the transformer hands it); at the layer shape the kernel's device time
+   (CUDA-graph replay), the call from Python, the plain version and
+   ``scaled_dot_product_attention`` beside the operation bound;
+10. LM path: (a) internlm2-20b's full widths with 2 of its 48 layers in
+   float32, B = 1, T = 512: the forward's logits on the card (kernel)
+   against the same forward on the CPU (plain), rtol = atol = 1e-3, and
+   teacher-forced ``decode_step`` on the card against the forward within
+   2e-3; (b) one prefill request at internlm2-20b's ``full_config()`` (48
+   layers, bf16, weights drawn on the card from the seed), B = 2,
+   T = 4096: finite logits, 48 kernel launches per forward, ms cold and
+   warm, device time by kind (``torch.profiler``), peak memory; (c)
+   ``serve(..., full=True)`` on internlm2-20b, batch 4, prompt 16, 32
+   tokens, ms per token beside the weight-read bound; (d) the smoke
+   configurations of internlm2-20b, llama3-405b, granite-moe-3b-a800m and
+   moonshot-v1-16b-a3b at T = 256, card (kernel) against CPU (plain),
+   rtol = atol = 1e-4.
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -66,6 +87,9 @@ CAP = 1 << 25                     # full_config's adj / epos capacity
 CAP_SMALL = 1 << 24               # full_config's eab / snadj / snpos capacity
 NODES = 600                       # BA nodes of the main path's stream
 FP32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
+BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 tensor-core rate
+# words in the names of cuBLAS/CUTLASS matrix-product kernels
+MATMUL_WORDS = ("gemm", "cutlass", "xmma", "matmul", "sm90", "nvjet", "gemv")
 REDDIT_NODES = 232_965            # PyG's Reddit
 REDDIT_EDGES = 114_615_892        # its directed edges
 SEEDS = 1024                      # seed nodes of one GraphSAGE request
@@ -74,6 +98,14 @@ CSR_SHAPES = (("full_graph_sm", 3072, 10752, 1433),
               ("minibatch_lg", 262144, 262144, 128),
               ("minibatch_lg", 262144, 262144, 602),
               ("ogb_products", 2449408, 61859328, 100))
+# (B, H, Hkv, T, D, causal) of the attention comparisons: the sweep of
+# tests/test_kernels.py, then the smoke configs' head widths 8 and 16
+ATTN_SHAPES = ((2, 4, 2, 256, 64, True), (1, 8, 8, 128, 128, True),
+               (2, 4, 1, 384, 64, False), (2, 8, 2, 256, 8, True),
+               (2, 4, 4, 256, 16, True))
+LAYER_SHAPE = (2, 48, 8, 4096, 128, True)   # internlm2-20b, B=2 T=4096
+PREFILL = (2, 4096)               # (B, T) of the prefill request
+SERVE = (4, 16, 32)               # batch, prompt, tokens of the serve run
 
 
 _T0 = time.perf_counter()
@@ -490,15 +522,15 @@ def cuda_vs_cpu(seed: int) -> int:
 
 
 def close(got, want, reduce: str, rtol: float = 1e-5,
-          atol: float = 1e-5) -> float:
+          atol: float = 1e-5, what: str = "sum") -> float:
     """Max |got - want| after holding them equal: min/max bitwise, sum
-    within the tolerances (NaN nowhere)."""
+    within the tolerances (NaN nowhere); ``what`` names a sum's check."""
     import torch
     if reduce == "sum":
         bad = ~((got - want).abs() <= atol + rtol * want.abs())
         if bool(bad.any()):
-            raise AssertionError(f"sum differs in {int(bad.sum())} entries "
-                                 f"beyond rtol={rtol} atol={atol}")
+            raise AssertionError(f"{what} differs in {int(bad.sum())} "
+                                 f"entries beyond rtol={rtol} atol={atol}")
     elif not torch.equal(got, want):
         raise AssertionError(f"{reduce} differs in "
                              f"{int((got != want).sum())} entries")
@@ -648,21 +680,21 @@ def graph_ops_over_summary(bs, truth, seed: int) -> dict:
                 max_abs_diff=err, seconds=wall)
 
 
-def forward_breakdown(params, batch, cfg) -> dict:
-    """Device time of one forward by kind, from ``torch.profiler``: the CSR
-    kernel, the layout pass (sort, search, scan), matrix products, and the
-    rest (elementwise, norms, gathers)."""
+def device_breakdown(run, kinds) -> dict:
+    """Device time of ``run()`` by kind, from ``torch.profiler``: ``kinds``
+    maps each kind to words of its kernels' names (the first kind with a
+    word in a kernel's name takes it; the rest is "other")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models.gnn import gnn_forward
     torch.cuda.synchronize()
+    t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        gnn_forward(params, batch, cfg)
+        run()
         torch.cuda.synchronize()
-    kinds = {"csr_segment kernel": 0.0, "layout (sort/search)": 0.0,
-             "matmul": 0.0, "other": 0.0}
-    top = {k: [] for k in kinds}
+    wall = time.perf_counter() - t
+    device_us = {k: 0.0 for k in (*kinds, "other")}
+    top = {k: [] for k in device_us}
     count = 0
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -670,19 +702,12 @@ def forward_breakdown(params, batch, cfg) -> dict:
         us = getattr(e, "self_device_time_total", 0) or 0
         count += e.count
         key = e.key.lower()
-        if "csr_segment" in key:
-            kind = "csr_segment kernel"
-        elif any(w in key for w in ("sort", "radix", "search", "scan",
-                                    "nonzero", "select")):
-            kind = "layout (sort/search)"
-        elif any(w in key for w in ("gemm", "cutlass", "xmma", "matmul",
-                                    "sm90")):
-            kind = "matmul"
-        else:
-            kind = "other"
-        kinds[kind] += us
+        kind = next((k for k, words in kinds.items()
+                     if any(w in key for w in words)), "other")
+        device_us[kind] += us
         top[kind].append((us, e.count, e.key[:120]))
-    return dict(device_us=kinds, device_kernels=count,
+    return dict(device_us=device_us, device_kernels=count,
+                profiled_wall_s=wall,
                 top={k: sorted(v, reverse=True)[:4] for k, v in top.items()})
 
 
@@ -762,7 +787,12 @@ def graphsage_request(seed: int) -> dict:
     warm = [serve(rng)[2] for _ in range(5)]
     med = {k: sorted(w[k] for w in warm)[len(warm) // 2]
            for k in ("sampler_s", "batch_s", "forward_s", "request_s")}
-    breakdown = forward_breakdown(params, batch, cfg)
+    breakdown = device_breakdown(
+        lambda: gnn_forward(params, batch, cfg),
+        {"csr_segment kernel": ("csr_segment",),
+         "layout (sort/search)": ("sort", "radix", "search", "scan",
+                                  "nonzero", "select"),
+         "matmul": MATMUL_WORDS})
     # the kernel at this request's inputs: layer 1's projected rows, F=128
     layout = ops.csr_layout(batch.senders, batch.receivers, shape["n"],
                             batch.edge_mask)
@@ -844,6 +874,331 @@ def smoke_archs(seed: int) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# LM inference: the flash-attention kernel and the paths that run it
+# --------------------------------------------------------------------- #
+
+
+def attn_inputs(b, h, hkv, t, d, dtype, gen, strided: bool = False):
+    """q, k, v drawn on the card; ``strided`` lays them out as the
+    transformer hands them over: ``[B, T, heads, D]`` memory viewed as
+    ``[B, heads, T, D]``."""
+    import torch
+
+    def draw(heads):
+        shape = (b, t, heads, d) if strided else (b, heads, t, d)
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return x.transpose(1, 2) if strided else x
+    return draw(h), draw(hkv), draw(hkv)
+
+
+def attn_bound_ms(q, k, causal: bool) -> float:
+    """Least time for one attention call: the larger of its useful flops
+    (2 D for q.k and 2 D for p.v per (query, key) pair it keeps; causal
+    keeps T (T + 1) / 2 pairs per head) at the card's peak for the dtype
+    (bf16 tensor cores, or float32 outside them) and its bytes (q, k, v
+    read once, o written once) at the device memory rate."""
+    import torch
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    pairs = tq * (tq + 1) // 2 if causal else tq * tk
+    flops = 4 * d * b * h * pairs
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return max(1e3 * flops / rate, 1e3 * nbytes / HBM_BYTES_PER_S)
+
+
+def attention_vs_plain(gen) -> tuple:
+    """Phase 9: kernel vs plain at every listed shape, and its times at
+    internlm2-20b's layer shape.  Returns (rows, max |err|, layer row)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    rows, max_err = [], 0.0
+    shapes = [(dt, tol, *s) for dt, tol in ((torch.float32, 2e-3),
+                                            (torch.bfloat16, 3e-2))
+              for s in ATTN_SHAPES]
+    # the layer shape in float32 (the SIMT kernel) and bf16 (tensor cores)
+    shapes += [(torch.float32, 2e-3, *LAYER_SHAPE),
+               (torch.bfloat16, 3e-2, *LAYER_SHAPE)]
+    layer = None
+    for dtype, tol, b, h, hkv, t, d, causal in shapes:
+        is_layer = (b, h, hkv, t, d, causal) == LAYER_SHAPE
+        q, k, v = attn_inputs(b, h, hkv, t, d, dtype, gen, strided=is_layer)
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = close(got.float(), want.float(), "sum", tol, tol,
+                    f"flash_attention {dtype} {(b, h, hkv, t, d, causal)}")
+        max_err = max(max_err, err)
+        row = dict(dtype=str(dtype), b=b, h=h, hkv=hkv, t=t, d=d,
+                   causal=causal, tol=tol, max_abs_err=err)
+        rows.append(row)
+        log(f"flash_attention {str(dtype)[6:]:8s} B={b} H={h} Hkv={hkv} "
+            f"T={t} D={d} causal={causal}: kernel == plain (max |err| "
+            f"{err:.2e}, tol {tol})")
+        del got, want
+        if is_layer:
+            def launch():
+                return flash_attention_cuda(q, k, v, causal=True)
+            row["ms"] = graph_ms(launch, 3, 3)
+            row["call_ms"] = cuda_ms(launch, 5)
+            row["plain_ms"] = cuda_ms(
+                lambda: flash_attention_plain(q, k, v, causal=True), 2)
+            row["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 10)
+            row["bound_ms"] = attn_bound_ms(q, k, True)
+            flops = 4 * d * b * h * (t * (t + 1) // 2)
+            row["tflops"] = flops / row["ms"] / 1e9
+            if dtype == torch.bfloat16:
+                layer = row
+            log(f"flash_attention at the layer shape, {str(dtype)[6:]}: "
+                f"kernel {row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s; "
+                f"call {row['call_ms']:.3f} ms), plain "
+                f"{row['plain_ms']:.3f} ms,"
+                f" scaled_dot_product_attention {row['library_ms']:.3f} ms,"
+                f" bound {row['bound_ms']:.3f} ms (operations, "
+                f"{flops / 1e9:.1f} GFLOP at the {str(dtype)[6:]} peak)")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows, max_err, layer
+
+
+def lm_card_vs_cpu(seed: int) -> dict:
+    """Phase 10(a): internlm2-20b's full widths, 2 layers, float32."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import internlm2_20b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(internlm2_20b.full_config(), n_layers=2,
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    params = tfm.init_transformer(cfg, seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (1, 512), generator=gen,
+                         device="cuda")
+    ops.reset_counts()
+    logits = tfm.forward(params, toks, cfg)
+    torch.cuda.synchronize()
+    launches = ops.attention.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"2-layer forward launched the attention "
+                             f"kernel {launches} times")
+    t = time.perf_counter()
+    want = tfm.forward(tfm.params_to(params, "cpu"), toks.cpu(), cfg)
+    cpu_s = time.perf_counter() - t
+    err = close(logits.cpu(), want, "sum", 1e-3, 1e-3,
+                "2-layer f32 logits, card vs CPU")
+    del want
+    cache = tfm.init_cache(cfg, 1, 512, device="cuda")
+    t = time.perf_counter()
+    dec_err = 0.0
+    for i in range(512):
+        lg, cache = tfm.decode_step(params, cache, toks[:, i], cfg)
+        dec_err = max(dec_err, float((lg - logits[:, i]).abs().max()))
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t
+    if dec_err >= 2e-3:
+        raise AssertionError(f"decode diverged from forward: {dec_err}")
+    log(f"lm (a): internlm2-20b widths, 2 layers, f32, B=1 T=512: logits on "
+        f"the card == the CPU's (max |err| {err:.2e}, rtol=atol=1e-3; CPU "
+        f"forward {cpu_s:.1f} s; {launches} kernel launches); 512 "
+        f"teacher-forced decode steps == forward (max |err| {dec_err:.2e} "
+        f"< 2e-3; {1e3 * dec_s / 512:.2f} ms/step)")
+    return dict(max_abs_err=err, decode_max_abs_err=dec_err,
+                launches=launches, cpu_forward_s=cpu_s,
+                decode_ms_per_step=1e3 * dec_s / 512)
+
+
+def lm_prefill_request(seed: int) -> dict:
+    """Phase 10(b): one prefill request at internlm2-20b's full config."""
+    import torch
+    from repro_torch.configs import internlm2_20b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import param_count
+    cfg = internlm2_20b.full_config()
+    b, t = PREFILL
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tfm.init_transformer(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    param_bytes = torch.cuda.memory_allocated() - base
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
+    log(f"lm (b): internlm2-20b full_config: {n_params / 1e9:.3f} B "
+        f"parameters ({param_bytes / 1e9:.2f} GB on the card) drawn in "
+        f"{init_s:.1f} s; prompt B={b} T={t}")
+    torch.cuda.reset_peak_memory_stats()
+    # the path: counts set to 0 just before, read just after
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    logits = tfm.forward(params, toks, cfg)
+    torch.cuda.synchronize()
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    launches = ops.attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"the prefill forward launched the attention "
+                             f"kernel {launches} times, not "
+                             f"{cfg.n_layers}")
+    if tuple(logits.shape) != (b, t, cfg.vocab_padded) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab]).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite")
+    del logits
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        tfm.forward(params, toks, cfg)
+        torch.cuda.synchronize()
+        warm.append(1e3 * (time.perf_counter() - t0))
+    warm_ms = min(warm)
+    breakdown = device_breakdown(
+        lambda: tfm.forward(params, toks, cfg),
+        {"attention kernel": ("flash_attention",), "matmul": MATMUL_WORDS})
+    # projections, FFN and head: 2 flops per weight per token
+    mm_flops = 2 * b * t * (n_params - cfg.vocab_padded * cfg.d_model
+                            - 2 * cfg.n_layers * cfg.d_model - cfg.d_model)
+    attn_flops = cfg.n_layers * 4 * cfg.d_head * b * cfg.n_heads * (
+        t * (t + 1) // 2)
+    us = breakdown["device_us"]
+    res = dict(batch=b, seq=t, params=n_params, param_bytes=param_bytes,
+               init_s=init_s, cold_ms=cold_ms, warm_ms=warm_ms,
+               warm_runs_ms=warm, launches=launches,
+               peak_bytes=peak, matmul_flops=mm_flops,
+               attention_flops=attn_flops, breakdown=breakdown,
+               tokens_per_s=b * t / (warm_ms / 1e3))
+    log(f"lm (b): prefill forward cold {cold_ms:.1f} ms, warm "
+        f"{warm_ms:.1f} ms ({res['tokens_per_s']:.0f} tokens/s); "
+        f"{launches} attention-kernel launches per forward; peak device "
+        f"memory {peak / 1e9:.2f} GB")
+    log("lm (b): forward device time (torch.profiler): " + ", ".join(
+        f"{k} {v / 1e3:.1f} ms" for k, v in us.items())
+        + f" ({breakdown['device_kernels']} device kernels); matmuls "
+        f"{mm_flops / 1e12:.1f} TFLOP = "
+        f"{mm_flops / max(us['matmul'], 1e-9) / 1e6:.1f} TFLOP/s; attention"
+        f" {attn_flops / 1e12:.2f} TFLOP = "
+        f"{attn_flops / max(us['attention kernel'], 1e-9) / 1e6:.1f} "
+        f"TFLOP/s")
+    for kind, rows in breakdown["top"].items():
+        for t_us, count, key in rows:
+            log(f"  {kind:16s} {t_us / 1e3:10.2f} ms  x{count:4d}  {key}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_serve(seed: int, n_params: int) -> dict:
+    """Phase 10(c): the serve loop at internlm2-20b's full config
+    (``n_params``: its parameter count, for the weight-read bound)."""
+    import torch
+    from repro_torch.configs import internlm2_20b
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    cfg = internlm2_20b.full_config()
+    batch, prompt_len, n_tok = SERVE
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    out = serve(internlm2_20b.ARCH_ID, batch, prompt_len, n_tok, seed,
+                device="cuda", full=True)
+    total_s = time.perf_counter() - t0
+    toks = out["tokens"]
+    if tuple(toks.shape) != (batch, n_tok) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"serve gave tokens {tuple(toks.shape)} "
+                             f"outside [0, {cfg.vocab})")
+    # every bf16 weight is read once per token except the embedding
+    # table, of which a step gathers one row per request
+    n = n_params - cfg.vocab_padded * cfg.d_model + batch * cfg.d_model
+    bound_ms = 1e3 * 2 * n / HBM_BYTES_PER_S
+    res = dict(batch=batch, prompt_len=prompt_len, tokens=n_tok,
+               prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+               ms_per_token=out["ms_per_token"], bound_ms=bound_ms,
+               total_s=total_s, attention_launches=ops.attention.launches)
+    log(f"lm (c): serve(internlm2-20b, full=True) batch {batch}, prompt "
+        f"{prompt_len}, {n_tok} tokens: {out['ms_per_token']:.2f} ms/token "
+        f"decode (weight-read bound {bound_ms:.2f} ms), teacher-forced "
+        f"prefill {1e3 * out['prefill_s'] / prompt_len:.2f} ms/token; "
+        f"{total_s:.1f} s with the weights drawn; attention-kernel launches "
+        f"{ops.attention.launches} (decode takes kernels/ref.py)")
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_decode_profile(seed: int, ms_per_token: float) -> dict:
+    """Where a full-config decode step's time goes: ``torch.profiler``
+    over the serve loop (batch 4, 4 prompt tokens teacher-forced, 4
+    generated: 8 steps) on weights drawn anew.  The device busy share is
+    the profiled device time per step over the unprofiled ms per token of
+    phase 10(c) (the profiler slows the host)."""
+    import torch
+    from repro_torch.configs import internlm2_20b
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as tfm
+    cfg = internlm2_20b.full_config()
+    params = tfm.init_transformer(cfg, seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab, (SERVE[0], 4), generator=gen,
+                           device="cuda")
+    generate(params, cfg, prompt, 2)               # warm-up
+    prof = device_breakdown(lambda: generate(params, cfg, prompt, 4), {})
+    steps = 8
+    device_us = prof["device_us"]["other"]
+    kernels = prof["device_kernels"]
+    res = dict(steps=steps, device_ms_per_step=device_us / 1e3 / steps,
+               profiled_wall_ms_per_step=1e3 * prof["profiled_wall_s"]
+               / steps,
+               kernels_per_step=kernels / steps,
+               device_busy_share=device_us / 1e3 / steps / ms_per_token)
+    log(f"lm (c): decode step under torch.profiler: device "
+        f"{res['device_ms_per_step']:.2f} ms/step, {kernels / steps:.0f} "
+        f"device kernels/step; device busy "
+        f"{100 * res['device_busy_share']:.1f}% of the unprofiled "
+        f"{ms_per_token:.2f} ms/token (profiled wall "
+        f"{res['profiled_wall_ms_per_step']:.2f} ms/step)")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_smoke_archs(seed: int) -> dict:
+    """Phase 10(d): the four LM smoke configs, card vs CPU, T = 256."""
+    import torch
+    from repro_torch.configs import (granite_moe_3b_a800m, internlm2_20b,
+                                     llama3_405b, moonshot_v1_16b_a3b)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    out = {}
+    for mod in (internlm2_20b, llama3_405b, granite_moe_3b_a800m,
+                moonshot_v1_16b_a3b):
+        cfg = mod.smoke_config()
+        params = tfm.init_transformer(cfg, seed, device="cpu")
+        toks = torch.randint(0, cfg.vocab, (2, 256),
+                             generator=torch.Generator().manual_seed(seed))
+        want = tfm.forward(params, toks, cfg)
+        ops.reset_counts()
+        got = tfm.forward(tfm.params_to(params, "cuda"), toks.cuda(), cfg)
+        torch.cuda.synchronize()
+        launches = ops.attention.launches
+        if launches != cfg.n_layers:
+            raise AssertionError(f"{cfg.name} launched the kernel "
+                                 f"{launches} times")
+        err = close(got.cpu(), want, "sum", 1e-4, 1e-4,
+                    f"{cfg.name} card vs CPU")
+        out[cfg.name] = dict(launches=launches, max_abs_err=err,
+                             d_head=cfg.d_head)
+        log(f"lm (d): {cfg.name} (D={cfg.d_head}) forward on the card == "
+            f"the CPU's at B=2 T=256 (max |err| {err:.2e}; {launches} kernel"
+            f" launches)")
+    return out
+
+
+# --------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -858,7 +1213,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build, csr_segment, ht_probe
+    from repro_torch.kernels import (_build, csr_segment, flash_attention,
+                                     ht_probe)
     # full float32 matrix products on the card, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -872,7 +1228,8 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda},"
         f" python {sys.version.split()[0]}")
     t = time.perf_counter()
-    built = _build.build_all([ht_probe.SOURCE, csr_segment.SOURCE])
+    built = _build.build_all([ht_probe.SOURCE, csr_segment.SOURCE,
+                              flash_attention.SOURCE])
     build_s = time.perf_counter() - t
     log(f"build: {', '.join(p.name for p, _ in built.values())} in "
         f"{build_s:.2f} s (one nvcc per source, started together)")
@@ -945,6 +1302,20 @@ def main() -> int:
     sage = graphsage_request(seed)
     # 8. the other archs' smoke configs, card vs CPU
     archs = smoke_archs(seed)
+    torch.cuda.empty_cache()
+
+    # 9. the flash-attention kernel vs plain, and its times at the layer
+    # shape
+    attn_rows, attn_err, layer = attention_vs_plain(gen)
+    # 10. the LM path: (a) full widths, 2 layers, card vs CPU; (b) one
+    # full-config prefill request (counts set to 0 inside, just before
+    # it); (c) the serve loop at full config; (d) the smoke configs
+    lm_a = lm_card_vs_cpu(seed)
+    torch.cuda.empty_cache()
+    lm_b = lm_prefill_request(seed)
+    lm_c = lm_serve(seed, lm_b["params"])
+    lm_c["profile"] = lm_decode_profile(seed, lm_c["ms_per_token"])
+    lm_d = lm_smoke_archs(seed)
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -952,7 +1323,9 @@ def main() -> int:
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, kernel_rows=rows, main_path=path_res,
         profile=prof_res, reads=read_res, summary_ops=summary_ops,
-        csr_rows=csr_rows, graphsage=sage, smoke_archs=archs), indent=1))
+        csr_rows=csr_rows, graphsage=sage, smoke_archs=archs,
+        attention_rows=attn_rows, lm_card_vs_cpu=lm_a, lm_prefill=lm_b,
+        lm_serve=lm_c, lm_smoke_archs=lm_d), indent=1))
 
     entry = dict(name="ht_probe", route="cuda",
                  source="src/repro_torch/csrc/ht_probe.cu",
@@ -972,7 +1345,16 @@ def main() -> int:
                      plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
                      bound_by="bytes", library_ms=k["library_ms"],
                      shape="graphsage request, layer 1, F=128, sum")
-    print(json.dumps({"kernels": [entry, csr_entry]}))
+    attn_entry = dict(name="flash_attention", route="cuda",
+                      source="src/repro_torch/csrc/flash_attention.cu",
+                      replaces="src/repro/kernels/flash_attention.py:25",
+                      launches=lm_b["launches"], max_abs_err=attn_err,
+                      ms=layer["ms"], call_ms=layer["call_ms"],
+                      plain_ms=layer["plain_ms"], bound_ms=layer["bound_ms"],
+                      bound_by="operations", library_ms=layer["library_ms"],
+                      shape="internlm2-20b layer: B=2 H=48 Hkv=8 T=4096 "
+                            "D=128 bf16 causal")
+    print(json.dumps({"kernels": [entry, csr_entry, attn_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,4 +1,5 @@
-"""The GNN input shapes of ``repro/configs/base.py`` (no arch registry)."""
+"""The GNN and LM input shapes of ``repro/configs/base.py`` (no arch
+registry)."""
 from __future__ import annotations
 
 
@@ -17,4 +18,14 @@ GNN_SHAPES = dict(
                       kind="train", note="2449029 live nodes, rest masked"),
     molecule=dict(n=_pad512(30 * 128), e=64 * 128 * 2, f=32, kind="train",
                   note="128 molecules of 30 nodes, flattened disjoint union"),
+)
+
+
+# tokens per sequence and sequences per batch of the LM cells; decode is
+# one new token against a ``seq``-long KV cache
+LM_SHAPES = dict(
+    train_4k=dict(seq=4096, batch=256, kind="train"),
+    prefill_32k=dict(seq=32768, batch=32, kind="prefill"),
+    decode_32k=dict(seq=32768, batch=128, kind="decode"),
+    long_500k=dict(seq=524288, batch=1, kind="decode"),
 )

@@ -1,0 +1,680 @@
+// Flash attention for Hopper (sm_90a): the LM forward's attention.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
+// _attn_kernel (wrapper flash_attention).  For q[B, H, Tq, D] and
+// k, v[B, Hkv, Tk, D] (H a multiple of Hkv) it computes, per query row,
+//   o = softmax((q / sqrt(D)) k^T) v
+// with the online softmax: the scale 1/sqrt(D) is applied in float32 (to
+// q in the SIMT kernel, to the scores in the tensor-core one), the running
+// max m, the denominator l and the accumulator stay in float32, masked
+// scores are -1e30 (not -inf) as in the TPU kernel, and the output is
+// acc / max(l, 1e-30) written in q's type (float32 or bfloat16).  Query
+// head ih reads KV head ih / (H / Hkv): grouped-query attention with no
+// copy of K or V.  Causal mode masks key position > query position
+// (aligned top-left, as the TPU kernel; the wrapper takes causal only with
+// Tq == Tk) and skips every key tile above the diagonal.
+//
+// What bounds it: operations.  Attention over T keys does 4 T D flops per
+// query row (2 T D in q k^T, 2 T D in p v; half of that causal) against
+// 2 D bytes of q and o per row, far above the card's ~295 flop/byte ridge
+// at any prefill length, so the bound is the tensor cores' rate (989
+// TFLOP/s dense bf16).  What the design does about it: bfloat16 at
+// D >= 16 (every ported LM's full configuration) runs the products on the
+// tensor cores with mma.sync (flash_attention_mma_kernel); float32, and
+// bfloat16 at D = 8, run them as float32 FMAs on the SIMT units
+// (flash_attention_kernel, 67 TFLOP/s peak), which keeps float32 exact
+// enough to hold the card to the CPU.  Neither uses wgmma, TMA or warp
+// specialisation, so both sit well above the bound; that is later work.
+//
+// Both kernels give one block one (batch, head, 64-row query tile) and
+// loop over the key tiles themselves, so no state crosses blocks and the
+// TPU kernel's sequential grid is not needed; causal query tiles are
+// launched heaviest first, so the long tiles do not trail.  Global loads are
+// 16 bytes a thread; rows are addressed through the caller's batch, head
+// and row strides (the last dimension must be contiguous and every row
+// 16-byte aligned), so a transposed view needs no copy.  Tiles above 48 KB
+// of shared memory take cudaFuncSetAttribute.
+//
+// flash_attention_kernel: 256 threads, 32-key tiles.  The scaled query
+// tile, the key and value tiles (converted to float32) and the tile of
+// probabilities live in shared memory (76,800 bytes at D = 128, two blocks
+// per SM).  Thread (ty, tx) of a 16 x 16 grid owns query rows 4 ty ..
+// 4 ty + 3: it computes their scores for keys tx and tx + 16 from 16-byte
+// shared loads (the query rows are broadcast across the half-warp; rows
+// are padded to D + 4 floats so the key rows spread over the banks),
+// reduces the row max and sum over its half-warp with shuffles, writes its
+// probabilities to shared memory, and accumulates D / 16 output columns of
+// its four rows.
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBQ = 64;                // query rows per block
+constexpr int kBK = 32;                // keys per tile
+constexpr int kThreads = 256;          // a 16 x 16 grid
+constexpr int kRows = kBQ / 16;        // query rows per thread
+constexpr int kKeys = kBK / 16;        // keys per thread per tile
+constexpr float kNegInf = -1e30f;      // the TPU kernel's mask value
+constexpr unsigned kFull = 0xffffffffu;
+
+template <int D>
+struct Smem {
+  static constexpr int kStride = D + 4;        // floats per q/k/v row
+  static constexpr int kPStride = kBK + 4;     // floats per probability row
+  static constexpr int kQ = kBQ * kStride;
+  static constexpr int kK = kBK * kStride;
+  static constexpr int kP = kBQ * kPStride;
+  static constexpr int kBytes = sizeof(float) * (kQ + 2 * kK + kP);
+};
+
+// 16 bytes of T from global memory as float32 values times `scale`
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* out,
+                                              float scale) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = v.x * scale;
+    out[1] = v.y * scale;
+    out[2] = v.z * scale;
+    out[3] = v.w * scale;
+  }
+  __device__ __forceinline__ static float store(float x) { return x; }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* out, float scale) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x * scale;
+      out[2 * i + 1] = f.y * scale;
+    }
+  }
+  __device__ __forceinline__ static __nv_bfloat16 store(float x) {
+    return __float2bfloat16(x);
+  }
+};
+
+// rows [row0, row0 + rows) of one head into shared memory as float32 (rows
+// at or past n_valid become 0)
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          int64_t row_stride, int row0,
+                                          int rows, int n_valid,
+                                          float scale) {
+  constexpr int N = Vec<T>::N;
+  constexpr int kChunks = D / N;
+  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * N;
+    float vals[N];
+    if (row0 + r < n_valid) {
+      Vec<T>::load(src + static_cast<int64_t>(row0 + r) * row_stride + col,
+                   vals, scale);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) vals[i] = 0.0f;
+    }
+    float* d = dst + r * Smem<D>::kStride + col;
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      *reinterpret_cast<float4*>(d + i) =
+          make_float4(vals[i], vals[i + 1], vals[i + 2], vals[i + 3]);
+  }
+}
+
+// the output columns a thread owns: groups of four at D >= 64 (16-byte
+// shared loads), else one column every 16 (threads past D hold none)
+template <int D>
+struct Cols {
+  static constexpr int kN = D >= 16 ? D / 16 : 1;
+  __device__ __forceinline__ static int col(int tx, int c) {
+    if constexpr (D >= 64) return 4 * (tx + 16 * (c / 4)) + (c % 4);
+    return tx + 16 * c;
+  }
+  __device__ __forceinline__ static void load(const float* row, int tx,
+                                              float (&out)[kN]) {
+    if constexpr (D >= 64) {
+#pragma unroll
+      for (int g = 0; g < kN / 4; ++g) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(row + 4 * (tx + 16 * g));
+        out[4 * g] = t.x;
+        out[4 * g + 1] = t.y;
+        out[4 * g + 2] = t.z;
+        out[4 * g + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kN; ++c) {
+        const int j = tx + 16 * c;
+        out[c] = j < D ? row[j] : 0.0f;
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ float component(const float4& v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, int h,
+                       int group, int tq, int tk, int64_t qsb, int64_t qsh,
+                       int64_t qst, int64_t ksb, int64_t ksh, int64_t kst,
+                       int64_t vsb, int64_t vsh, int64_t vst, int causal,
+                       float sm_scale) {
+  using S = Smem<D>;
+  using C = Cols<D>;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + S::kQ;
+  float* vs = ks + S::kK;
+  float* ps = vs + S::kK;
+
+  const int n_qt = (tq + kBQ - 1) / kBQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBQ;
+  const int ih = blockIdx.y;
+  const int ib = blockIdx.z;
+  const int ikv = ih / group;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  const T* qp = q + ib * qsb + ih * qsh;
+  const T* kp = k + ib * ksb + ikv * ksh;
+  const T* vp = v + ib * vsb + ikv * vsh;
+  load_tile<T, D>(qs, qp, qst, q0, kBQ, tq, sm_scale);
+
+  float acc[kRows][C::kN];
+  float m[kRows], l[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C::kN; ++c) acc[i][c] = 0.0f;
+  }
+
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(tk, q0 + kBQ) : tk;
+  const int n_kt = (kv_end + kBK - 1) / kBK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();   // the previous tile's readers are done
+    load_tile<T, D>(ks, kp, kst, k0, kBK, tk, 1.0f);
+    load_tile<T, D>(vs, vp, vst, k0, kBK, tk, 1.0f);
+    __syncthreads();
+
+    float s[kRows][kKeys];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.0f;
+#pragma unroll 8
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[kRows], kv[kKeys];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(
+            qs + (ty * kRows + i) * S::kStride + d);
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(
+            ks + (tx + 16 * j) * S::kStride + d);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+
+    // mask, then the online-softmax update of each row (its 16 threads
+    // hold one half-warp, so the reductions are shuffles)
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = ty * kRows + i;
+      const int qpos = q0 + row;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        if (kpos >= tk || (causal && kpos > qpos)) s[i][j] = kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        ps[row * S::kPStride + tx + 16 * j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(kFull, sum, off);
+      const float scale = expf(m[i] - m_new);
+      l[i] = l[i] * scale + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < C::kN; ++c) acc[i][c] *= scale;
+    }
+    __syncthreads();
+
+    // acc += p v over the tile's keys
+#pragma unroll 2
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 pv[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(
+            ps + (ty * kRows + i) * S::kPStride + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float vv[C::kN];
+        C::load(vs + (kk + e) * S::kStride, tx, vv);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float p = component(pv[i], e);
+#pragma unroll
+          for (int c = 0; c < C::kN; ++c)
+            acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int qpos = q0 + ty * kRows + i;
+    if (qpos >= tq) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* orow = o + ((static_cast<int64_t>(ib) * h + ih) * tq + qpos) * D;
+#pragma unroll
+    for (int c = 0; c < C::kN; ++c) {
+      const int col = C::col(tx, c);
+      if (col < D) orow[col] = Vec<T>::store(acc[i][c] / denom);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int h, int hkv, int tq, int tk, const long long* st, int causal,
+           float sm_scale, cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<T, D>;
+  static bool configured = false;   // once per instantiation (one device)
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem<D>::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((tq + kBQ - 1) / kBQ, h, b);
+  kernel<<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), h, h / hkv, tq, tk,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
+      sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(int d, const void* q, const void* k, const void* v,
+               void* o, int b, int h, int hkv, int tq, int tk,
+               const long long* st, int causal, float sm_scale,
+               cudaStream_t stream) {
+  switch (d) {
+    case 8:
+      return launch<float, 8>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                              sm_scale, stream);
+    case 16:
+      return launch<float, 16>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                               sm_scale, stream);
+    case 32:
+      return launch<float, 32>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                               sm_scale, stream);
+    case 64:
+      return launch<float, 64>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                               sm_scale, stream);
+    case 128:
+      return launch<float, 128>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                                sm_scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+
+// ---------------------------------------------------------------------
+// bfloat16 at D >= 16: the products on the tensor cores (mma.sync)
+// ---------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;               // 16 query rows each
+constexpr int kMmaBQ = 16 * kMmaWarps;     // query rows per block
+constexpr int kMmaBK = 64;                 // keys per tile
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+template <int D>
+struct MmaSmem {
+  static constexpr int kStride = D + 8;    // bf16 per row: 16-byte rows
+                                           // whose 8-row groups hit
+                                           // distinct banks
+  static constexpr int kQ = kMmaBQ * kStride;
+  static constexpr int kK = kMmaBK * kStride;
+  static constexpr int kBytes = 2 * (kQ + 2 * kK);
+};
+
+// D += A B for one 16 x 8 x 16 tile: A (16 x 16, row-major) and B
+// (16 x 8, given as its 8 x 16 transpose) in bf16, D in float32
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives
+// the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// rows [row0, row0 + rows) of one head into shared memory as they are
+// (bf16, 16 bytes a thread; rows at or past n_valid become 0)
+template <int D>
+__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t row_stride, int row0,
+                                          int rows, int n_valid) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < rows * kChunks; c += kMmaThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_valid)
+      v = __ldg(reinterpret_cast<const uint4*>(
+          src + static_cast<int64_t>(row0 + r) * row_stride + col));
+    *reinterpret_cast<uint4*>(dst + r * MmaSmem<D>::kStride + col) = v;
+  }
+}
+
+// The same function as flash_attention_kernel for bf16, with q k^T and
+// p v as bf16 tensor-core products accumulated in float32: warp w owns
+// query rows 16 w .. 16 w + 15 of a 64-row tile and keeps their q
+// fragments in registers; per 64-key tile it computes its 16 x 64 scores
+// (one m16n8k16 per 8 keys and 16 of D), scales them by 1/sqrt(D) in
+// float32, masks, updates the row max and sum with quad shuffles, rounds
+// p to bf16 in place as the A operand of p v (the accumulator layout of
+// two 8-key score tiles is the operand layout of one 16-key step), and
+// reads v's fragments with ldmatrix.trans.  Beside the order of the sums,
+// only p's rounding to bf16 differs from the float32 arithmetic of the TPU
+// kernel (bf16 products of q and k are exact in float32).  Shared memory:
+// the q, k and v tiles in bf16, rows padded to D + 8 (52,224 bytes at
+// D = 128).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ o, int h, int group,
+                           int tq, int tk, int64_t qsb, int64_t qsh,
+                           int64_t qst, int64_t ksb, int64_t ksh,
+                           int64_t kst, int64_t vsb, int64_t vsh,
+                           int64_t vst, int causal, float sm_scale) {
+  using S = MmaSmem<D>;
+  constexpr int kSteps = D / 16;           // 16-wide steps of q k^T
+  constexpr int kNT = kMmaBK / 8;          // 8-key score tiles
+  constexpr int kDT = D / 8;               // 8-column output tiles
+  extern __shared__ uint4 smem16[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem16);
+  __nv_bfloat16* ks = qs + S::kQ;
+  __nv_bfloat16* vs = ks + S::kK;
+
+  const int n_qt = (tq + kMmaBQ - 1) / kMmaBQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kMmaBQ;
+  const int ih = blockIdx.y;
+  const int ib = blockIdx.z;
+  const int ikv = ih / group;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;                // row (and key) within 8
+  const int gc = (lane & 3) * 2;           // column pair within 8
+
+  const __nv_bfloat16* kp = k + ib * ksb + ikv * ksh;
+  const __nv_bfloat16* vp = v + ib * vsb + ikv * vsh;
+  copy_tile<D>(qs, q + ib * qsb + ih * qsh, qst, q0, kMmaBQ, tq);
+  __syncthreads();
+  uint32_t qa[kSteps][4];
+  {
+    const __nv_bfloat16* r0 = qs + (16 * warp + gr) * S::kStride + gc;
+    const __nv_bfloat16* r1 = r0 + 8 * S::kStride;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      qa[s][0] = lds32(r0 + 16 * s);
+      qa[s][1] = lds32(r1 + 16 * s);
+      qa[s][2] = lds32(r0 + 16 * s + 8);
+      qa[s][3] = lds32(r1 + 16 * s + 8);
+    }
+  }
+
+  // row halves: index 0 is row gr of the warp's 16, index 1 row gr + 8
+  float acc[kDT][4];
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int t = 0; t < kDT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
+  const int qpos0 = q0 + 16 * warp + gr;
+
+  const int kv_end = causal ? min(tk, q0 + kMmaBQ) : tk;
+  const int n_kt = (kv_end + kMmaBK - 1) / kMmaBK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kMmaBK;
+    __syncthreads();   // every warp is done with the previous tile
+    copy_tile<D>(ks, kp, kst, k0, kMmaBK, tk);
+    copy_tile<D>(vs, vp, vst, k0, kMmaBK, tk);
+    __syncthreads();
+
+    float s[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+      const __nv_bfloat16* kr = ks + (8 * n + gr) * S::kStride + gc;
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st)
+        mma16816(s[n], qa[st], lds32(kr + 16 * st), lds32(kr + 16 * st + 8));
+    }
+
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        const int kpos = k0 + 8 * n + gc + (e & 1);
+        float x = s[n][e] * sm_scale;
+        if (kpos >= tk || (causal && kpos > qpos0 + 8 * half)) x = kNegInf;
+        s[n][e] = x;
+        mx[half] = fmaxf(mx[half], x);
+      }
+    float scale[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFull, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFull, mx[hf], 2));
+      const float m_new = fmaxf(m[hf], mx[hf]);
+      scale[hf] = expf(m[hf] - m_new);
+      m[hf] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m[e >> 1]);
+        s[n][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      sum[hf] += __shfl_xor_sync(kFull, sum[hf], 1);
+      sum[hf] += __shfl_xor_sync(kFull, sum[hf], 2);
+      l[hf] = l[hf] * scale[hf] + sum[hf];
+    }
+#pragma unroll
+    for (int t = 0; t < kDT; ++t) {
+      acc[t][0] *= scale[0];
+      acc[t][1] *= scale[0];
+      acc[t][2] *= scale[1];
+      acc[t][3] *= scale[1];
+    }
+
+    // acc += p v, 16 keys a step
+#pragma unroll
+    for (int j = 0; j < kNT / 2; ++j) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                              pack_bf16(s[2 * j][2], s[2 * j][3]),
+                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+      // lanes 0-7 / 8-15 address keys 16 j + 0..7 / 8..15 of columns
+      // 8 t .. 8 t + 7; lanes 16-31 the same of columns 8 t + 8 ..
+      const __nv_bfloat16* vr =
+          vs + (16 * j + (lane & 15)) * S::kStride + 8 * (lane >> 4);
+#pragma unroll
+      for (int t = 0; t < kDT; t += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vr + 8 * t);
+        mma16816(acc[t], pa, b[0], b[1]);
+        mma16816(acc[t + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qpos = qpos0 + 8 * hf;
+    if (qpos >= tq) continue;
+    const float denom = fmaxf(l[hf], 1e-30f);
+    __nv_bfloat16* orow =
+        o + ((static_cast<int64_t>(ib) * h + ih) * tq + qpos) * D + gc;
+#pragma unroll
+    for (int t = 0; t < kDT; ++t)
+      *reinterpret_cast<uint32_t*>(orow + 8 * t) =
+          pack_bf16(acc[t][2 * hf] / denom, acc[t][2 * hf + 1] / denom);
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
+               int h, int hkv, int tq, int tk, const long long* st,
+               int causal, float sm_scale, cudaStream_t stream) {
+  auto kernel = flash_attention_mma_kernel<D>;
+  static bool configured = false;   // once per instantiation (one device)
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MmaSmem<D>::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((tq + kMmaBQ - 1) / kMmaBQ, h, b);
+  kernel<<<grid, kMmaThreads, MmaSmem<D>::kBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      h, h / hkv, tq, tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], causal, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(int d, const void* q, const void* k, const void* v,
+                void* o, int b, int h, int hkv, int tq, int tk,
+                const long long* st, int causal, float sm_scale,
+                cudaStream_t stream) {
+  switch (d) {
+    case 8:   // below one 16-wide step of the tensor-core product
+      return launch<__nv_bfloat16, 8>(q, k, v, o, b, h, hkv, tq, tk, st,
+                                      causal, sm_scale, stream);
+    case 16:
+      return launch_mma<16>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                            sm_scale, stream);
+    case 32:
+      return launch_mma<32>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                            sm_scale, stream);
+    case 64:
+      return launch_mma<64>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                            sm_scale, stream);
+    case 128:
+      return launch_mma<128>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                             sm_scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Launches on `stream` without synchronising; returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unbuilt head width, an unknown dtype, a
+// head count that is not a multiple of the KV heads, or a grid too large;
+// 0 when there is nothing to launch).  dtype 0 is float32, 1 bfloat16.
+// Strides are in elements: (batch, head, row) of q, then of k, then of v;
+// o is contiguous [B, H, Tq, D].
+extern "C" int flash_attention_launch(
+    const void* q, const void* k, const void* v, void* o, int dtype, int b,
+    int h, int hkv, int tq, int tk, int d, long long qsb, long long qsh,
+    long long qst, long long ksb, long long ksh, long long kst,
+    long long vsb, long long vsh, long long vst, int causal, float sm_scale,
+    void* stream) {
+  if (b <= 0 || h <= 0 || tq <= 0) return 0;
+  if (hkv <= 0 || h % hkv || tk <= 0 || b > 65535 || h > 65535)
+    return cudaErrorInvalidValue;
+  const long long st[9] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_f32(d, q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                      sm_scale, s);
+  if (dtype == 1)
+    return launch_bf16(d, q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                       sm_scale, s);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,189 @@
+"""Flash attention: the CUDA kernel and its plain torch version.
+
+Replaces the Pallas kernel ``repro/kernels/flash_attention.py::_attn_kernel``
+(wrapper ``flash_attention``).  Both functions here compute, for
+``q[B, H, Tq, D]`` and ``k, v[B, Hkv, Tk, D]`` (float32 or bfloat16), the
+online-softmax attention of the TPU kernel: ``q`` scaled by ``1/sqrt(D)``
+in float32, the running max, denominator and accumulator in float32,
+masked scores ``-1e30``, output ``acc / max(l, 1e-30)`` in q's dtype.
+Query head ``h`` reads KV head ``h // (H / Hkv)`` with no copy of K/V;
+causal mode masks ``key > query`` (top-left) and skips the key blocks above
+the diagonal.
+
+* :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu``.  What
+  bounds it is operations: 4 T D flops per query row against 2 D bytes of
+  q and o, far above the card's flop/byte ridge, so the bound is the
+  tensor cores' bf16 rate.  bfloat16 at D >= 16 (every ported LM's full
+  configuration) runs q k^T and p v on the tensor cores (``mma.sync``,
+  p rounded to bf16 for its product, everything else float32); float32,
+  and bfloat16 at D = 8, run them as float32 FMAs on the SIMT units.
+  Neither uses ``wgmma`` or TMA, so both run well above the bound;
+  ``PERF.md`` has the times beside it and beside
+  ``scaled_dot_product_attention``.  One block owns one (batch, head,
+  64-row query tile) and loops over the key tiles in shared memory.  The
+  kernel reads q, k and v through their batch, head and row strides, so
+  the transposed views the transformer hands it need no copy; a tensor
+  whose last dimension is not contiguous, or whose rows are not 16-byte
+  aligned, is copied once with ``.contiguous()`` (read and written once
+  more).  The library is built with ``nvcc`` at first use into
+  ``build/`` and loaded with ``ctypes`` (``kernels/_build.py``).
+* :func:`flash_attention_plain` is the TPU kernel's loop in torch: 128 x
+  128 blocks, key blocks in order, every query block at once, in float32.
+  The CPU tests run it and hold it to the Pallas kernel in interpret mode;
+  ``chip_smoke.py`` holds the CUDA kernel to it on the card.
+
+Both versions take what the TPU kernel takes and raise on the rest
+(:func:`check_args`): the TPU kernel cannot run ``d_v != d_q`` (its
+reshape of v uses q's width, so an MLA call crashes it), and it aligns the
+causal mask top-left where ``kernels/ref.py`` aligns it bottom-right, so
+the two disagree when ``Tq != Tk``; the kernel route refuses both.
+
+Nothing here imports a GPU toolchain at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = _build.CSRC / "flash_attention.cu"
+HEAD_DIMS = (8, 16, 32, 64, 128)     # the head widths the kernel is built for
+BLOCK = 128                          # the TPU kernel's bq = bk
+NEG_INF = -1e30
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool) -> None:
+    """Raise on what neither version takes: shapes that are not
+    ``[B, H, Tq, D]`` / ``[B, Hkv, Tk, D]`` with ``H % Hkv == 0`` and T a
+    multiple of 128, mixed devices or dtypes, a dtype other than float32
+    or bfloat16, ``v``'s width different from q's, a head width the
+    kernel is not built for, or causal with ``Tq != Tk``."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be 4-D: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, tq, d = q.shape
+    if v.shape[-1] != d:
+        raise ValueError(f"v's width {v.shape[-1]} differs from q's {d}: "
+                         f"the kernel takes d_v == d_q only (an MLA call "
+                         f"goes to kernels/ref.py)")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[-1] != d:
+        raise ValueError(f"k and v must be [B, Hkv, Tk, D] of q's B and D: "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    hkv, tk = k.shape[1], k.shape[2]
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"query heads {h} are not a multiple of KV heads "
+                         f"{hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head width {d} is not one the kernel is built "
+                         f"for: {HEAD_DIMS}")
+    if tq % BLOCK or tk % BLOCK:
+        raise ValueError(f"Tq={tq} and Tk={tk} must be multiples of {BLOCK}")
+    if causal and tq != tk:
+        raise ValueError(f"causal attention with Tq={tq} != Tk={tk}: the "
+                         f"kernel aligns the mask top-left, kernels/ref.py "
+                         f"bottom-right")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16: {q.dtype}")
+
+
+# --------------------------------------------------------------------- #
+# plain version
+# --------------------------------------------------------------------- #
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """The TPU kernel's online softmax in plain torch, on any device.
+
+    Key block ``kb`` updates every query block that the TPU kernel's loop
+    reaches it from (all of them, or causal those at or below the
+    diagonal), so the blocks meet the same updates in the same order.
+    """
+    check_args(q, k, v, causal)
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf = (q.to(torch.float32) * (1.0 / (d ** 0.5))).reshape(b, hkv, g, tq, d)
+    kf = k.to(torch.float32)[:, :, None]        # [B, Hkv, 1, Tk, D]
+    vf = v.to(torch.float32)[:, :, None]
+    m = torch.full((b, hkv, g, tq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, tq, d), dtype=torch.float32,
+                      device=q.device)
+    for kb in range(tk // BLOCK):
+        k0 = kb * BLOCK
+        r0 = k0 if causal else 0                # first query block reached
+        kblk, vblk = kf[..., k0:k0 + BLOCK, :], vf[..., k0:k0 + BLOCK, :]
+        s = qf[..., r0:, :] @ kblk.transpose(-1, -2)
+        if causal:
+            qpos = torch.arange(r0, tq, device=q.device)[:, None]
+            kpos = torch.arange(k0, k0 + BLOCK, device=q.device)[None, :]
+            s = torch.where(qpos >= kpos, s, torch.full_like(s, NEG_INF))
+        m_old = m[..., r0:]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        scale = torch.exp(m_old - m_new)
+        l[..., r0:] = l[..., r0:] * scale + p.sum(dim=-1)
+        acc[..., r0:, :] = acc[..., r0:, :] * scale[..., None] + p @ vblk
+        m[..., r0:] = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, tq, d).to(q.dtype)
+
+
+# --------------------------------------------------------------------- #
+# CUDA kernel
+# --------------------------------------------------------------------- #
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.flash_attention_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_void_p])
+    lib.flash_attention_launch.restype = ctypes.c_int
+
+
+def _kernel_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel reads it: last dimension contiguous and every
+    row 16-byte aligned, else a contiguous copy."""
+    size = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:-1])):
+        return t
+    return t.contiguous()
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """Launch the kernel on the current stream (no sync); q, k, v on one
+    CUDA device.  Returns a contiguous ``[B, H, Tq, D]`` in q's dtype."""
+    check_args(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors: "
+                         f"{q.device}")
+    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
+    lib = _build.load(SOURCE, _bind)
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPES.index(q.dtype), b, h, hkv, tq, tk, d, *strides,
+            int(causal), 1.0 / (d ** 0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    return out

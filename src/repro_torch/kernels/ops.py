@@ -5,9 +5,10 @@ its plain torch version for CPU tensors.  A CUDA tensor goes to the
 kernel or the call raises; nothing falls back.  Each kernel counts its
 launches in a plain integer attribute of its wrapper, set where the
 wrapper launches it and nowhere else: ``ht_probe.launches`` (with
-``ht_probe.by_batch`` by ``(mode, lanes)``) and ``segment_reduce.launches``
+``ht_probe.by_batch`` by ``(mode, lanes)``), ``segment_reduce.launches``
 (incremented by :func:`segment_reduce_csr`, the one place that launches
-the CSR kernel), so a run can show that its path went through them.
+the CSR kernel) and ``attention.launches``, so a run can show that its
+path went through them.
 
 The graph ops (port of ``repro/kernels/ops.py``) all reduce through the
 CSR segment-reduce kernel: :func:`segment_reduce`, :func:`spmm`,
@@ -24,6 +25,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.csr_segment import (build_csr, csr_segment_cuda,
                                              csr_segment_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.ht_probe import ht_probe_cuda, ht_probe_plain
 
 
@@ -165,8 +168,43 @@ def minhash_signature(senders: torch.Tensor, receivers: torch.Tensor,
                        torch.full_like(out, ref.INT32_MAX))
 
 
+# --------------------------------------------------------------------- #
+# attention over the flash-attention kernel
+# --------------------------------------------------------------------- #
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-head attention with GQA: ``q[B, H, Tq, D]``, ``k, v[B, Hkv,
+    Tk, D]`` -> ``[B, H, Tq, D]`` in q's dtype.
+
+    The JAX package's routing rule (``repro/kernels/ops.py::attention``):
+    a call with a bias, or with ``Tq`` or ``Tk`` not a multiple of 128,
+    goes to ``ref.flash_attention_ref`` on every device.  That is the
+    reference's own dispatch, which its decode step (``Tq = 1``, a bias)
+    takes on a TPU too, not a fallback.  Every other call takes the kernel
+    route: a CUDA tensor launches the flash-attention kernel or raises, a
+    CPU tensor runs its plain version.  The kernel route raises
+    ``ValueError`` for causal ``Tq != Tk``, ``v``'s width different from
+    q's, and a head width the kernel is not built for
+    (``flash_attention.check_args``).
+    """
+    if bias is not None or q.shape[2] % 128 or k.shape[2] % 128:
+        return ref.flash_attention_ref(q, k, v, causal, bias)
+    if _route(q, "attention"):
+        out = flash_attention_cuda(q, k, v, causal=causal)
+        attention.launches += 1
+        return out
+    return flash_attention_plain(q, k, v, causal=causal)
+
+
+attention.launches = 0
+
+
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
     ht_probe.launches = 0
     ht_probe.by_batch = Counter()
     segment_reduce.launches = 0
+    attention.launches = 0

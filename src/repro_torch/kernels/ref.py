@@ -1,4 +1,5 @@
-"""Plain torch oracles of the graph ops (port of ``repro/kernels/ref.py``).
+"""Plain torch oracles of the graph ops and attention (port of
+``repro/kernels/ref.py``).
 
 The semantics of record for the port's graph ops, written independently
 of the kernel's CSR layout: a gather and a scatter over the edge list.
@@ -7,6 +8,9 @@ They run on any device; the CPU tests hold them to the JAX package's
 masks (torch on the CPU has no uint32 ``>>``).
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
@@ -123,3 +127,45 @@ def _mixhash(x: torch.Tensor, seed: int) -> torch.Tensor:
     h = _mul32(h ^ (h >> 16), 0x85EBCA6B)
     h = h ^ (h >> 13)
     return h & 0x7FFFFFFE
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        bias: Optional[torch.Tensor] = None,
+                        q_chunk: int = 1024) -> torch.Tensor:
+    """Reference multi-head attention: ``q[B, H, Tq, D]``, ``k[B, Hkv, Tk,
+    D]``, ``v[B, Hkv, Tk, Dv]`` -> ``[B, H, Tq, Dv]``.
+
+    Scores in q's dtype divided by ``sqrt(D)`` (cast to q's dtype), then
+    float32 with ``bias`` added; the causal mask is aligned bottom-right
+    (query ``i`` sees keys ``<= i + Tk - Tq``); KV heads are repeated over
+    their query groups; ``Dv`` may differ from ``D`` (MLA attends over the
+    latent).  Query lengths above ``q_chunk`` that it divides run in chunks
+    of ``q_chunk`` rows, so the score matrix is never whole.
+    """
+    b, h, tq, d = q.shape
+    hkv = k.shape[1]
+    if hkv != h:        # GQA: repeat the KV heads over their query groups
+        k = torch.repeat_interleave(k, h // hkv, dim=1)
+        v = torch.repeat_interleave(v, h // hkv, dim=1)
+    tk = k.shape[2]
+    root = torch.tensor(math.sqrt(d), dtype=torch.float32).to(q.dtype)
+
+    def block(qb: torch.Tensor, qpos: torch.Tensor) -> torch.Tensor:
+        scores = (qb @ k.transpose(-1, -2)) / root.to(qb.device)
+        scores = scores.to(torch.float32)
+        if bias is not None:
+            scores = scores + bias
+        if causal:
+            kpos = torch.arange(tk, device=q.device)
+            mask = qpos[:, None] + (tk - tq) >= kpos[None, :]
+            scores = torch.where(mask, scores,
+                                 torch.full_like(scores, -1e30))
+        probs = torch.softmax(scores, dim=-1)
+        return probs.to(v.dtype) @ v
+
+    qpos = torch.arange(tq, device=q.device)
+    if tq <= q_chunk or tq % q_chunk:
+        return block(q, qpos)
+    return torch.cat([block(q[:, :, lo:lo + q_chunk], qpos[lo:lo + q_chunk])
+                      for lo in range(0, tq, q_chunk)], dim=2)

@@ -19,13 +19,12 @@ import dataclasses
 import math
 from typing import Any, Dict, NamedTuple, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.common import dense_init, layer_norm
+from repro_torch.models.common import (  # noqa: F401 (re-exported)
+    dense_init, layer_norm, params_from_numpy, params_to)
 
 Params = Dict[str, Any]
 
@@ -299,33 +298,11 @@ GNN_FORWARDS = {"graphsage": graphsage_forward, "egnn": egnn_forward,
                 "dimenet": dimenet_forward, "graphcast": graphcast_forward}
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def params_to(params: Params, device) -> Params:
-    """A copy of the parameters on ``device``."""
-    device = resolve_device(device)
-    return _tree_map(lambda t: t.to(device), params)
-
-
 def init_gnn(cfg: GNNConfig, seed: int = 0, device="cuda") -> Params:
     """Random parameters from ``seed`` (drawn on the CPU, so a seed gives
     the same weights on every device), placed on ``device``."""
     return params_to(GNN_INITS[cfg.arch](
         cfg, torch.Generator().manual_seed(seed)), device)
-
-
-def params_from_numpy(tree, device="cuda") -> Params:
-    """The port's parameters from the JAX package's, as
-    ``jax.tree.map(np.asarray, init_gnn(cfg, key))`` gives them."""
-    device = resolve_device(device)
-    return _tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
-                     tree)
 
 
 def gnn_forward(params: Params, g: GraphBatch,

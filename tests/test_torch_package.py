@@ -27,6 +27,9 @@ def test_port_imports_nothing_of_jax_or_repro():
     assert "repro_torch.launch.stream" in names
     assert "repro_torch.kernels.csr_segment" in names
     assert "repro_torch.models.gnn" in names
+    assert "repro_torch.kernels.flash_attention" in names
+    assert "repro_torch.models.transformer" in names
+    assert "repro_torch.launch.serve" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -49,6 +52,25 @@ def test_summarizer_raises_without_a_card_unless_asked_for_the_cpu():
     proc = _run(code, env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "raised"
+
+
+def test_lm_entry_points_raise_without_a_card_unless_asked_for_the_cpu():
+    code = ("from repro_torch.configs import internlm2_20b\n"
+            "from repro_torch.launch.serve import serve\n"
+            "from repro_torch.models.transformer import init_transformer\n"
+            "cfg = internlm2_20b.smoke_config()\n"
+            "init_transformer(cfg, 0, device='cpu')\n"
+            "serve('internlm2-20b', 1, 2, 1, device='cpu')\n"
+            "for fn in (lambda: init_transformer(cfg, 0),\n"
+            "           lambda: serve('internlm2-20b', 1, 2, 1)):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as e:\n"
+            "        assert \"device='cpu'\" in str(e), e\n"
+            "        print('raised')\n")
+    proc = _run(code, env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["raised", "raised"]
 
 
 def test_stream_cli_runs_on_the_cpu():
