@@ -44,22 +44,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launches per request, and where the forward's device time goes;
 8. the egnn, dimenet and graphcast smoke configurations: the forward on
    the card against the plain forward on the CPU, rtol = atol = 1e-4;
-9. flash-attention kernel vs plain: the CUDA kernel against its plain
+9. flash-attention kernel vs plain: the CUDA kernels against their plain
    torch version at the sweep shapes of ``tests/test_kernels.py`` in
    float32 (rtol = atol = 2e-3) and bfloat16 (3e-2), at the smoke head
-   widths 8 and 16, and at internlm2-20b's layer shape (B = 2, H = 48,
-   Hkv = 8, T = 4096, D = 128, bf16, causal, q/k/v as the strided views
-   the transformer hands it); at the layer shape the kernel's device time
-   (CUDA-graph replay), the call from Python, the plain version and
-   ``scaled_dot_product_attention`` beside the operation bound;
+   widths 8 and 16, again in bf16 at the sweep's D = 64 and 128 shapes
+   and two more (GQA, causal and not) in the strided layout the
+   transformer hands over, and at the layer shapes of internlm2-20b
+   (B = 2, H = 48, Hkv = 8, T = 4096, D = 128) and granite-moe-3b-a800m
+   (B = 2, H = 24, Hkv = 8, T = 4096, D = 64), bf16, causal, strided, and
+   internlm2-20b's in float32; at each layer shape the kernel variant, its
+   device time (CUDA-graph replay) and TFLOP/s, the call from Python, the
+   plain version and ``scaled_dot_product_attention`` beside the
+   operation bound, and kernel / SDPA;
 10. LM path: (a) internlm2-20b's full widths with 2 of its 48 layers in
    float32, B = 1, T = 512: the forward's logits on the card (kernel)
    against the same forward on the CPU (plain), rtol = atol = 1e-3, and
    teacher-forced ``decode_step`` on the card against the forward within
    2e-3; (b) one prefill request at internlm2-20b's ``full_config()`` (48
    layers, bf16, weights drawn on the card from the seed), B = 2,
-   T = 4096: finite logits, 48 kernel launches per forward, ms cold and
-   warm, device time by kind (``torch.profiler``), peak memory; (c)
+   T = 4096: finite logits, 48 kernel launches per forward, all of them
+   the ``wgmma`` variant (by the wrapper's count and by the profiled
+   kernel names), ms cold and warm, device time by kind
+   (``torch.profiler``), peak memory; (c)
    ``serve(..., full=True)`` on internlm2-20b, batch 4, prompt 16, 32
    tokens, ms per token beside the weight-read bound; (d) the smoke
    configurations of internlm2-20b, llama3-405b, granite-moe-3b-a800m and
@@ -103,7 +109,13 @@ CSR_SHAPES = (("full_graph_sm", 3072, 10752, 1433),
 ATTN_SHAPES = ((2, 4, 2, 256, 64, True), (1, 8, 8, 128, 128, True),
                (2, 4, 1, 384, 64, False), (2, 8, 2, 256, 8, True),
                (2, 4, 4, 256, 16, True))
+# bf16 shapes of the wgmma kernel held to plain in the strided layout: the
+# sweep's D = 64 and 128, then GQA over several tiles, causal and not
+STRIDED_SHAPES = ((2, 4, 2, 256, 64, True), (1, 8, 8, 128, 128, True),
+                  (2, 4, 1, 384, 64, False), (2, 8, 2, 512, 128, False),
+                  (1, 4, 1, 1024, 128, True))
 LAYER_SHAPE = (2, 48, 8, 4096, 128, True)   # internlm2-20b, B=2 T=4096
+GRANITE_LAYER = (2, 24, 8, 4096, 64, True)  # granite-moe-3b-a800m
 PREFILL = (2, 4096)               # (B, T) of the prefill request
 SERVE = (4, 16, 32)               # batch, prompt, tokens of the serve run
 
@@ -908,37 +920,41 @@ def attn_bound_ms(q, k, causal: bool) -> float:
 
 
 def attention_vs_plain(gen) -> tuple:
-    """Phase 9: kernel vs plain at every listed shape, and its times at
-    internlm2-20b's layer shape.  Returns (rows, max |err|, layer row)."""
+    """Phase 9: kernel vs plain at every listed shape, and its times at the
+    layer shapes.  Returns (rows, max |err|, {arch: bf16 layer row})."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     kernel_variant)
     rows, max_err = [], 0.0
-    shapes = [(dt, tol, *s) for dt, tol in ((torch.float32, 2e-3),
-                                            (torch.bfloat16, 3e-2))
-              for s in ATTN_SHAPES]
-    # the layer shape in float32 (the SIMT kernel) and bf16 (tensor cores)
-    shapes += [(torch.float32, 2e-3, *LAYER_SHAPE),
-               (torch.bfloat16, 3e-2, *LAYER_SHAPE)]
-    layer = None
-    for dtype, tol, b, h, hkv, t, d, causal in shapes:
-        is_layer = (b, h, hkv, t, d, causal) == LAYER_SHAPE
-        q, k, v = attn_inputs(b, h, hkv, t, d, dtype, gen, strided=is_layer)
+    bf16, f32 = (torch.bfloat16, 3e-2), (torch.float32, 2e-3)
+    shapes = [(*dt, *s, False) for dt in (f32, bf16) for s in ATTN_SHAPES]
+    shapes += [(*bf16, *s, True) for s in STRIDED_SHAPES]
+    # the layer shapes: internlm2-20b's in float32 (SIMT) and bf16
+    # (wgmma), granite's in bf16 (wgmma); strided, as the transformer
+    shapes += [(*f32, *LAYER_SHAPE, True), (*bf16, *LAYER_SHAPE, True),
+               (*bf16, *GRANITE_LAYER, True)]
+    layers = {}
+    for dtype, tol, b, h, hkv, t, d, causal, strided in shapes:
+        shape = (b, h, hkv, t, d, causal)
+        q, k, v = attn_inputs(b, h, hkv, t, d, dtype, gen, strided=strided)
         got = flash_attention_cuda(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = close(got.float(), want.float(), "sum", tol, tol,
-                    f"flash_attention {dtype} {(b, h, hkv, t, d, causal)}")
+                    f"flash_attention {dtype} {shape} strided={strided}")
         max_err = max(max_err, err)
+        variant = kernel_variant(dtype, d)
         row = dict(dtype=str(dtype), b=b, h=h, hkv=hkv, t=t, d=d,
-                   causal=causal, tol=tol, max_abs_err=err)
+                   causal=causal, strided=strided, variant=variant, tol=tol,
+                   max_abs_err=err)
         rows.append(row)
-        log(f"flash_attention {str(dtype)[6:]:8s} B={b} H={h} Hkv={hkv} "
-            f"T={t} D={d} causal={causal}: kernel == plain (max |err| "
-            f"{err:.2e}, tol {tol})")
+        log(f"flash_attention {variant:5s} {str(dtype)[6:]:8s} B={b} H={h} "
+            f"Hkv={hkv} T={t} D={d} causal={causal} strided={strided}: "
+            f"kernel == plain (max |err| {err:.2e}, tol {tol})")
         del got, want
-        if is_layer:
+        if shape in (LAYER_SHAPE, GRANITE_LAYER):
             def launch():
                 return flash_attention_cuda(q, k, v, causal=True)
             row["ms"] = graph_ms(launch, 3, 3)
@@ -951,18 +967,22 @@ def attention_vs_plain(gen) -> tuple:
             row["bound_ms"] = attn_bound_ms(q, k, True)
             flops = 4 * d * b * h * (t * (t + 1) // 2)
             row["tflops"] = flops / row["ms"] / 1e9
+            row["kernel_over_library"] = row["ms"] / row["library_ms"]
+            arch = "internlm2-20b" if shape == LAYER_SHAPE else \
+                "granite-moe-3b-a800m"
             if dtype == torch.bfloat16:
-                layer = row
-            log(f"flash_attention at the layer shape, {str(dtype)[6:]}: "
-                f"kernel {row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s; "
-                f"call {row['call_ms']:.3f} ms), plain "
-                f"{row['plain_ms']:.3f} ms,"
-                f" scaled_dot_product_attention {row['library_ms']:.3f} ms,"
-                f" bound {row['bound_ms']:.3f} ms (operations, "
-                f"{flops / 1e9:.1f} GFLOP at the {str(dtype)[6:]} peak)")
+                layers[arch] = row
+            log(f"flash_attention at {arch}'s layer shape, "
+                f"{str(dtype)[6:]} ({variant}): kernel {row['ms']:.3f} ms "
+                f"({row['tflops']:.1f} TFLOP/s; call {row['call_ms']:.3f} "
+                f"ms), plain {row['plain_ms']:.3f} ms, "
+                f"scaled_dot_product_attention {row['library_ms']:.3f} ms "
+                f"(kernel / SDPA {row['kernel_over_library']:.2f}), bound "
+                f"{row['bound_ms']:.3f} ms (operations, {flops / 1e9:.1f} "
+                f"GFLOP at the {str(dtype)[6:]} peak)")
         del q, k, v
     torch.cuda.empty_cache()
-    return rows, max_err, layer
+    return rows, max_err, layers
 
 
 def lm_card_vs_cpu(seed: int) -> dict:
@@ -1043,10 +1063,11 @@ def lm_prefill_request(seed: int) -> dict:
     cold_ms = 1e3 * (time.perf_counter() - t0)
     launches = ops.attention.launches
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.n_layers:
+    by_variant = dict(ops.attention.by_variant)
+    if launches != cfg.n_layers or by_variant != {"wgmma": cfg.n_layers}:
         raise AssertionError(f"the prefill forward launched the attention "
-                             f"kernel {launches} times, not "
-                             f"{cfg.n_layers}")
+                             f"kernel {launches} times ({by_variant}), not "
+                             f"{cfg.n_layers} of the wgmma variant")
     if tuple(logits.shape) != (b, t, cfg.vocab_padded) or not bool(
             torch.isfinite(logits[..., :cfg.vocab]).all()):
         raise AssertionError(f"logits {tuple(logits.shape)} not finite")
@@ -1061,6 +1082,10 @@ def lm_prefill_request(seed: int) -> dict:
     breakdown = device_breakdown(
         lambda: tfm.forward(params, toks, cfg),
         {"attention kernel": ("flash_attention",), "matmul": MATMUL_WORDS})
+    names = [key for _, _, key in breakdown["top"]["attention kernel"]]
+    if not names or not all("flash_attention_wgmma_kernel" in n
+                            for n in names):
+        raise AssertionError(f"profiled attention kernels: {names}")
     # projections, FFN and head: 2 flops per weight per token
     mm_flops = 2 * b * t * (n_params - cfg.vocab_padded * cfg.d_model
                             - 2 * cfg.n_layers * cfg.d_model - cfg.d_model)
@@ -1069,13 +1094,14 @@ def lm_prefill_request(seed: int) -> dict:
     us = breakdown["device_us"]
     res = dict(batch=b, seq=t, params=n_params, param_bytes=param_bytes,
                init_s=init_s, cold_ms=cold_ms, warm_ms=warm_ms,
-               warm_runs_ms=warm, launches=launches,
+               warm_runs_ms=warm, launches=launches, by_variant=by_variant,
                peak_bytes=peak, matmul_flops=mm_flops,
                attention_flops=attn_flops, breakdown=breakdown,
                tokens_per_s=b * t / (warm_ms / 1e3))
     log(f"lm (b): prefill forward cold {cold_ms:.1f} ms, warm "
         f"{warm_ms:.1f} ms ({res['tokens_per_s']:.0f} tokens/s); "
-        f"{launches} attention-kernel launches per forward; peak device "
+        f"{launches} attention-kernel launches per forward "
+        f"({by_variant}); peak device "
         f"memory {peak / 1e9:.2f} GB")
     log("lm (b): forward device time (torch.profiler): " + ", ".join(
         f"{k} {v / 1e3:.1f} ms" for k, v in us.items())
@@ -1306,7 +1332,8 @@ def main() -> int:
 
     # 9. the flash-attention kernel vs plain, and its times at the layer
     # shape
-    attn_rows, attn_err, layer = attention_vs_plain(gen)
+    attn_rows, attn_err, layers = attention_vs_plain(gen)
+    layer = layers["internlm2-20b"]
     # 10. the LM path: (a) full widths, 2 layers, card vs CPU; (b) one
     # full-config prefill request (counts set to 0 inside, just before
     # it); (c) the serve loop at full config; (d) the smoke configs
@@ -1352,8 +1379,13 @@ def main() -> int:
                       ms=layer["ms"], call_ms=layer["call_ms"],
                       plain_ms=layer["plain_ms"], bound_ms=layer["bound_ms"],
                       bound_by="operations", library_ms=layer["library_ms"],
+                      variant=layer["variant"],
                       shape="internlm2-20b layer: B=2 H=48 Hkv=8 T=4096 "
-                            "D=128 bf16 causal")
+                            "D=128 bf16 causal",
+                      granite_layer={key: layers["granite-moe-3b-a800m"][key]
+                                     for key in ("ms", "library_ms",
+                                                 "bound_ms", "plain_ms",
+                                                 "max_abs_err")})
     print(json.dumps({"kernels": [entry, csr_entry, attn_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

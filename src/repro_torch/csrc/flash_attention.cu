@@ -5,7 +5,7 @@
 // k, v[B, Hkv, Tk, D] (H a multiple of Hkv) it computes, per query row,
 //   o = softmax((q / sqrt(D)) k^T) v
 // with the online softmax: the scale 1/sqrt(D) is applied in float32 (to
-// q in the SIMT kernel, to the scores in the tensor-core one), the running
+// q in the SIMT kernel, to the scores in the tensor-core ones), the running
 // max m, the denominator l and the accumulator stay in float32, masked
 // scores are -1e30 (not -inf) as in the TPU kernel, and the output is
 // acc / max(l, 1e-30) written in q's type (float32 or bfloat16).  Query
@@ -18,22 +18,35 @@
 // query row (2 T D in q k^T, 2 T D in p v; half of that causal) against
 // 2 D bytes of q and o per row, far above the card's ~295 flop/byte ridge
 // at any prefill length, so the bound is the tensor cores' rate (989
-// TFLOP/s dense bf16).  What the design does about it: bfloat16 at
-// D >= 16 (every ported LM's full configuration) runs the products on the
-// tensor cores with mma.sync (flash_attention_mma_kernel); float32, and
-// bfloat16 at D = 8, run them as float32 FMAs on the SIMT units
-// (flash_attention_kernel, 67 TFLOP/s peak), which keeps float32 exact
-// enough to hold the card to the CPU.  Neither uses wgmma, TMA or warp
-// specialisation, so both sit well above the bound; that is later work.
+// TFLOP/s dense bf16).  Three kernels, chosen by (dtype, D) in
+// launch_bf16 / launch_f32 (the wrapper's kernel_variant names the same):
 //
-// Both kernels give one block one (batch, head, 64-row query tile) and
-// loop over the key tiles themselves, so no state crosses blocks and the
-// TPU kernel's sequential grid is not needed; causal query tiles are
-// launched heaviest first, so the long tiles do not trail.  Global loads are
-// 16 bytes a thread; rows are addressed through the caller's batch, head
-// and row strides (the last dimension must be contiguous and every row
-// 16-byte aligned), so a transposed view needs no copy.  Tiles above 48 KB
-// of shared memory take cudaFuncSetAttribute.
+// - flash_attention_wgmma_kernel, bfloat16 at D = 64 and 128 (every
+//   ported LM's full configuration): Hopper's own path.  TMA loads into
+//   shared memory, driven by a producer warpgroup through a two-stage
+//   ring of mbarriers, keep the copies off the consumers; wgmma runs both
+//   products from one 128-row query tile at the tensor cores' full issue
+//   rate; what bounds it then is the softmax between the two products (an
+//   exp2 per score on the special-function unit), which runs while the
+//   other consumer warpgroup's products run.
+// - flash_attention_mma_kernel, bfloat16 at D = 16 and 32: mma.sync on the
+//   tensor cores, copies synchronous with the products; bound by the copies
+//   and the older instruction's rate.
+// - flash_attention_kernel, float32 at every width and bfloat16 at D = 8:
+//   float32 FMAs on the SIMT units (67 TFLOP/s peak), which keeps float32
+//   exact enough to hold the card to the CPU.
+//
+// Every kernel loops over the key tiles of its block, so no state crosses
+// blocks and the TPU kernel's sequential grid is not needed; causal query
+// tiles are launched heaviest first, so the long tiles do not trail.  Rows
+// are addressed through the caller's batch, head and row strides (the last
+// dimension contiguous, the base and every stride 16-byte aligned: what a
+// TMA tensor map takes), so a transposed view needs no copy.  Tiles above
+// 48 KB of shared memory take cudaFuncSetAttribute.
+//
+// flash_attention_kernel and flash_attention_mma_kernel give one block one
+// (batch, head, 64-row query tile); their global loads are 16 bytes a
+// thread.
 //
 // flash_attention_kernel: 256 threads, 32-key tiles.  The scaled query
 // tile, the key and value tiles (converted to float32) and the tile of
@@ -48,6 +61,8 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -366,7 +381,7 @@ int launch_f32(int d, const void* q, const void* k, const void* v,
 
 
 // ---------------------------------------------------------------------
-// bfloat16 at D >= 16: the products on the tensor cores (mma.sync)
+// bfloat16 at D = 16 and 32: the products on the tensor cores (mma.sync)
 // ---------------------------------------------------------------------
 
 constexpr int kMmaWarps = 4;               // 16 query rows each
@@ -447,8 +462,8 @@ __device__ __forceinline__ void copy_tile(__nv_bfloat16* dst,
 // reads v's fragments with ldmatrix.trans.  Beside the order of the sums,
 // only p's rounding to bf16 differs from the float32 arithmetic of the TPU
 // kernel (bf16 products of q and k are exact in float32).  Shared memory:
-// the q, k and v tiles in bf16, rows padded to D + 8 (52,224 bytes at
-// D = 128).
+// the q, k and v tiles in bf16, rows padded to D + 8 (15,360 bytes at
+// D = 32).
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -626,6 +641,297 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------
+// bfloat16 at D = 64 and 128: wgmma, TMA and warp specialisation
+// ---------------------------------------------------------------------
+
+constexpr int kWgBQ = 128;               // query rows per block (2 x 64)
+constexpr int kWgBK = 128;               // keys per tile
+constexpr int kWgStages = 2;             // depth of the K/V ring
+constexpr int kWgThreads = 384;          // 3 warpgroups: TMA + 2 consumers
+constexpr int kBoxCols = 64;             // bf16 columns of one 128-byte box
+constexpr int kBoxBytes = kWgBK * 128;   // one box of 128 rows: 16 KB
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (what exp2f becomes under fast math:
+// relative error ~2^-22, far below p's rounding to bf16)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+struct WgSmem {
+  static constexpr int kBoxes = D / kBoxCols;          // boxes per tile
+  static constexpr int kTile = kBoxes * kBoxBytes;     // a 128 x D tile
+  static constexpr int kK = kTile;                     // q at 0, then k
+  static constexpr int kV = kK + kWgStages * kTile;    // then v
+  static constexpr int kBar = kV + kWgStages * kTile;  // then the barriers
+  static constexpr int kBars = 1 + 3 * kWgStages;
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;   // + alignment
+};
+
+// One online-softmax step of a consumer over its 64 rows x 128 keys of
+// scores s (the wgmma accumulator: s[4 j + e] is row row0 + 8 (e / 2) of
+// the block's tile, key 8 j + gc + e % 2 of the key tile): mask (only on
+// the diagonal tile: key > row), update the row max m, turn s into
+// p = 2^((s - m) log2(e) / sqrt(D)) with the scale folded into one float32
+// multiply-add, update this thread's partial row sums l and rescale acc.
+// Row maxima are reduced over the quad of threads that holds a row; the
+// sums only at the end.
+template <bool kMask, int N>
+__device__ __forceinline__ void softmax_step(float (&s)[64], float (&acc)[N],
+                                             float (&m)[2], float (&l)[2],
+                                             float scale_log2, int row0,
+                                             int gc) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if constexpr (kMask) {
+      const int key = 8 * (i / 4) + gc + (i & 1);
+      if (key > row0 + 8 * ((i >> 1) & 1)) s[i] = kNegInf;
+    }
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+  float scale[2], mc[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFull, mx[hf], 1));
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFull, mx[hf], 2));
+    scale[hf] = ex2((m[hf] - mx[hf]) * scale_log2);
+    m[hf] = mx[hf];
+    mc[hf] = mx[hf] * scale_log2;
+    l[hf] *= scale[hf];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float p = ex2(fmaf(s[i], scale_log2, -mc[(i >> 1) & 1]));
+    s[i] = p;
+    l[(i >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= scale[(i >> 1) & 1];
+}
+
+// The same function as flash_attention_mma_kernel on Hopper's own path.
+// Block: one (batch, head, 128-row query tile), three warpgroups.
+// Warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec) and
+// one thread issues every TMA load, q once and then k and v of each
+// 128-key tile into a ring of kWgStages stages; `full` barriers count the
+// bytes in, `empty` barriers the 256 consumer threads out.  Warpgroups 1
+// and 2 are consumers of 64 query rows each (setmaxnreg.inc): per tile,
+// S = q k^T as D / 16 wgmma m64n128k16 with both operands in shared memory
+// (k's rows are the K-major B operand as they lie), the online softmax in
+// registers (softmax_step; the causal mask only on the diagonal tile), p
+// packed to bf16 in registers as the A operand, and O += p v as 8 wgmma
+// m64n{D}k16 with v's rows as the MN-major B operand (the transpose
+// flag).  The producer loads the next tile while the consumers work on
+// the current one, so the copies overlap the products; inside a consumer
+// the products and the softmax take turns, and the two consumers overlap
+// each other as the warp schedulers interleave them.  Tiles are
+// 128-byte-swizzled boxes of 64 columns (sm90.cuh); q, k and v are read
+// through 4-D tensor maps over (D, T, heads, B) built from the caller's
+// strides.  Shared memory: q, and two stages of k and v (164,928 bytes at
+// D = 128, 83,008 at D = 64): one block per SM.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             __nv_bfloat16* __restrict__ o, int h,
+                             int group, int tq, int tk, int causal,
+                             float scale_log2) {
+  using S = WgSmem<D>;
+  constexpr int kSteps = D / 16;           // k-steps of q k^T
+  constexpr int kN = D / 2;                // accumulator floats of O
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle repeats every 1024 bytes: tiles start on that boundary
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + S::kK;
+  const uint32_t v_s = base + S::kV;
+  const uint32_t q_full = base + S::kBar;
+  const uint32_t k_full = q_full + 8;                   // + 8 stage
+  const uint32_t v_full = k_full + 8 * kWgStages;
+  const uint32_t empty = v_full + 8 * kWgStages;
+
+  const int n_qt = tq / kWgBQ;
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.x)
+                        : static_cast<int>(blockIdx.x);   // heaviest first
+  const int q0 = qt * kWgBQ;
+  const int ih = blockIdx.y;
+  const int ib = blockIdx.z;
+  // causal: the key tiles up to the diagonal (tq == tk, aligned tiles)
+  const int n_kt = causal ? qt + 1 : tk / kWgBK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int st = 0; st < kWgStages; ++st) {
+      sm90::mbar_init(k_full + 8 * st, 1);
+      sm90::mbar_init(v_full + 8 * st, 1);
+      sm90::mbar_init(empty + 8 * st, 2 * 128);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread issues the loads; the rest of the group idles
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      const int ikv = ih / group;
+      sm90::mbar_arrive_expect_tx(q_full, S::kTile);
+#pragma unroll
+      for (int c = 0; c < S::kBoxes; ++c)
+        sm90::tma_load_4d(q_s + c * kBoxBytes, &q_map, q_full, c * kBoxCols,
+                          q0, ih, ib);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kWgStages;
+        // stage st is free once the consumers released its previous round
+        sm90::mbar_wait(empty + 8 * st, ((kt / kWgStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(k_full + 8 * st, S::kTile);
+#pragma unroll
+        for (int c = 0; c < S::kBoxes; ++c)
+          sm90::tma_load_4d(k_s + st * S::kTile + c * kBoxBytes, &k_map,
+                            k_full + 8 * st, c * kBoxCols, kt * kWgBK, ikv,
+                            ib);
+        sm90::mbar_arrive_expect_tx(v_full + 8 * st, S::kTile);
+#pragma unroll
+        for (int c = 0; c < S::kBoxes; ++c)
+          sm90::tma_load_4d(v_s + st * S::kTile + c * kBoxBytes, &v_map,
+                            v_full + 8 * st, c * kBoxCols, kt * kWgBK, ikv,
+                            ib);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    const int cw = wg - 1;                     // rows 64 cw .. 64 cw + 63
+    const int tid = threadIdx.x - 128 * wg;
+    const int lane = tid & 31;
+    const int row0 = 64 * cw + 16 * (tid >> 5) + (lane >> 2);   // and + 8
+    const int gc = 2 * (lane & 3);
+    // this consumer's 64 rows of q: 64 rows x 128 bytes into each box
+    const uint32_t q_c = q_s + cw * 64 * 128;
+
+    float s[64];
+    float acc[kN];
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kN; ++i) acc[i] = 0.0f;
+
+    sm90::mbar_wait(q_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % kWgStages;
+      const uint32_t parity = (kt / kWgStages) & 1;
+      const uint32_t k_t = k_s + st * S::kTile;
+      const uint32_t v_t = v_s + st * S::kTile;
+
+      // S = q k^T: k-step j reads 16 columns, 32 j bytes into box j / 4
+      sm90::mbar_wait(k_full + 8 * st, parity);
+      sm90::fence_operands(s);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        const uint32_t off = (j / 4) * kBoxBytes + 32 * (j % 4);
+        sm90::wgmma_ss_m64n128(s, sm90::sw128_desc(q_c + off, 16, 1024),
+                               sm90::sw128_desc(k_t + off, 16, 1024),
+                               j > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(s);
+
+      if (causal && kt == n_kt - 1)
+        softmax_step<true>(s, acc, m, l, scale_log2, row0, gc);
+      else
+        softmax_step<false>(s, acc, m, l, scale_log2, row0, gc);
+
+      // p in bf16, in the A-operand layout: k-step kk is keys 16 kk ..
+      // 16 kk + 15, the accumulator's 8-key groups 2 kk and 2 kk + 1
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+
+      // O += p v: k-step kk reads keys 16 kk .. (2048 kk bytes in); v's
+      // column boxes lie kBoxBytes apart (LBO), its 8-key groups 1024
+      sm90::mbar_wait(v_full + 8 * st, parity);
+      sm90::fence_operands(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t desc = sm90::sw128_desc(v_t + 2048 * kk, kBoxBytes,
+                                               1024);
+        if constexpr (D == 128)
+          sm90::wgmma_rs_m64n128_tb(acc, pa[kk], desc);
+        else
+          sm90::wgmma_rs_m64n64_tb(acc, pa[kk], desc);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(acc);
+      sm90::mbar_arrive(empty + 8 * st);
+    }
+
+    // epilogue: the row sums over the quad, then acc / max(l, 1e-30)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      l[hf] += __shfl_xor_sync(kFull, l[hf], 1);
+      l[hf] += __shfl_xor_sync(kFull, l[hf], 2);
+      const float denom = fmaxf(l[hf], 1e-30f);
+      const int qpos = q0 + row0 + 8 * hf;
+      __nv_bfloat16* orow =
+          o + ((static_cast<int64_t>(ib) * h + ih) * tq + qpos) * D + gc;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(
+            acc[4 * j + 2 * hf] / denom, acc[4 * j + 2 * hf + 1] / denom);
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 int b, int h, int hkv, int tq, int tk, const long long* st,
+                 int causal, float sm_scale, cudaStream_t stream) {
+  if (tq % kWgBQ || tk % kWgBK || (causal && tq != tk))
+    return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {tq, tk, tk};
+  const int heads[3] = {h, hkv, hkv};
+  for (int i = 0; i < 3; ++i) {
+    const int err = sm90::encode_bf16_map(
+        &maps[i], ptrs[i], D, rows[i], heads[i], b, st[3 * i + 2],
+        st[3 * i + 1], st[3 * i], kBoxCols, kWgBK);
+    if (err) return err;
+  }
+  auto kernel = flash_attention_wgmma_kernel<D>;
+  static bool configured = false;   // once per instantiation (one device)
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        WgSmem<D>::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(tq / kWgBQ, h, b);
+  kernel<<<grid, kWgThreads, WgSmem<D>::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), h, h / hkv,
+      tq, tk, causal, sm_scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_bf16(int d, const void* q, const void* k, const void* v,
                 void* o, int b, int h, int hkv, int tq, int tk,
                 const long long* st, int causal, float sm_scale,
@@ -641,11 +947,11 @@ int launch_bf16(int d, const void* q, const void* k, const void* v,
       return launch_mma<32>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
                             sm_scale, stream);
     case 64:
-      return launch_mma<64>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
-                            sm_scale, stream);
+      return launch_wgmma<64>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                              sm_scale, stream);
     case 128:
-      return launch_mma<128>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
-                             sm_scale, stream);
+      return launch_wgmma<128>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                               sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }

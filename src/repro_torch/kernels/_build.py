@@ -2,8 +2,8 @@
 
 Each source compiles on its own into a shared library with a plain C
 interface, ``build/<stem>_<hash>.so`` at the repository root, named by the
-hash of the source so that an edited source rebuilds and an unchanged one
-is reused.  :func:`build_all` starts one ``nvcc`` per source, all at once,
+hash of the source and of every header (``*.cuh``) beside it, so that an
+edited source or header rebuilds and an unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per source, all at once,
 and waits for them together.  Libraries are loaded with ``ctypes``.
 
 Nothing here runs at import time: the CPU tests import the kernel modules,
@@ -29,9 +29,14 @@ _LOADED: Dict[Path, ctypes.CDLL] = {}
 
 
 def library_path(source: Path) -> Path:
-    """Where this source's build goes: its name carries the source hash."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{digest}.so"
+    """Where this source's build goes: its name carries the hash of the
+    source and of every ``*.cuh`` header in its directory (any of which
+    it may include)."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

@@ -13,19 +13,34 @@ the diagonal.
 * :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu``.  What
   bounds it is operations: 4 T D flops per query row against 2 D bytes of
   q and o, far above the card's flop/byte ridge, so the bound is the
-  tensor cores' bf16 rate.  bfloat16 at D >= 16 (every ported LM's full
-  configuration) runs q k^T and p v on the tensor cores (``mma.sync``,
-  p rounded to bf16 for its product, everything else float32); float32,
-  and bfloat16 at D = 8, run them as float32 FMAs on the SIMT units.
-  Neither uses ``wgmma`` or TMA, so both run well above the bound;
-  ``PERF.md`` has the times beside it and beside
-  ``scaled_dot_product_attention``.  One block owns one (batch, head,
-  64-row query tile) and loops over the key tiles in shared memory.  The
-  kernel reads q, k and v through their batch, head and row strides, so
-  the transposed views the transformer hands it need no copy; a tensor
-  whose last dimension is not contiguous, or whose rows are not 16-byte
-  aligned, is copied once with ``.contiguous()`` (read and written once
-  more).  The library is built with ``nvcc`` at first use into
+  tensor cores' bf16 rate.  :func:`kernel_variant` names the kernel that
+  a ``(dtype, D)`` runs, and the C dispatch follows it:
+
+  - ``"wgmma"``, bfloat16 at D = 64 and 128 (every ported LM's full
+    configuration): Hopper's own path.  A block owns a (batch, head,
+    128-row query tile) and has three warpgroups: a producer whose one
+    thread streams q and then k, v through a two-stage ring of 128-key
+    tiles with TMA loads and mbarriers, and two consumers of 64 rows
+    that compute ``q k^T`` and ``p v`` with ``wgmma`` (p packed to bf16
+    in registers) and the online softmax in registers between them, so
+    the copies overlap the products.  The tensor maps are built from q, k
+    and v's strides, so the tensors must meet TMA's rules
+    (:func:`tma_ok`).
+  - ``"mma"``, bfloat16 at D = 16 and 32: ``mma.sync`` on the tensor
+    cores with synchronous copies, 64-row query tiles.
+  - ``"simt"``, float32 at every width and bfloat16 at D = 8: float32
+    FMAs on the SIMT units, bound by their 67 TFLOP/s.
+
+  Every variant keeps the running max, denominator and accumulator in
+  float32; bf16 variants round p to bf16 for its product.  ``PERF.md``
+  has the times beside the bound and beside
+  ``scaled_dot_product_attention``.  The kernels loop over the key tiles
+  of their block, heaviest causal tiles first, and read q, k and v
+  through their batch, head and row strides, so the transposed views the
+  transformer hands over need no copy; a tensor that :func:`tma_ok`
+  refuses is copied once (read and written once more).  There is no
+  fallback between variants: a CUDA tensor launches its variant or the
+  call raises.  The library is built with ``nvcc`` at first use into
   ``build/`` and loaded with ``ctypes`` (``kernels/_build.py``).
 * :func:`flash_attention_plain` is the TPU kernel's loop in torch: 128 x
   128 blocks, key blocks in order, every query block at once, in float32.
@@ -153,14 +168,38 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.restype = ctypes.c_int
 
 
-def _kernel_view(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the kernel reads it: last dimension contiguous and every
-    row 16-byte aligned, else a contiguous copy."""
+def kernel_variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel that ``flash_attention_cuda`` launches for q's dtype
+    and head width: ``"wgmma"`` (bf16, D = 64 and 128), ``"mma"`` (bf16,
+    D = 16 and 32) or ``"simt"`` (float32, and bf16 at D = 8)."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        return "wgmma"
+    if dtype == torch.bfloat16 and d in (16, 32):
+        return "mma"
+    return "simt"
+
+
+def tma_ok(t: torch.Tensor) -> bool:
+    """Whether the kernels read ``t`` as it lies: last dimension
+    contiguous, base 16-byte aligned, and every other stride a positive
+    multiple of 16 bytes below 2^40 (what a TMA tensor map takes; the
+    other variants need the first two)."""
     size = t.element_size()
-    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s * size % 16 == 0 for s in t.stride()[:-1])):
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(0 < s * size < 1 << 40 and s * size % 16 == 0
+                    for s in t.stride()[:-1]))
+
+
+def _kernel_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel reads it: itself if :func:`tma_ok`, else a
+    fresh contiguous copy (which always is)."""
+    if tma_ok(t):
         return t
-    return t.contiguous()
+    t = t.clone(memory_format=torch.contiguous_format)
+    if not tma_ok(t):
+        raise ValueError(f"strides {t.stride()} of a {tuple(t.shape)} copy "
+                         f"are not what TMA takes")
+    return t
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

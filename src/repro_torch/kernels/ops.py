@@ -7,8 +7,9 @@ launches in a plain integer attribute of its wrapper, set where the
 wrapper launches it and nowhere else: ``ht_probe.launches`` (with
 ``ht_probe.by_batch`` by ``(mode, lanes)``), ``segment_reduce.launches``
 (incremented by :func:`segment_reduce_csr`, the one place that launches
-the CSR kernel) and ``attention.launches``, so a run can show that its
-path went through them.
+the CSR kernel) and ``attention.launches`` (with ``attention.by_variant``
+by :func:`~repro_torch.kernels.flash_attention.kernel_variant`), so a run
+can show that its path went through them and which kernel ran.
 
 The graph ops (port of ``repro/kernels/ops.py``) all reduce through the
 CSR segment-reduce kernel: :func:`segment_reduce`, :func:`spmm`,
@@ -26,7 +27,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.csr_segment import (build_csr, csr_segment_cuda,
                                              csr_segment_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 kernel_variant)
 from repro_torch.kernels.ht_probe import ht_probe_cuda, ht_probe_plain
 
 
@@ -195,11 +197,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _route(q, "attention"):
         out = flash_attention_cuda(q, k, v, causal=causal)
         attention.launches += 1
+        attention.by_variant[kernel_variant(q.dtype, q.shape[-1])] += 1
         return out
     return flash_attention_plain(q, k, v, causal=causal)
 
 
 attention.launches = 0
+attention.by_variant = Counter()
 
 
 def reset_counts() -> None:
@@ -208,3 +212,4 @@ def reset_counts() -> None:
     ht_probe.by_batch = Counter()
     segment_reduce.launches = 0
     attention.launches = 0
+    attention.by_variant = Counter()

@@ -18,7 +18,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_plain)
+    DTYPES, HEAD_DIMS, _kernel_view, flash_attention_cuda,
+    flash_attention_plain, kernel_variant, tma_ok)
 
 # the sweep of tests/test_kernels.py::test_flash_attention_sweep
 SWEEP = [(2, 4, 2, 256, 64, True), (1, 8, 8, 128, 128, True),
@@ -130,6 +131,7 @@ def test_routing_sends_bias_and_ragged_lengths_to_ref():
     np.testing.assert_array_equal(ops.attention(q, k, v).numpy(),
                                   flash_attention_plain(q, k, v).numpy())
     assert ops.attention.launches == 0       # no kernel launched on the CPU
+    assert not ops.attention.by_variant
 
 
 def test_kernel_route_raises_where_the_tpu_kernel_is_wrong():
@@ -152,6 +154,51 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         flash_attention_cuda(q, k, v)
 
 
+# the kernel each (dtype, D) runs: Hopper's wgmma kernel at the full
+# configurations' head widths, mma.sync below them, SIMT for float32 and D 8
+VARIANTS = {(torch.bfloat16, 8): "simt", (torch.bfloat16, 16): "mma",
+            (torch.bfloat16, 32): "mma", (torch.bfloat16, 64): "wgmma",
+            (torch.bfloat16, 128): "wgmma"}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_kernel_variant_by_dtype_and_width(dtype, d):
+    assert kernel_variant(dtype, d) == VARIANTS.get((dtype, d), "simt")
+
+
+def _strided(b, h, t, d, dtype):
+    """The transformer's layout: ``[B, T, heads, D]`` memory viewed as
+    ``[B, heads, T, D]``."""
+    return torch.randn((b, t, h, d)).to(dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tma_check_takes_the_transformer_layout(dtype):
+    x = _strided(2, 6, 256, 64, dtype)
+    assert not x.is_contiguous() and tma_ok(x)
+    assert _kernel_view(x) is x                  # no copy
+
+
+@pytest.mark.parametrize("case", ["last_dim_strided", "unaligned_base",
+                                  "row_stride_not_16_bytes",
+                                  "stride_past_2_40"])
+def test_tma_check_copies_what_it_cannot_take(case):
+    if case == "last_dim_strided":
+        x = torch.randn((2, 4, 64, 128)).to(torch.bfloat16).transpose(2, 3)
+    elif case == "unaligned_base":             # 4 bytes past a boundary
+        x = torch.randn((2, 4, 128, 72)).to(torch.bfloat16)[..., 2:66]
+    elif case == "row_stride_not_16_bytes":   # rows 68 bf16 = 136 bytes
+        x = torch.randn((2, 4, 128, 68)).to(torch.bfloat16)[..., :64]
+    else:                                      # a size-1 batch, huge stride
+        base = torch.randn((4 * 128 * 64,)).to(torch.bfloat16)
+        x = base.as_strided((1, 4, 128, 64), (1 << 40, 128 * 64, 64, 1))
+    assert not tma_ok(x)
+    y = _kernel_view(x)
+    assert y is not x and tma_ok(y) and y.shape == x.shape
+    assert torch.equal(y, x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-3),
                                        ("bfloat16", 3e-2)])
@@ -159,10 +206,23 @@ def test_kernel_matches_plain_on_the_card(dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
-    for b, h, hkv, t, d, causal in SWEEP + [(2, 8, 2, 256, 8, True),
-                                            (2, 4, 4, 256, 16, True)]:
-        q, k, v = (torch.from_numpy(a).to("cuda", dt)
-                   for a in _qkv(b, h, hkv, t, t, d, seed=b * t + h))
+    # the sweep and the smoke widths, contiguous; then GQA at the wgmma
+    # kernel's widths in the transformer's strided layout, causal and not
+    shapes = [(*s, False) for s in SWEEP + [(2, 8, 2, 256, 8, True),
+                                            (2, 4, 4, 256, 16, True)]]
+    shapes += [(2, 8, 2, 512, 128, True, True),
+               (2, 8, 2, 512, 128, False, True),
+               (2, 6, 2, 768, 64, True, True),
+               (1, 4, 1, 384, 64, False, True)]
+    for b, h, hkv, t, d, causal, strided in shapes:
+        rng = np.random.default_rng(b * t + h + d)
+        if strided:
+            q, k, v = (torch.from_numpy(rng.normal(size=(b, t, n, d)).astype(
+                np.float32)).to("cuda", dt).transpose(1, 2)
+                for n in (h, hkv, hkv))
+        else:
+            q, k, v = (torch.from_numpy(a).to("cuda", dt)
+                       for a in _qkv(b, h, hkv, t, t, d, seed=b * t + h))
         got = flash_attention_cuda(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
