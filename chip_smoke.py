@@ -10,17 +10,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``build/``), with ``nvcc``'s register and spill lines;
 2. probe kernel vs plain: the CUDA probe kernel against its plain torch
    version, bitwise, on 2^25-slot tables (the full configuration's
-   ``adj``/``epos`` capacity) at 50% live load plus tombstones, in both
-   modes, plain and prehashed, with present, absent and garbage keys, at
-   every listed lane count; at the end, again on a 2^24-slot table
-   (``eab``/``snadj``/``snpos``) at the listed and the main path's lane
-   counts, and times on the card beside the byte bound (device time from
+   ``adj``/``epos`` capacity) at 53% occupancy (50% live plus 1/32
+   tombstones) and at 70% (60% live plus 10% tombstones, where
+   ``maybe_compact`` rebuilds), in both modes, plain and prehashed, with
+   present, absent, garbage and sentinel keys, at every listed lane
+   count; on tables of caps 8, 16 and 32 (half full, full with and
+   without tombstones, random words); ``ops.ht_probe_many`` over jobs of
+   every cap and mode in one launch and in two; a stacked ``[4, 2^20]``
+   table as 4 jobs of one launch (timed beside 4 launches); at the end,
+   again on a 2^24-slot table (``eab``/``snadj``/``snpos``) at the listed
+   and the main path's lane counts, and times at both loads on the card
+   beside the word bound and the sector traffic (device time from
    CUDA-graph replay, and the time of a call from Python);
 3. summarizer path: ``BatchedSummarizer(full_config(), device="cuda")``
    over a fully dynamic BA stream; the probe kernel's launch count must
    move, ``phi == phi_recomputed()`` and the lossless decode must equal the
    stream's live edge set; us/change (whole stream and its later steps),
-   launches and host syncs per change, table load, peak device memory;
+   probe launches, jobs and host syncs per change, table load, peak
+   device memory;
 4. reads: ``query()`` degree / has_edge / neighbors answers against the
    live edge set, us/query; then graph ops over that live summary: the
    query-served ``spmm`` == ``summary_spmm`` == the dense plain sum over
@@ -91,6 +98,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 LANES = (1, 3, 20, 32, 48, 64, 160, 16384, 1 << 16, 1 << 20)
 CAP = 1 << 25                     # full_config's adj / epos capacity
 CAP_SMALL = 1 << 24               # full_config's eab / snadj / snpos capacity
+# (live, tombstones) of the 2^25-slot tables: half live plus 1/32 dead,
+# and the 70% occupancy (live + tombstones) at which maybe_compact
+# rebuilds a table
+LOADS = {"53%": (CAP // 2, CAP // 32), "70%": (CAP * 6 // 10, CAP // 10)}
+TINY_CAPS = (8, 16, 32)
+STACKED = (4, 1 << 20, 16384)     # replicas, cap, lanes of the stacked form
 NODES = 600                       # BA nodes of the main path's stream
 FP32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 tensor-core rate
@@ -221,11 +234,17 @@ def bulk_table(cap: int, n_keys: int, n_tomb: int, prehashed: bool, gen):
 
 
 def queries(tables, lanes: int, gen):
-    """Present, absent and garbage (full int32 range) keys, in turn."""
+    """Present, absent and garbage (full int32 range) keys, in turn; half
+    the garbage lanes are sentinel keys instead: ``(-1, -1)`` finds the
+    first EMPTY, ``(-2, -2)`` the first TOMB, and ``(-1, x)`` and
+    ``(-2, x)`` stop there (or pass it) without a match.  Random garbage
+    never hits them."""
     import torch
     tk1, tk2, _ = tables
     dev = tk1.device
     live = (tk1 >= 0).nonzero().flatten()
+    if live.numel() == 0:               # a tiny table of random words
+        live = torch.zeros(1, dtype=torch.int64, device=dev)
     pick = live[torch.randint(0, live.numel(), (lanes,), generator=gen,
                               device=dev)]
     kind = torch.arange(lanes, device=dev) % 3
@@ -239,17 +258,21 @@ def queries(tables, lanes: int, gen):
                        device=dev, dtype=torch.int32)
     q1 = torch.where(kind == 0, tk1[pick], torch.where(kind == 1, absent1, g1))
     q2 = torch.where(kind == 0, tk2[pick], torch.where(kind == 1, absent2, g2))
+    idx = torch.arange(lanes, device=dev)
+    sentinel = (kind == 2) & ((idx // 3) % 2 == 0)
+    which = (idx // 6) % 4          # (-1,-1), (-2,-2), (-1,x), (-2,x)
+    s1 = torch.where(which % 2 == 0, -1, -2).to(torch.int32)
+    s2 = torch.where(which < 2, s1, g2)
+    q1 = torch.where(sentinel, s1, q1)
+    q2 = torch.where(sentinel, s2, q2)
     return q1.contiguous(), q2.contiguous()
 
 
-def bound_ms(tables, q1, q2, prehashed: bool) -> float:
-    """Least time for the bytes this call must move at the device memory
-    rate, each word read once: 4 B of k1 for every distinct slot on a
-    pass-1 chain, 4 B of k2 only for the distinct slots whose k1 equals
-    the query's, 4 B of val for each distinct chain end, and 8 B of query
-    and 9 B of output per lane.  The same in both modes: insert mode's
-    pass 2 runs only for absent keys, whose pass-1 chain ends at the first
-    EMPTY, so pass 2 stops on a slot pass 1 already read."""
+def _traffic_ms(tables, q1, q2, prehashed: bool, words: int) -> float:
+    """Least time at the device memory rate for the distinct units of
+    ``words`` 4-byte words this call must read, each once: of k1 on every
+    pass-1 chain, of k2 only where k1 equals the query's, of val at each
+    chain end; plus 8 B of query and 9 B of output per lane."""
     import torch
     from repro_torch.kernels.ht_probe import probe_chains
     tk1, tk2, _ = tables
@@ -261,36 +284,59 @@ def bound_ms(tables, q1, q2, prehashed: bool) -> float:
     first = torch.repeat_interleave(torch.cumsum(steps, 0) - steps, steps)
     off = torch.arange(lane.numel(), device=tk1.device) - first
     slots = (start[lane] + off) & (cap - 1)
-    k1_words = torch.unique(slots).numel()
-    k2_words = torch.unique(slots[tk1[slots] == q1[lane]]).numel()
-    val_words = torch.unique((start + i1) & (cap - 1)).numel()
-    nbytes = 4 * (k1_words + k2_words + val_words) + (8 + 9) * n
+    k1_units = torch.unique(slots // words).numel()
+    k2_units = torch.unique(slots[tk1[slots] == q1[lane]] // words).numel()
+    val_units = torch.unique(((start + i1) & (cap - 1)) // words).numel()
+    nbytes = 4 * words * (k1_units + k2_units + val_units) + (8 + 9) * n
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def kernel_vs_plain(tables_by_pre, lane_counts, gen, time_it: bool):
-    """Bitwise compare (and optionally time) kernel and plain version at
-    every (mode, prehashed, lanes); returns rows and the max |error|."""
+def bound_ms(tables, q1, q2, prehashed: bool) -> float:
+    """The kernel's bound: the words it must move, each read once.  The
+    same in both modes: insert mode's pass 2 runs only for absent keys,
+    whose pass-1 chain ends at the first EMPTY, so pass 2 stops on a slot
+    pass 1 already read."""
+    return _traffic_ms(tables, q1, q2, prehashed, 1)
+
+
+def sector_ms(tables, q1, q2, prehashed: bool) -> float:
+    """The same count in the 32-byte sectors that scattered 4-byte reads
+    cost on this card: a scale beside :func:`bound_ms`, not the bound."""
+    return _traffic_ms(tables, q1, q2, prehashed, 8)
+
+
+def check_equal(got, want, what: str) -> int:
+    """Raise unless every (slot, found, val) equals the plain version's;
+    returns the max |error| (0)."""
     import torch
+    err = 0
+    for g, w, name in zip(got, want, ("slot", "found", "val")):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"ht_probe {name} differs: {what}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def kernel_vs_plain(tables_by_key, lane_counts, gen, time_it: bool):
+    """Bitwise compare (and optionally time) kernel and plain version at
+    every (load, prehashed, mode, lanes); ``tables_by_key`` maps
+    ``(load, prehashed)`` to a table.  Returns rows and the max |error|."""
     from repro_torch.kernels.ht_probe import ht_probe_cuda, ht_probe_plain
     rows, max_err = [], 0
-    for prehashed, tables in tables_by_pre.items():
+    for (load, prehashed), tables in tables_by_key.items():
         for mode in ("find", "insert"):
             for lanes in lane_counts:
                 q1, q2 = queries(tables, lanes, gen)
                 args = (*tables, q1, q2)
                 kw = dict(prehashed=prehashed, mode=mode)
-                got = ht_probe_cuda(*args, **kw)
-                want = ht_probe_plain(*args, **kw)
-                torch.cuda.synchronize()
-                for g, w, name in zip(got, want, ("slot", "found", "val")):
-                    if not torch.equal(g, w):
-                        raise AssertionError(
-                            f"ht_probe {name} differs: mode={mode} "
-                            f"prehashed={prehashed} lanes={lanes}")
-                    max_err = max(max_err, int((g.long() - w.long()).abs()
-                                               .max()))
-                row = dict(mode=mode, prehashed=prehashed, lanes=lanes)
+                what = (f"load={load} mode={mode} prehashed={prehashed} "
+                        f"lanes={lanes}")
+                max_err = max(max_err, check_equal(
+                    ht_probe_cuda(*args, **kw), ht_probe_plain(*args, **kw),
+                    what))
+                row = dict(load=load, mode=mode, prehashed=prehashed,
+                           lanes=lanes)
                 if time_it:
                     reps = 200 if lanes <= 16384 else 20
                     launch = lambda: ht_probe_cuda(*args, **kw)  # noqa: E731
@@ -300,8 +346,132 @@ def kernel_vs_plain(tables_by_pre, lane_counts, gen, time_it: bool):
                         lambda: ht_probe_plain(*args, **kw),
                         5 if lanes <= 16384 else 2)
                     row["bound_ms"] = bound_ms(tables, q1, q2, prehashed)
+                    row["sector_ms"] = sector_ms(tables, q1, q2, prehashed)
                 rows.append(row)
     return rows, max_err
+
+
+def tiny_tables(gen) -> dict:
+    """Tables of caps 8, 16 and 32 (at or below a tile's 8 threads, and the
+    ``weab`` dummy's 8 slots), by name: half live with tombstones; full
+    with tombstones (no EMPTY: an absent key's chain wraps all of cap and
+    its windows straddle slot cap - 1); full with none; and random words
+    in [-2, 3], a content no table holds (duplicate keys, EMPTY slots with
+    a second word), on which kernel and plain version must still agree."""
+    import torch
+    out = {}
+    for cap in TINY_CAPS:
+        for pre in (False, True):
+            out[f"cap{cap} half+tombs pre={pre}"] = (bulk_table(
+                cap, cap // 2 + cap // 8, cap // 8, pre, gen)[0], pre)
+            out[f"cap{cap} full+tombs pre={pre}"] = (bulk_table(
+                cap, cap, cap // 4, pre, gen)[0], pre)
+            out[f"cap{cap} full pre={pre}"] = (bulk_table(
+                cap, cap, 0, pre, gen)[0], pre)
+            words = torch.randint(-2, 4, (3, cap), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            out[f"cap{cap} random words pre={pre}"] = (
+                tuple(w.contiguous() for w in words), pre)
+    return out
+
+
+def tiny_queries(tables, lanes: int, gen):
+    """:func:`queries` plus keys drawn from the table's own words and from
+    [-2, 3], so that small tables see hits, sentinels and near misses."""
+    import torch
+    q1, q2 = queries(tables, lanes, gen)
+    small = torch.randint(-2, 4, (2, lanes), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    pick = torch.arange(lanes, device="cuda") % 4 == 3
+    return (torch.where(pick, small[0], q1).contiguous(),
+            torch.where(pick, small[1], q2).contiguous())
+
+
+def tiny_vs_plain(tiny, gen) -> int:
+    """The tiny tables, both modes, 1 to 257 lanes, bitwise."""
+    from repro_torch.kernels.ht_probe import ht_probe_cuda, ht_probe_plain
+    max_err = 0
+    for name, (tables, pre) in tiny.items():
+        for mode in ("find", "insert"):
+            for lanes in (1, 7, 64, 257):
+                q1, q2 = tiny_queries(tables, lanes, gen)
+                kw = dict(prehashed=pre, mode=mode)
+                max_err = max(max_err, check_equal(
+                    ht_probe_cuda(*tables, q1, q2, **kw),
+                    ht_probe_plain(*tables, q1, q2, **kw),
+                    f"{name} mode={mode} lanes={lanes}"))
+    return max_err
+
+
+def multi_job_vs_plain(tables_by_key, tiny, gen) -> dict:
+    """``ops.ht_probe_many`` against the plain loop over its jobs,
+    bitwise: one launch of jobs on tables of every cap (2^25 at both
+    loads, 8 to 32), both modes and lane counts from 1 to 2048; then more
+    jobs than one launch takes (two launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ht_probe import (MAX_JOBS, ProbeJob,
+                                              ht_probe_many_plain)
+    sources = [(t, pre) for (_, pre), t in tables_by_key.items()]
+    sources += list(tiny.values())
+    jobs = []
+    for i in range(MAX_JOBS + 12):
+        tables, pre = sources[i % len(sources)]
+        lanes = (1, 3, 160, 2048)[i % 4]
+        q1, q2 = tiny_queries(tables, lanes, gen)
+        jobs.append(ProbeJob(*tables, q1, q2, pre, ("find", "insert")[
+            (i + i // len(sources)) % 2]))
+    out, max_err = {}, 0
+    for n_jobs in (len(sources), len(jobs)):
+        before = ops.ht_probe.launches
+        got = ops.ht_probe_many(jobs[:n_jobs])
+        launched = ops.ht_probe.launches - before
+        want = ht_probe_many_plain(jobs[:n_jobs])
+        for j, (g, w) in enumerate(zip(got, want)):
+            max_err = max(max_err, check_equal(
+                g, w, f"job {j} of {n_jobs} in one ht_probe_many"))
+        if launched != -(-n_jobs // MAX_JOBS):
+            raise AssertionError(f"{n_jobs} jobs took {launched} launches")
+        out[f"{n_jobs} jobs"] = launched
+    log(f"kernel vs plain: ht_probe_many bitwise equal, "
+        + ", ".join(f"{k} in {v} launch(es)" for k, v in out.items()))
+    return dict(launches=out, max_abs_err=max_err)
+
+
+def stacked_vs_plain(gen) -> dict:
+    """A stacked ``[4, 2^20]`` table (four replicas at 53% occupancy) with
+    ``[4, B]`` queries as 4 jobs of one launch, bitwise against the plain
+    loop, in both modes; timed beside four one-job launches."""
+    import torch
+    from repro_torch.kernels.ht_probe import (ht_probe_cuda,
+                                              ht_probe_many_cuda,
+                                              ht_probe_many_plain,
+                                              stacked_jobs)
+    r, cap, b = STACKED
+    parts = [bulk_table(cap, cap // 2 + cap // 32, cap // 32, False, gen)[0]
+             for _ in range(r)]
+    tk1, tk2, tval = (torch.stack([p[w] for p in parts]) for w in range(3))
+    qs = [queries(p, b, gen) for p in parts]
+    q1 = torch.stack([q[0] for q in qs])
+    q2 = torch.stack([q[1] for q in qs])
+    res, max_err = {}, 0
+    for mode in ("find", "insert"):
+        jobs = stacked_jobs(tk1, tk2, tval, q1, q2, mode=mode)
+        got, _ = ht_probe_many_cuda(jobs)
+        for j, (g, w) in enumerate(zip(got, ht_probe_many_plain(jobs))):
+            max_err = max(max_err, check_equal(
+                g, w, f"stacked [{r}, {cap}] replica {j} mode={mode}"))
+        one = graph_ms(lambda: ht_probe_many_cuda(jobs), 50)
+        each = graph_ms(lambda: [ht_probe_cuda(*job[:5], mode=mode)
+                                 for job in jobs], 50)
+        res[mode] = dict(one_launch_ms=one, four_launches_ms=each,
+                         call_ms=cuda_ms(lambda: ht_probe_many_cuda(jobs),
+                                         50))
+        log(f"stacked [{r}, 2^{cap.bit_length() - 1}] x {b} lanes "
+            f"mode={mode}: bitwise equal; one launch {one * 1e3:.2f} us "
+            f"(call {res[mode]['call_ms'] * 1e3:.2f} us), {r} launches "
+            f"{each * 1e3:.2f} us")
+    res["max_abs_err"] = max_err
+    return res
 
 
 # --------------------------------------------------------------------- #
@@ -360,6 +530,7 @@ def main_path(nodes: int, deg: int, seed: int) -> dict:
         step_s.append(time.perf_counter() - t)
     elapsed = time.perf_counter() - t0
     launches = ops.ht_probe.launches
+    jobs = ops.ht_probe.jobs
     by_batch = dict(ops.ht_probe.by_batch)
     syncs = host_read.count
     if launches == 0:
@@ -389,6 +560,7 @@ def main_path(nodes: int, deg: int, seed: int) -> dict:
                table_occupancy=pressure,
                edges_per_m_cap=len(truth) / cfg.m_cap,
                probe_launches=launches, launches_per_change=launches / n,
+               probe_jobs=jobs, jobs_per_change=jobs / n,
                launches_per_step=launches / n_batches,
                host_syncs=syncs, syncs_per_change=syncs / n,
                state_bytes=state_bytes,
@@ -399,7 +571,8 @@ def main_path(nodes: int, deg: int, seed: int) -> dict:
     log(f"main path: {n} changes in {elapsed:.3f} s = "
         f"{res['us_per_change']:.1f} us/change; probe launches "
         f"{launches} ({res['launches_per_change']:.2f}/change, "
-        f"{res['launches_per_step']:.1f}/step); host syncs {syncs} "
+        f"{res['launches_per_step']:.1f}/step) serving {jobs} jobs "
+        f"({res['jobs_per_change']:.2f}/change); host syncs {syncs} "
         f"({res['syncs_per_change']:.2f}/change); phi={phi} "
         f"|E|={len(truth)}; state {state_bytes / 2**30:.3f} GiB, peak "
         f"{res['peak_bytes'] / 2**30:.3f} GiB; {bs.stats()}")
@@ -1263,20 +1436,30 @@ def main() -> int:
         for line in nvcc_out.strip().splitlines():
             log(f"  nvcc: {line.strip()}")
 
-    # 2. kernel vs plain at the full configuration's table size
+    # 2. kernel vs plain at the full configuration's table size, at PR
+    # 11's load and at the compaction threshold
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    n_live, n_tomb = CAP // 2, CAP // 32
     tables = {}
-    for pre in (False, True):
-        t = time.perf_counter()
-        tables[pre], rounds = bulk_table(CAP, n_live + n_tomb, n_tomb, pre,
-                                         gen)
-        log(f"table: cap=2^25 prehashed={pre}: {n_live} live "
-            f"+ {n_tomb} tombstones in {rounds} rounds "
-            f"({time.perf_counter() - t:.1f} s)")
+    for load, (n_live, n_tomb) in LOADS.items():
+        for pre in (False, True):
+            t = time.perf_counter()
+            tables[load, pre], rounds = bulk_table(CAP, n_live + n_tomb,
+                                                   n_tomb, pre, gen)
+            log(f"table: cap=2^25 load {load} prehashed={pre}: {n_live} "
+                f"live + {n_tomb} tombstones in {rounds} rounds "
+                f"({time.perf_counter() - t:.1f} s)")
     _, max_err = kernel_vs_plain(tables, LANES, gen, time_it=False)
-    log(f"kernel vs plain: bitwise equal (slot, found, val) in find/insert "
-        f"x plain/prehashed at lanes {list(LANES)}")
+    log(f"kernel vs plain: bitwise equal (slot, found, val) at loads "
+        f"{list(LOADS)} x find/insert x plain/prehashed at lanes "
+        f"{list(LANES)}, sentinel keys among the garbage lanes")
+    tiny = tiny_tables(gen)
+    max_err = max(max_err, tiny_vs_plain(tiny, gen))
+    log(f"kernel vs plain: bitwise equal on {len(tiny)} tiny tables (caps "
+        f"{list(TINY_CAPS)}: half, full with and without tombstones, "
+        f"random words) in find/insert at 1-257 lanes")
+    multi = multi_job_vs_plain(tables, tiny, gen)
+    stacked = stacked_vs_plain(gen)
+    max_err = max(max_err, multi["max_abs_err"], stacked["max_abs_err"])
 
     # 3. main path (counts set to 0 just before, read just after)
     path_res, bs, truth, by_batch, stream = main_path(NODES, 4, seed)
@@ -1291,34 +1474,38 @@ def main() -> int:
     cuda_vs_cpu(seed)
 
     # the kernel at the main path's lane counts on a table of the main
-    # path's other capacity (eab / snadj / snpos), at 50% load
+    # path's other capacity (eab / snadj / snpos), at 53% load
     lanes = sorted(set(LANES) | {b for (_, b) in by_batch})
     t = time.perf_counter()
     small, rounds = bulk_table(CAP_SMALL, CAP_SMALL // 2 + CAP_SMALL // 32,
                                CAP_SMALL // 32, False, gen)
-    _, err = kernel_vs_plain({False: small}, lanes, gen, time_it=False)
+    _, err = kernel_vs_plain({("53%", False): small}, lanes, gen,
+                             time_it=False)
     max_err = max(max_err, err)
     del small
     log(f"kernel vs plain: bitwise equal on a cap=2^24 table ({rounds} "
         f"rounds, {time.perf_counter() - t:.1f} s) in find/insert at lanes "
         f"{lanes}")
 
-    # times of the kernel at the listed and the main path's shapes
+    # times of the kernel at the listed and the main path's shapes, at
+    # both loads
     rows, _ = kernel_vs_plain(tables, lanes, gen, time_it=True)
     for (mode, b), count in by_batch.items():
         for r in rows:
-            if (r["mode"], r["lanes"], r["prehashed"]) == (mode, b, False):
-                r["main_path_launches"] = count
+            if (r["load"], r["mode"], r["lanes"], r["prehashed"]) == (
+                    "53%", mode, b, False):
+                r["main_path_jobs"] = count
     for r in rows:
-        log(f"ht_probe mode={r['mode']:6s} prehashed={r['prehashed']!s:5s} "
-            f"lanes={r['lanes']:8d}: kernel {r['ms'] * 1e3:8.2f} us "
-            f"(call {r['call_ms'] * 1e3:7.2f} us), "
-            f"plain {r['plain_ms'] * 1e3:11.2f} us, bound "
-            f"{r['bound_ms'] * 1e3:9.3f} us, main-path launches "
-            f"{r.get('main_path_launches', 0)}")
+        log(f"ht_probe load={r['load']} mode={r['mode']:6s} "
+            f"prehashed={r['prehashed']!s:5s} lanes={r['lanes']:8d}: "
+            f"kernel {r['ms'] * 1e3:8.2f} us (call {r['call_ms'] * 1e3:7.2f}"
+            f" us), plain {r['plain_ms'] * 1e3:11.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:9.3f} us (sectors "
+            f"{r['sector_ms'] * 1e3:9.3f} us), main-path jobs "
+            f"{r.get('main_path_jobs', 0)}")
     log("ht_probe: no single PyTorch call walks a probe chain, so "
         "library_ms is null")
-    top = max(rows, key=lambda r: r.get("main_path_launches", 0))
+    top = max(rows, key=lambda r: r.get("main_path_jobs", 0))
     del tables
     torch.cuda.empty_cache()
 
@@ -1348,7 +1535,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=build_s, kernel_rows=rows, main_path=path_res,
+        build_s=build_s, kernel_rows=rows, probe_multi_job=multi,
+        probe_stacked=stacked, main_path=path_res,
         profile=prof_res, reads=read_res, summary_ops=summary_ops,
         csr_rows=csr_rows, graphsage=sage, smoke_archs=archs,
         attention_rows=attn_rows, lm_card_vs_cpu=lm_a, lm_prefill=lm_b,
@@ -1361,7 +1549,9 @@ def main() -> int:
                  ms=top["ms"], call_ms=top["call_ms"],
                  plain_ms=top["plain_ms"],
                  bound_ms=top["bound_ms"], bound_by="bytes",
-                 library_ms=None, mode=top["mode"], lanes=top["lanes"])
+                 library_ms=None, variant="tile8", mode=top["mode"],
+                 lanes=top["lanes"], load=top["load"],
+                 jobs=path_res["probe_jobs"])
     k = sage["kernel"]
     csr_entry = dict(name="csr_segment", route="cuda",
                      source="src/repro_torch/csrc/csr_segment.cu",

@@ -14,11 +14,17 @@ writes the slot's old contents back, as in JAX; ``ok=False`` as a Python
 bool skips the write.
 
 **Probes.**  Every probe, batched or scalar, goes through
-``repro_torch.kernels.ops.ht_probe``: the CUDA kernel for tables on the
-card, its plain torch version for tables on the CPU.  A scalar probe is a
-one-lane batch (``mode="find"`` for :func:`ht_find`, ``mode="insert"``
-for :func:`_find_insert_slot`), which is bitwise the same by the kernel's
-contract and needs no host sync per probe step.
+``repro_torch.kernels.ops.ht_probe_many``: the CUDA kernel for tables on
+the card, its plain torch version for tables on the CPU.  A scalar probe
+is a one-lane batch (``mode="find"`` for :func:`ht_find`,
+``mode="insert"`` for :func:`_find_insert_slot`), which is bitwise the
+same by the kernel's contract and needs no host sync per probe step.
+:func:`probe_many` probes several tables in one launch; ``ht_set`` and
+``ht_delete`` come in halves (:func:`set_job`/:func:`set_write`,
+:func:`delete_job`/:func:`delete_write`) so that a caller can probe two
+tables at once and then write both.  A probe sees every write made before
+it, so only probes with no write to their table between them may share a
+launch.
 
 **uint32 arithmetic.**  Torch's CPU build has no ``>>`` or ``+`` for
 ``uint32``, so the hash words live in ``int64`` tensors holding values in
@@ -30,7 +36,7 @@ a 0-dim tensor would read the index back to the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -100,21 +106,28 @@ def _probe_start(k1: torch.Tensor, k2: torch.Tensor, cap: int,
 
 
 def _lanes(x: torch.Tensor) -> torch.Tensor:
-    """Query words as a contiguous int32 tensor of lanes."""
+    """Query words as a contiguous int32 tensor of lanes (``x`` itself
+    when it already is one)."""
+    if x.dtype == torch.int32 and x.dim() == 1 and x.is_contiguous():
+        return x
     return x.reshape(-1).to(torch.int32).contiguous()
 
 
-def _probe_batch(ht: HashTable,
-                 k1: torch.Tensor, k2: torch.Tensor, prehashed: bool,
-                 mode: str = "find",
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One probe launch: ``(slot, found, val)`` per lane, ``val`` read at
-    the key's find-chain end (garbage when ``~found``)."""
+# one probe of a table: (table, k1, k2, prehashed, mode)
+TableProbe = Tuple[HashTable, torch.Tensor, torch.Tensor, bool, str]
+Probed = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def probe_many(probes: Sequence[TableProbe]) -> List[Probed]:
+    """One probe launch for several ``(table, k1, k2, prehashed, mode)``
+    probes: ``(slot, found, val)`` per probe and lane, ``val`` read at the
+    key's find-chain end (garbage when ``~found``)."""
     # the kernels layer imports this module for the probe-sequence
     # helpers, so the dependency cannot be top-level
     from repro_torch.kernels import ops as kops
-    return kops.ht_probe(ht.k1, ht.k2, ht.val, _lanes(k1), _lanes(k2),
-                         prehashed=prehashed, mode=mode)
+    return kops.ht_probe_many([
+        (ht.k1, ht.k2, ht.val, _lanes(k1), _lanes(k2), prehashed, mode)
+        for ht, k1, k2, prehashed, mode in probes])
 
 
 def ht_find(ht: HashTable,
@@ -122,7 +135,7 @@ def ht_find(ht: HashTable,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(slot, found) per lane: probes until the key or an EMPTY slot is
     hit.  One probe launch, whether the keys are one lane or a batch."""
-    slot, found, _ = _probe_batch(ht, k1, k2, prehashed, "find")
+    slot, found, _ = probe_many([(ht, k1, k2, prehashed, "find")])[0]
     return slot, found
 
 
@@ -130,7 +143,7 @@ def ht_lookup(ht: HashTable,
               k1: torch.Tensor, k2: torch.Tensor, default: int = 0,
               ) -> torch.Tensor:
     """Read-only lookups (``default`` where absent), one probe launch."""
-    _, found, val = _probe_batch(ht, k1, k2, False, "find")
+    _, found, val = probe_many([(ht, k1, k2, False, "find")])[0]
     return torch.where(found, val, default)
 
 
@@ -144,7 +157,7 @@ def _find_insert_slot(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Slot for an upsert (the key's slot if present, else the first
     EMPTY/TOMB slot), found, and the value at the key's chain end."""
-    return _probe_batch(ht, k1, k2, prehashed, "insert")
+    return probe_many([(ht, k1, k2, prehashed, "insert")])[0]
 
 
 def _put(x: torch.Tensor, idx: torch.Tensor, v, ok) -> None:
@@ -155,18 +168,29 @@ def _put(x: torch.Tensor, idx: torch.Tensor, v, ok) -> None:
         x[idx] = torch.where(ok, v, x[idx])
 
 
+def set_job(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor,
+            prehashed: bool = False) -> TableProbe:
+    """The probe half of :func:`ht_set`: the upsert probe of the key."""
+    return ht, _lanes(k1), _lanes(k2), prehashed, "insert"
+
+
+def set_write(job: TableProbe, probed: Probed, v, ok=True) -> HashTable:
+    """The write half of :func:`ht_set`, from its probe's result."""
+    ht, k1, k2 = job[:3]
+    _put(ht.k1, probed[0], k1, ok)
+    _put(ht.k2, probed[0], k2, ok)
+    _put(ht.val, probed[0], v, ok)
+    return ht
+
+
 def ht_set(ht: HashTable,
            k1: torch.Tensor, k2: torch.Tensor, v, prehashed: bool = False,
            ok=True) -> HashTable:
     """Upsert key -> v (in place; masked write-back when ``~ok``)."""
     if ok is False:
         return ht
-    k1, k2 = _lanes(k1), _lanes(k2)
-    slot, _, _ = _find_insert_slot(ht, k1, k2, prehashed)
-    _put(ht.k1, slot, k1, ok)
-    _put(ht.k2, slot, k2, ok)
-    _put(ht.val, slot, v, ok)
-    return ht
+    job = set_job(ht, k1, k2, prehashed)
+    return set_write(job, probe_many([job])[0], v, ok)
 
 
 def ht_add(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor, delta,
@@ -195,18 +219,31 @@ def ht_add(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor, delta,
     return ht, new
 
 
-def ht_delete(ht: HashTable,
-              k1: torch.Tensor, k2: torch.Tensor, ok=True) -> HashTable:
-    """Tombstone the key if present (no-op otherwise or when ``~ok``)."""
-    if ok is False:
-        return ht
-    slot, found = ht_find(ht, k1, k2)
+def delete_job(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor,
+               ) -> TableProbe:
+    """The probe half of :func:`ht_delete`: the find probe of the key."""
+    return ht, _lanes(k1), _lanes(k2), False, "find"
+
+
+def delete_write(job: TableProbe, probed: Probed, ok=True) -> HashTable:
+    """The write half of :func:`ht_delete`, from its probe's result."""
+    ht = job[0]
+    slot, found, _ = probed
     if ok is not True:
         found = found & ok
     ht.k1[slot] = torch.where(found, TOMB, ht.k1[slot])
     ht.k2[slot] = torch.where(found, TOMB, ht.k2[slot])
     ht.val[slot] = torch.where(found, 0, ht.val[slot])
     return ht
+
+
+def ht_delete(ht: HashTable,
+              k1: torch.Tensor, k2: torch.Tensor, ok=True) -> HashTable:
+    """Tombstone the key if present (no-op otherwise or when ``~ok``)."""
+    if ok is False:
+        return ht
+    job = delete_job(ht, k1, k2)
+    return delete_write(job, probe_many([job])[0], ok)
 
 
 def ht_live_mask(ht: HashTable) -> torch.Tensor:

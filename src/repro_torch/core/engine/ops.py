@@ -19,6 +19,13 @@ which counts the syncs.
 
 Node ids, sids and other scalars are one-lane tensors (shape ``[1]``);
 state scalars (``phi``, ``free_top``, ...) stay 0-dim, as in JAX.
+
+**Shared probe launches.**  Where JAX probes two tables one after the
+other with no write to either between the probes (the slot-list pairs of
+``_sn_*`` and ``_adj_*``), both probes go into one launch
+(:func:`~repro_torch.core.engine.hashtable.probe_many`) and the writes
+follow in JAX's order per table; two probes of one table with nothing
+written between them are one batch of concatenated keys.
 """
 from __future__ import annotations
 
@@ -26,9 +33,12 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.engine.hashtable import (M32, Lane, ht_add, ht_delete,
+from repro_torch.core.engine.hashtable import (M32, HashTable, Lane,
+                                               TableProbe, delete_job,
+                                               delete_write, ht_add,
                                                ht_lookup, ht_lookup_batch,
-                                               ht_set, mul_u32, u32)
+                                               mul_u32, probe_many, set_job,
+                                               set_write, u32)
 from repro_torch.core.engine.state import NO_CLUSTER, EngineConfig, EngineState
 
 I32_MAX = 0x7FFFFFFF
@@ -165,6 +175,34 @@ def wt_of(st: EngineState, a: torch.Tensor, b: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
+# two tables, one probe launch
+# --------------------------------------------------------------------------- #
+
+
+def _lookup_both(ta: HashTable, ka1, ka2, tb: HashTable, kb1, kb2,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ht_lookup`` of a key in each of two tables, one probe launch."""
+    pa, pb = probe_many([(ta, ka1, ka2, False, "find"),
+                         (tb, kb1, kb2, False, "find")])
+    return torch.where(pa[1], pa[2], 0), torch.where(pb[1], pb[2], 0)
+
+
+def _set_both(ja: TableProbe, va, jb: TableProbe, vb, ok) -> None:
+    """``ht_set`` in each of two tables (``set_job``s), one probe launch."""
+    pa, pb = probe_many([ja, jb])
+    set_write(ja, pa, va, ok)
+    set_write(jb, pb, vb, ok)
+
+
+def _delete_both(ja: TableProbe, jb: TableProbe, ok) -> None:
+    """``ht_delete`` in each of two tables (``delete_job``s), one probe
+    launch."""
+    pa, pb = probe_many([ja, jb])
+    delete_write(ja, pa, ok)
+    delete_write(jb, pb, ok)
+
+
+# --------------------------------------------------------------------------- #
 # supernode-pair count + SN adjacency maintenance
 # --------------------------------------------------------------------------- #
 
@@ -175,8 +213,7 @@ def _sn_insert(st: EngineState, x: torch.Tensor, y: torch.Tensor,
     if ok is False:
         return st
     i = st.sndeg[x]
-    ht_set(st.snadj, x, i, y, ok=ok)
-    ht_set(st.snpos, x, y, i, ok=ok)
+    _set_both(set_job(st.snadj, x, i), y, set_job(st.snpos, x, y), i, ok)
     _add_at(st.sndeg, x, 1, ok)
     return st
 
@@ -186,13 +223,11 @@ def _sn_remove(st: EngineState, x: torch.Tensor, y: torch.Tensor,
     """Swap-delete y from SN(x)'s slot list."""
     if ok is False:
         return st
-    i = ht_lookup(st.snpos, x, y)
     last = st.sndeg[x] - 1
-    w = ht_lookup(st.snadj, x, last)
-    ht_set(st.snadj, x, i, w, ok=ok)
-    ht_set(st.snpos, x, w, i, ok=ok)
-    ht_delete(st.snadj, x, last, ok=ok)
-    ht_delete(st.snpos, x, y, ok=ok)
+    i, w = _lookup_both(st.snpos, x, y, st.snadj, x, last)
+    _set_both(set_job(st.snadj, x, i), w, set_job(st.snpos, x, w), i, ok)
+    _delete_both(delete_job(st.snadj, x, last), delete_job(st.snpos, x, y),
+                 ok)
     _add_at(st.sndeg, x, -1, ok)
     return st
 
@@ -260,21 +295,17 @@ def ensure_node(st: EngineState, u: torch.Tensor, cfg: EngineConfig,
 def _adj_append(st: EngineState, u: torch.Tensor, v: torch.Tensor,
                 ok) -> EngineState:
     i = st.deg[u]
-    ht_set(st.adj, u, i, v, ok=ok)
-    ht_set(st.epos, u, v, i, ok=ok)
+    _set_both(set_job(st.adj, u, i), v, set_job(st.epos, u, v), i, ok)
     _add_at(st.deg, u, 1, ok)
     return st
 
 
 def _adj_remove(st: EngineState, u: torch.Tensor, v: torch.Tensor,
                 ok) -> EngineState:
-    i = ht_lookup(st.epos, u, v)
     last = st.deg[u] - 1
-    w = ht_lookup(st.adj, u, last)
-    ht_set(st.adj, u, i, w, ok=ok)
-    ht_set(st.epos, u, w, i, ok=ok)
-    ht_delete(st.adj, u, last, ok=ok)
-    ht_delete(st.epos, u, v, ok=ok)
+    i, w = _lookup_both(st.epos, u, v, st.adj, u, last)
+    _set_both(set_job(st.adj, u, i), w, set_job(st.epos, u, w), i, ok)
+    _delete_both(delete_job(st.adj, u, last), delete_job(st.epos, u, v), ok)
     _add_at(st.deg, u, -1, ok)
     return st
 
@@ -397,6 +428,16 @@ def _move_lists(st: EngineState, y: torch.Tensor, a: torch.Tensor,
     return nbrs, nvalid, nsid, xs, ok
 
 
+def _pair_values(table, a: torch.Tensor, target: torch.Tensor,
+                 xs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Values of the (A,X) and (B,X) pairs of every X, one probe of
+    ``2 * len(xs)`` lanes."""
+    lo = torch.cat([torch.minimum(a, xs), torch.minimum(target, xs)])
+    hi = torch.cat([torch.maximum(a, xs), torch.maximum(target, xs)])
+    v = ht_lookup_batch(table, lo, hi)
+    return v[:xs.shape[0]], v[xs.shape[0]:]
+
+
 def _special_pairs(table, a: torch.Tensor, target: torch.Tensor,
                    is_fresh: bool):
     """Values of the (A,A), (B,B) and (A,B) pairs, one 3-lane probe; the
@@ -425,9 +466,7 @@ def delta_phi_move(st: EngineState, y: torch.Tensor, target: torch.Tensor,
     # h[X] = |N(y) ∩ X|
     h = (xs[:, None] == nsid[None, :]).sum(dim=1).to(torch.int32)
     sx = st.ssize[xs.clamp(min=0)]
-    e_ax = ht_lookup_batch(st.eab, torch.minimum(a, xs), torch.maximum(a, xs))
-    e_bx = ht_lookup_batch(st.eab, torch.minimum(target, xs),
-                           torch.maximum(target, xs))
+    e_ax, e_bx = _pair_values(st.eab, a, target, xs)
     d_gen = (cost(e_ax - h, (sa - 1) * sx) - cost(e_ax, sa * sx)
              + cost(e_bx + h, (sb + 1) * sx) - cost(e_bx, sb * sx))
     d = torch.where(ok, d_gen, 0).sum().to(torch.int32).reshape(1)
@@ -463,9 +502,7 @@ def delta_phi_move_weighted(st: EngineState, y: torch.Tensor,
     hw = wy * torch.where(xs[:, None] == nsid[None, :], nw[None, :], 0
                           ).sum(dim=1).to(torch.int32)
     swx = st.wsum[xs.clamp(min=0)]
-    w_ax = ht_lookup_batch(st.weab, torch.minimum(a, xs), torch.maximum(a, xs))
-    w_bx = ht_lookup_batch(st.weab, torch.minimum(target, xs),
-                           torch.maximum(target, xs))
+    w_ax, w_bx = _pair_values(st.weab, a, target, xs)
     d_gen = (cost(w_ax - hw, (swa - wy) * swx) - cost(w_ax, swa * swx)
              + cost(w_bx + hw, (swb + wy) * swx) - cost(w_bx, swb * swx))
     d = torch.where(ok, d_gen, 0).sum().to(torch.int32).reshape(1)

@@ -9,13 +9,19 @@ slot when the key is absent (``_find_insert_slot``).  ``val`` is read at
 the key's find-chain end whether or not the key was found.  The contract
 is bitwise: the probe sequence is the table layout.
 
-* :func:`ht_probe_cuda` launches ``csrc/ht_probe.cu`` (one thread per
-  lane; the source says what bounds it).  The shared library is built
+* :func:`ht_probe_many_cuda` launches ``csrc/ht_probe.cu`` once for every
+  ``MAX_JOBS`` jobs, and says how many launches it made: probe batches on
+  tables of any caps and modes (a tile
+  of 8 threads per lane, one pass for both modes; the source says what
+  bounds it).  A stacked ``[R, cap]`` table with ``[R, B]`` queries, the
+  TPU kernel's form under ``jax.vmap``, is R jobs (:func:`stacked_jobs`).
+  :func:`ht_probe_cuda` is the one-job case.  The shared library is built
   with ``nvcc`` at first use into ``build/`` at the repository root, from
   this checkout's source, and loaded with ``ctypes`` (``kernels/_build.py``).
-* :func:`ht_probe_plain` is the uniform masked loop over the whole batch
-  of ``_probe_kernel``, in ``int64`` torch.  The CPU tests run it, and
-  ``chip_smoke.py`` holds the kernel to it on the card.
+* :func:`ht_probe_plain` is the uniform masked two-pass loop over the
+  whole batch of ``_probe_kernel``, in ``int64`` torch, and
+  :func:`ht_probe_many_plain` a loop of it over the jobs.  The CPU tests
+  run them, and ``chip_smoke.py`` holds the kernel to them on the card.
 
 Nothing here imports a GPU toolchain at import time: the CPU tests import
 this module.
@@ -23,7 +29,8 @@ this module.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import struct
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -32,6 +39,31 @@ from repro_torch.kernels import _build
 
 MODES = ("find", "insert")
 SOURCE = _build.CSRC / "ht_probe.cu"
+MAX_JOBS = 48          # jobs per launch: csrc/ht_probe.cu's kMaxJobs
+MAX_LANES = 1 << 30    # lanes per job
+
+Probe = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class ProbeJob(NamedTuple):
+    """One probe batch: a table ``(tk1, tk2, tval)``, its queries
+    ``(q1, q2)`` and how to probe it."""
+    tk1: torch.Tensor
+    tk2: torch.Tensor
+    tval: torch.Tensor
+    q1: torch.Tensor
+    q2: torch.Tensor
+    prehashed: bool = False
+    mode: str = "find"
+
+
+def stacked_jobs(tk1, tk2, tval, q1, q2, *, prehashed: bool = False,
+                 mode: str = "find") -> List[ProbeJob]:
+    """The jobs of a stacked ``[R, cap]`` table probed with ``[R, B]``
+    queries, replica ``r``'s queries against its own table: the TPU
+    kernel's form under ``jax.vmap``.  Each job is a row view (no copy)."""
+    return [ProbeJob(tk1[r], tk2[r], tval[r], q1[r], q2[r], prehashed, mode)
+            for r in range(tk1.shape[0])]
 
 
 def check_args(tk1, tk2, tval, q1, q2, mode: str) -> None:
@@ -95,8 +127,7 @@ def probe_chains(tk1, tk2, q1, q2, *, prehashed: bool, mode: str,
 
 
 def ht_probe_plain(tk1, tk2, tval, q1, q2, *, prehashed: bool = False,
-                   mode: str = "find",
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   mode: str = "find") -> Probe:
     """The kernel's function in plain torch, on any device."""
     check_args(tk1, tk2, tval, q1, q2, mode)
     cap = tk1.shape[0]
@@ -110,39 +141,110 @@ def ht_probe_plain(tk1, tk2, tval, q1, q2, *, prehashed: bool = False,
     return slot.to(torch.int32), found, tval[slot1]
 
 
+def ht_probe_many_plain(jobs: Sequence[ProbeJob]) -> List[Probe]:
+    """:func:`ht_probe_plain` of each job, in order."""
+    return [ht_probe_plain(*job[:5], prehashed=job[5], mode=job[6])
+            for job in jobs]
+
+
 # --------------------------------------------------------------------- #
 # CUDA kernel
 # --------------------------------------------------------------------- #
 
+# csrc/ht_probe.cu's Job: 8 pointers (k1, k2, val, q1, q2, slot, found,
+# val_out), then cap, n, insert, prehashed
+_JOB = struct.Struct("<8QIiII")
+
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.ht_probe_launch.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+    lib.ht_probe_launch.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p]
     lib.ht_probe_launch.restype = ctypes.c_int
+    lib.ht_probe_max_jobs.argtypes = []
+    lib.ht_probe_max_jobs.restype = ctypes.c_int
+    if lib.ht_probe_max_jobs() != MAX_JOBS:
+        raise RuntimeError(f"ht_probe.cu takes {lib.ht_probe_max_jobs()} "
+                           f"jobs a launch, the wrapper {MAX_JOBS}")
+
+
+def _check_job(job, device: torch.device) -> int:
+    """The launch's checks, from shapes, dtypes, devices and contiguity
+    alone; returns the job's lane count.  On a failure :func:`check_args`,
+    the plain version's full check, names the reason."""
+    tk1, tk2, tval, q1, q2, _, mode = job
+    cap = tk1.shape[0]
+    ok = (mode in MODES and tk1.dim() == 1 and q1.dim() == 1
+          and cap > 0 and not cap & (cap - 1)
+          and tk2.shape == tk1.shape and tval.shape == tk1.shape
+          and q2.shape == q1.shape)
+    for t in (tk1, tk2, tval, q1, q2):
+        ok = (ok and t.dtype == torch.int32 and t.device == device
+              and t.is_contiguous())
+    if not ok:
+        check_args(tk1, tk2, tval, q1, q2, mode)
+        raise ValueError(f"every job of a launch must lie on {device}")
+    n = q1.shape[0]
+    if n > MAX_LANES:
+        raise ValueError(f"too many lanes for one job: {n}")
+    return n
+
+
+def _launch_packed(lib: ctypes.CDLL, packed, stream: int) -> int:
+    """Launch the packed jobs, ``MAX_JOBS`` at a time; returns the number
+    of launches made."""
+    launches = 0
+    for i in range(0, len(packed), MAX_JOBS):
+        chunk = packed[i:i + MAX_JOBS]
+        err = lib.ht_probe_launch(b"".join(job for _, job in chunk),
+                                  len(chunk), max(n for n, _ in chunk),
+                                  stream)
+        if err != 0:
+            raise RuntimeError(f"ht_probe kernel launch failed: CUDA error "
+                               f"{err}")
+        launches += 1
+    return launches
+
+
+def ht_probe_many_cuda(jobs: Sequence[ProbeJob],
+                       ) -> Tuple[List[Probe], int]:
+    """Launch the kernel over the jobs on the current stream of their
+    device (no sync), one launch for every ``MAX_JOBS`` jobs with lanes.
+    Returns ``(slot, found, val)`` per job, bitwise
+    :func:`ht_probe_many_plain`'s, and the number of launches made.  Every
+    tensor must lie on one CUDA device."""
+    if not jobs:
+        return [], 0
+    device = jobs[0][0].device
+    if device.type != "cuda":            # before building the kernel
+        raise ValueError(f"ht_probe_cuda needs CUDA tensors: {device}")
+    lib = _build.load(SOURCE, _bind)
+    outs, packed = [], []
+    for job in jobs:
+        n = _check_job(job, device)
+        # three allocations cost the host less than views of one buffer
+        # (tools/probe_check.py's host-cost split; PERF.md)
+        out = (torch.empty(n, dtype=torch.int32, device=device),
+               torch.empty(n, dtype=torch.bool, device=device),
+               torch.empty(n, dtype=torch.int32, device=device))
+        outs.append(out)
+        if n:
+            tk1, tk2, tval, q1, q2, prehashed, mode = job
+            packed.append((n, _JOB.pack(
+                tk1.data_ptr(), tk2.data_ptr(), tval.data_ptr(),
+                q1.data_ptr(), q2.data_ptr(), out[0].data_ptr(),
+                out[1].data_ptr(), out[2].data_ptr(), tk1.shape[0], n,
+                mode == "insert", bool(prehashed))))
+    if not packed:
+        return outs, 0
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return outs, _launch_packed(lib, packed, stream)
+    with torch.cuda.device(device.index):
+        return outs, _launch_packed(lib, packed, stream)
 
 
 def ht_probe_cuda(tk1, tk2, tval, q1, q2, *, prehashed: bool = False,
-                  mode: str = "find",
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current stream (no sync).  Every tensor
-    must lie on one CUDA device."""
-    check_args(tk1, tk2, tval, q1, q2, mode)
-    if tk1.device.type != "cuda":
-        raise ValueError(f"ht_probe_cuda needs CUDA tensors: {tk1.device}")
-    n = q1.shape[0]
-    if n >= 2 ** 31:
-        raise ValueError(f"too many lanes for one launch: {n}")
-    slot = torch.empty_like(q1)
-    found = torch.empty(q1.shape, dtype=torch.bool, device=q1.device)
-    val = torch.empty_like(q1)
-    lib = _build.load(SOURCE, _bind)
-    with torch.cuda.device(tk1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ht_probe_launch(
-            tk1.data_ptr(), tk2.data_ptr(), tval.data_ptr(), q1.data_ptr(),
-            q2.data_ptr(), slot.data_ptr(), found.data_ptr(), val.data_ptr(),
-            n, tk1.shape[0], int(mode == "insert"), int(prehashed), stream)
-    if err != 0:
-        raise RuntimeError(f"ht_probe kernel launch failed: CUDA error {err}")
-    return slot, found, val
+                  mode: str = "find") -> Probe:
+    """The one-job case of :func:`ht_probe_many_cuda`."""
+    return ht_probe_many_cuda(
+        [(tk1, tk2, tval, q1, q2, prehashed, mode)])[0][0]

@@ -5,7 +5,9 @@ its plain torch version for CPU tensors.  A CUDA tensor goes to the
 kernel or the call raises; nothing falls back.  Each kernel counts its
 launches in a plain integer attribute of its wrapper, set where the
 wrapper launches it and nowhere else: ``ht_probe.launches`` (with
-``ht_probe.by_batch`` by ``(mode, lanes)``), ``segment_reduce.launches``
+``ht_probe.jobs``, the probe batches those launches served, and
+``ht_probe.by_batch`` by each job's ``(mode, lanes)``; :func:`ht_probe`
+and :func:`ht_probe_many` share the three), ``segment_reduce.launches``
 (incremented by :func:`segment_reduce_csr`, the one place that launches
 the CSR kernel) and ``attention.launches`` (with ``attention.by_variant``
 by :func:`~repro_torch.kernels.flash_attention.kernel_variant`), so a run
@@ -19,7 +21,7 @@ CSR segment-reduce kernel: :func:`segment_reduce`, :func:`spmm`,
 from __future__ import annotations
 
 from collections import Counter
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -29,7 +31,8 @@ from repro_torch.kernels.csr_segment import (build_csr, csr_segment_cuda,
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain,
                                                  kernel_variant)
-from repro_torch.kernels.ht_probe import ht_probe_cuda, ht_probe_plain
+from repro_torch.kernels.ht_probe import (Probe, ProbeJob, ht_probe_many_cuda,
+                                          ht_probe_many_plain)
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -44,24 +47,38 @@ def _route(t: torch.Tensor, name: str) -> bool:
 
 def ht_probe(tk1: torch.Tensor, tk2: torch.Tensor, tval: torch.Tensor,
              q1: torch.Tensor, q2: torch.Tensor, *, prehashed: bool = False,
-             mode: str = "find",
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             mode: str = "find") -> Probe:
     """Batched open-addressing probe: ``(slot, found, val)`` per query.
 
     Tables ``int32[cap]`` (``cap`` a power of two), queries ``int32[B]``;
     ``mode`` is ``"find"`` or ``"insert"`` (see ``kernels/ht_probe.py``).
     """
-    if _route(tk1, "ht_probe"):
-        out = ht_probe_cuda(tk1, tk2, tval, q1, q2, prehashed=prehashed,
-                            mode=mode)
-        ht_probe.launches += 1
-        ht_probe.by_batch[mode, q1.shape[0]] += 1
-        return out
-    return ht_probe_plain(tk1, tk2, tval, q1, q2, prehashed=prehashed,
-                          mode=mode)
+    return ht_probe_many([(tk1, tk2, tval, q1, q2, prehashed, mode)])[0]
+
+
+def ht_probe_many(jobs: Sequence[ProbeJob]) -> List[Probe]:
+    """Several probe batches, each a :class:`~repro_torch.kernels.ht_probe.
+    ProbeJob` ``(tk1, tk2, tval, q1, q2, prehashed, mode)`` on its own
+    table, cap and mode: ``(slot, found, val)`` per job.  On the card they
+    share one launch (one per ``MAX_JOBS`` jobs)."""
+    if not jobs:
+        return []
+    if not _route(jobs[0][0], "ht_probe"):
+        for job in jobs:
+            if job[0].device.type != "cpu":
+                raise ValueError(f"every job of one call must lie on the "
+                                 f"CPU: {job[0].device}")
+        return ht_probe_many_plain(jobs)
+    out, launches = ht_probe_many_cuda(jobs)
+    ht_probe.launches += launches
+    ht_probe.jobs += len(jobs)
+    for job in jobs:
+        ht_probe.by_batch[job[6], job[3].shape[0]] += 1
+    return out
 
 
 ht_probe.launches = 0
+ht_probe.jobs = 0
 ht_probe.by_batch = Counter()
 
 
@@ -209,6 +226,7 @@ attention.by_variant = Counter()
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
     ht_probe.launches = 0
+    ht_probe.jobs = 0
     ht_probe.by_batch = Counter()
     segment_reduce.launches = 0
     attention.launches = 0

@@ -2,9 +2,12 @@
 integer/PRNG primitives, bitwise against the JAX package.
 
 The JAX side runs as ``tests/test_kernels.py`` runs it: the Pallas probe
-kernel in interpret mode.  Inputs are made with numpy from a seed and
-handed to both packages.  Tolerance: exact (integer and float32 bits).
+kernel in interpret mode (``jax.vmap`` of it for the stacked form).
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerance: exact (integer and float32 bits).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -17,6 +20,7 @@ from repro.core.engine import hashtable as jht  # noqa: E402
 from repro.core.engine import ops as jops  # noqa: E402
 from repro.core.engine.state import EngineConfig as JaxConfig  # noqa: E402
 from repro.kernels import ops as jkops  # noqa: E402
+from repro.kernels.ht_probe import ht_probe_batch  # noqa: E402
 from repro_torch.core.engine import hashtable as tht  # noqa: E402
 from repro_torch.core.engine import ops as tops  # noqa: E402
 from repro_torch.core.engine.state import EngineConfig  # noqa: E402
@@ -58,25 +62,42 @@ def _probe_both(ht, q, prehashed, mode):
     return got, want
 
 
+def _queries(live, rng):
+    """Present, absent and garbage (full int32 range, negative) keys, and
+    the sentinels: ``(-1, -1)`` finds the first EMPTY, ``(-2, -2)`` the
+    first TOMB; ``(-1, x)`` and ``(-2, x)`` stop there without a match."""
+    x = rng.integers(0, 2000, size=2)
+    return np.concatenate([
+        live[: min(24, len(live))],
+        rng.integers(0, 2000, size=(16, 2)).astype(np.int32),
+        rng.integers(-2**31, 2**31, size=(16, 2)).astype(np.int32),
+        np.array([[-1, -1], [-2, -2], [0, 0], [-1, x[0]], [-2, x[1]]],
+                 np.int32)])
+
+
 @pytest.mark.parametrize("cap,n_live,n_tomb", [
     (64, 16, 0),        # light load
     (64, 40, 12),       # heavy load + tombstoned chains
     (256, 200, 30),     # long chains near capacity
     (16, 16, 0),        # FULL table: absent probes wrap the whole chain
+    (8, 3, 2),          # caps at and below a tile of 8 threads, and the
+    (16, 6, 3),         # weab dummy's 8 slots
+    (32, 14, 6),
+    (8, 8, 0),          # FULL, no tombstone: absent chains end at start
+    (32, 32, 0),
+    (8, 5, 3),          # FULL of live keys and tombstones: no EMPTY, so an
+    (16, 10, 6),        # absent chain wraps all of cap, its windows
+    (32, 22, 10),       # straddle slot cap-1 and the upsert takes a TOMB
 ])
 @pytest.mark.parametrize("prehashed", [False, True])
 @pytest.mark.parametrize("mode", ["find", "insert"])
 def test_plain_probe_matches_pallas_kernel(cap, n_live, n_tomb, prehashed,
                                            mode):
     """slot, found and val bitwise equal to the Pallas kernel: present,
-    absent and garbage (full int32 range, negative) keys."""
+    absent, garbage and sentinel keys."""
     ht, live = _jax_table(cap, n_live, n_tomb, seed=cap + n_live)
     rng = np.random.default_rng(7 * cap + n_live)
-    q = np.concatenate([
-        live[: min(24, len(live))],
-        rng.integers(0, 2000, size=(16, 2)).astype(np.int32),
-        rng.integers(-2**31, 2**31, size=(16, 2)).astype(np.int32),
-        np.array([[-1, -1], [-2, -2], [0, 0]], np.int32)])
+    q = _queries(live, rng)
     got, want = _probe_both(ht, q, prehashed, mode)
     for g, w, name in zip(got, want, ("slot", "found", "val")):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w),
@@ -93,6 +114,113 @@ def test_plain_probe_batch_shapes(batch):
     for g, w in zip(got, want):
         assert g.shape == (batch,)
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _job_tables(seed):
+    """Tables of mixed caps and loads, full ones included, with queries."""
+    out = []
+    for i, (cap, n_live, n_tomb) in enumerate(
+            [(8, 5, 3), (16, 16, 0), (32, 14, 6), (64, 40, 12), (8, 2, 1)]):
+        ht, live = _jax_table(cap, n_live, n_tomb, seed=seed + i)
+        out.append((ht, _queries(live, np.random.default_rng(seed + i))))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_many_matches_pallas_kernel_job_by_job(seed):
+    """``ht_probe_many_plain`` (and ``ops.ht_probe_many`` on the CPU) over
+    jobs of mixed caps and modes, each job bitwise the Pallas kernel's
+    probe of its own table."""
+    jobs, wants = [], []
+    for i, (ht, q) in enumerate(_job_tables(10 * seed)):
+        for j, mode in enumerate(tprobe.MODES):
+            pre = bool((i + j + seed) % 2)
+            jobs.append(tprobe.ProbeJob(
+                _t(ht.k1), _t(ht.k2), _t(ht.val), _t(q[:, 0]), _t(q[:, 1]),
+                pre, mode))
+            wants.append(jkops.ht_probe(ht.k1, ht.k2, ht.val, q[:, 0],
+                                        q[:, 1], prehashed=pre, mode=mode,
+                                        use_pallas=True, interpret=True))
+    for got in (tprobe.ht_probe_many_plain(jobs), tkops.ht_probe_many(jobs)):
+        assert len(got) == len(jobs)
+        for g, w in zip(got, wants):
+            for x, y, name in zip(g, w, ("slot", "found", "val")):
+                np.testing.assert_array_equal(x.numpy(), np.asarray(y),
+                                              err_msg=f"{name} differs")
+
+
+@pytest.mark.parametrize("mode", ["find", "insert"])
+def test_stacked_jobs_match_vmapped_pallas_kernel(mode):
+    """A stacked ``[R, cap]`` table with ``[R, B]`` queries as R jobs
+    against ``jax.vmap`` of the Pallas kernel (interpret mode), the TPU's
+    stacked-replica launch; each job is a row view, not a copy."""
+    tabs = [_jax_table(32, 14 + 4 * r, 4 + 2 * r, seed=50 + r)
+            for r in range(3)]
+    rng = np.random.default_rng(5)
+    qs = [_queries(live, rng)[:40] for _, live in tabs]
+    k1, k2, val = (np.stack([np.asarray(getattr(ht, w)) for ht, _ in tabs])
+                   for w in ("k1", "k2", "val"))
+    q = np.stack(qs)
+    want = jax.vmap(functools.partial(ht_probe_batch, mode=mode,
+                                      interpret=True))(
+        jnp.asarray(k1), jnp.asarray(k2), jnp.asarray(val),
+        jnp.asarray(q[..., 0]), jnp.asarray(q[..., 1]))
+    tk1 = _t(k1)
+    jobs = tprobe.stacked_jobs(tk1, _t(k2), _t(val),
+                               _t(np.ascontiguousarray(q[..., 0])),
+                               _t(np.ascontiguousarray(q[..., 1])),
+                               mode=mode)
+    assert len(jobs) == 3
+    assert jobs[1].tk1.data_ptr() == tk1[1].data_ptr()
+    got = tkops.ht_probe_many(jobs)
+    for r in range(3):
+        for x, y in zip(got[r], want):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y[r]))
+
+
+def test_probe_many_routing_and_counts():
+    """CPU tables take the plain version and count no launch; no job is
+    no launch; the kernel path refuses CPU tensors and the plain path
+    any other device's; ``reset_counts``
+    clears launches, jobs and the batch histogram; a lane tensor that is
+    already int32, 1-D and contiguous is not copied; the launcher splits
+    jobs past ``MAX_JOBS`` into launches and returns how many it made."""
+    t = tht.ht_new(8, "cpu")
+    q = torch.zeros(3, dtype=torch.int32)
+    tkops.ht_probe.launches, tkops.ht_probe.jobs = 5, 7
+    tkops.ht_probe.by_batch[("find", 3)] = 2
+    out = tkops.ht_probe_many([(t.k1, t.k2, t.val, q, q, False, "find")])
+    assert tkops.ht_probe.launches == 5 and tkops.ht_probe.jobs == 7
+    assert out[0][1].dtype == torch.bool and not out[0][1].any()
+    assert tkops.ht_probe_many([]) == []
+    tkops.reset_counts()
+    assert (tkops.ht_probe.launches, tkops.ht_probe.jobs,
+            len(tkops.ht_probe.by_batch)) == (0, 0, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tprobe.ht_probe_many_cuda([(t.k1, t.k2, t.val, q, q, False,
+                                    "find")])
+    meta = tht.ht_new(8, "meta")
+    with pytest.raises(ValueError, match="CPU"):      # no plain run there
+        tkops.ht_probe_many([(t.k1, t.k2, t.val, q, q, False, "find"),
+                             (meta.k1, meta.k2, meta.val, q, q, False,
+                              "find")])
+    assert tht._lanes(q) is q
+    assert tht._lanes(q.long()).dtype == torch.int32
+    assert tprobe.ht_probe_many_cuda([]) == ([], 0)
+
+    class Lib:              # stands in for the built kernel's ctypes library
+        calls = []
+
+        def ht_probe_launch(self, blob, njobs, max_n, stream):
+            self.calls.append((len(blob), njobs, max_n, stream))
+            return 0
+
+    packed = [(n, bytes(tprobe._JOB.size))
+              for n in range(1, tprobe.MAX_JOBS + 3)]
+    assert tprobe._launch_packed(Lib(), packed, 7) == 2
+    assert Lib.calls == [(tprobe.MAX_JOBS * tprobe._JOB.size,
+                          tprobe.MAX_JOBS, tprobe.MAX_JOBS, 7),
+                         (2 * tprobe._JOB.size, 2, tprobe.MAX_JOBS + 2, 7)]
 
 
 def test_probe_wrapper_checks_its_arguments():
@@ -149,6 +277,44 @@ def test_masked_write_interleavings_match_jax(seed):
                 err_msg=f"step {step} op {op}: {w} differs")
         assert int(tht.ht_lookup(tt, _t([k1]), _t([k2]))[0]) == \
             int(_jlookup(jt, k1, k2))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_writes_and_probe_many_match_jax(seed):
+    """``set_job``/``set_write`` and ``delete_job``/``delete_write`` on two
+    tables whose probes share one ``probe_many`` call, after random
+    ok-masked interleavings: every table word bitwise equal to JAX's
+    ``ht_set``/``ht_delete`` applied one table after the other."""
+    rng = np.random.default_rng(100 + seed)
+    caps = ((8, 16), (16, 32), (32, 8))[seed]
+    jts = [jht.ht_new(c) for c in caps]
+    tts = [tht.ht_new(c, "cpu") for c in caps]
+    for step in range(200):
+        keys = rng.integers(0, 6, size=(2, 2))
+        ok = bool(rng.random() < 0.7)
+        tok = torch.tensor([ok]) if rng.random() < 0.5 else ok
+        if rng.random() < 0.6:
+            vals = rng.integers(-50, 50, size=2)
+            jobs = [tht.set_job(tt, _t([a]), _t([b]))
+                    for tt, (a, b) in zip(tts, keys)]
+            if tok is not False:          # as ht_set / ht_delete
+                for job, probed, v in zip(jobs, tht.probe_many(jobs), vals):
+                    tht.set_write(job, probed, int(v), ok=tok)
+            jts = [_jset(jt, int(a), int(b), int(v), ok=ok)
+                   for jt, (a, b), v in zip(jts, keys, vals)]
+        else:
+            jobs = [tht.delete_job(tt, _t([a]), _t([b]))
+                    for tt, (a, b) in zip(tts, keys)]
+            if tok is not False:          # as ht_set / ht_delete
+                for job, probed in zip(jobs, tht.probe_many(jobs)):
+                    tht.delete_write(job, probed, ok=tok)
+            jts = [_jdel(jt, int(a), int(b), ok=ok)
+                   for jt, (a, b) in zip(jts, keys)]
+        for i, (tt, jt) in enumerate(zip(tts, jts)):
+            for w in ("k1", "k2", "val"):
+                np.testing.assert_array_equal(
+                    getattr(tt, w).numpy(), np.asarray(getattr(jt, w)),
+                    err_msg=f"step {step} table {i}: {w} differs")
 
 
 def test_rebuild_matches_jax_fold():
@@ -233,14 +399,18 @@ def test_node_weights_bitwise(levels):
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_on_the_card():
-    """The CUDA probe kernel against its plain version, bitwise, on a
-    table on the card (run on a machine with one; skipped elsewhere)."""
+    """The CUDA probe kernel against its plain version, bitwise, on tables
+    on the card (run on a machine with one; skipped elsewhere): one job at
+    a time with present, absent, garbage and sentinel keys; caps 8/16/32,
+    full with and without tombstones; and every job of mixed caps and
+    modes in one ``ht_probe_many`` launch, then in two."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     ht, live = _jax_table(256, 200, 30, seed=11)
     rng = np.random.default_rng(11)
     q = np.concatenate([live[:64], rng.integers(-2**31, 2**31, size=(64, 2)
-                                                ).astype(np.int32)])
+                                                ).astype(np.int32),
+                        _queries(live, rng)])
     args = [_t(x).cuda() for x in (ht.k1, ht.k2, ht.val, q[:, 0], q[:, 1])]
     for mode in tprobe.MODES:
         for pre in (False, True):
@@ -249,3 +419,19 @@ def test_cuda_kernel_matches_plain_on_the_card():
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g, w)
+    jobs = []
+    for i, (jt, jq) in enumerate(_job_tables(3)):
+        for j, mode in enumerate(tprobe.MODES):
+            jobs.append(tprobe.ProbeJob(
+                *(_t(x).cuda() for x in (jt.k1, jt.k2, jt.val, jq[:, 0],
+                                         jq[:, 1])), bool((i + j) % 2), mode))
+    for many in (jobs, jobs * 6):
+        before = tkops.ht_probe.launches
+        got = tkops.ht_probe_many(many)
+        assert tkops.ht_probe.launches - before == \
+            -(-len(many) // tprobe.MAX_JOBS)
+        want = tprobe.ht_probe_many_plain(many)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                assert torch.equal(x, y)
