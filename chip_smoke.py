@@ -77,7 +77,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    tokens, ms per token beside the weight-read bound; (d) the smoke
    configurations of internlm2-20b, llama3-405b, granite-moe-3b-a800m and
    moonshot-v1-16b-a3b at T = 256, card (kernel) against CPU (plain),
-   rtol = atol = 1e-4.
+   rtol = atol = 1e-4;
+11. sharded path: ``ShardedSummarizer(full_config(), device="cuda",
+   n_shards=4)`` (device routing, ``router_chunk`` 1024) over phase 3's
+   stream; the probe kernel's launch count must move, ``phi ==
+   phi_recomputed()``, the merged lossless decode and ``live_edges()``
+   must equal the stream's live edge set, and sharded degree / has_edge /
+   neighbors reads from a ``query()`` snapshot must agree with it; us per
+   change, probe launches and jobs per change, the largest lanes per
+   job, host reads per change, peak device memory with and without the
+   snapshot, ``stats()``; then the probe kernel bitwise against its plain
+   version at this path's shapes: 4 prehashed 2^22-slot intern tables
+   holding ``n_cap`` keys each, both modes at every lane count the path
+   sent, and one ``ht_probe_many`` each of the pre-lookup's 8 jobs and a
+   read's 4;
+12. the router's paths at ``smoke_config()`` with 3 shards: device
+   routing, host routing, key skew at ``lane_cap=2`` and a bounded drain
+   budget, each on the card and on the CPU with every replica leaf
+   bitwise equal after every ``process`` call, and device routing equal
+   to host routing after the stream; then ``serve_summary(...,
+   verify=True)`` on the card.
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -105,6 +124,7 @@ LOADS = {"53%": (CAP // 2, CAP // 32), "70%": (CAP * 6 // 10, CAP // 10)}
 TINY_CAPS = (8, 16, 32)
 STACKED = (4, 1 << 20, 16384)     # replicas, cap, lanes of the stacked form
 NODES = 600                       # BA nodes of the main path's stream
+SHARDS = 4                        # replicas of the sharded path (phase 11)
 FP32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 tensor-core rate
 # words in the names of cuBLAS/CUTLASS matrix-product kernels
@@ -698,6 +718,303 @@ def cuda_vs_cpu(seed: int) -> int:
     log(f"cuda vs cpu: smoke_config, {len(stream)} changes, every state "
         f"leaf bitwise equal after each of {n} batches (phi={on_cpu.phi})")
     return n
+
+
+# --------------------------------------------------------------------- #
+# phases 11-12: the sharded summarizer
+# --------------------------------------------------------------------- #
+
+
+def sharded_path(nodes: int, deg: int, seed: int) -> dict:
+    """Drive ``ShardedSummarizer(full_config(), n_shards=SHARDS)`` on the
+    card (device routing, default geometry) over the phase-3 stream, check
+    phi, the lossless decode and sharded reads against the live edge set,
+    and log the per-change counts, the largest lanes per probe job and
+    peak memory with and without a query snapshot."""
+    import random
+    import torch
+    from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.core.engine import ShardedSummarizer
+    from repro_torch.core.engine.ops import host_read
+    from repro_torch.graph.streams import (barabasi_albert_edges,
+                                           edges_to_fully_dynamic_stream)
+    from repro_torch.kernels import ops
+
+    cfg = full_config()
+    stream = edges_to_fully_dynamic_stream(
+        barabasi_albert_edges(nodes, deg, seed), delete_prob=0.1, seed=seed)
+    log(f"sharded path: full_config x {SHARDS} shards on one card "
+        f"(n_cap={cfg.n_cap} m_cap={cfg.m_cap} per shard, batch="
+        f"{cfg.batch}, router_chunk 1024, device routing); the stream is "
+        f"cut to BA n={nodes} m={deg}, fully dynamic, {len(stream)} changes "
+        f"(phase 3's) by the run's time limit, far below the "
+        f"{SHARDS} x n_cap nodes the replicas hold")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ss = ShardedSummarizer(cfg, device="cuda", n_shards=SHARDS)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base
+
+    ops.reset_counts()
+    host_read.count = 0
+    call_s = []
+    t0 = time.perf_counter()
+    for off in range(0, len(stream), ss.router_chunk):
+        t = time.perf_counter()
+        ss.process(stream[off:off + ss.router_chunk])
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    ss.flush()
+    call_s.append(time.perf_counter() - t)
+    elapsed = time.perf_counter() - t0
+    launches, jobs = ops.ht_probe.launches, ops.ht_probe.jobs
+    by_batch = dict(ops.ht_probe.by_batch)
+    syncs = host_read.count
+    if launches == 0:
+        raise AssertionError("the sharded path launched no probe kernel")
+    peak = torch.cuda.max_memory_allocated() - base
+    stats = ss.stats()
+    if stats["router_host_dict_ops"] or stats["router_syncs"]:
+        raise AssertionError(f"sync-free dispatch did host work: {stats}")
+
+    phi, phi_re = ss.phi, ss.phi_recomputed()
+    if phi != phi_re:
+        raise AssertionError(f"phi {phi} != phi_recomputed {phi_re}")
+    truth = live_edges(stream)
+    decoded = ss.materialize().validate().decode_edges()
+    if decoded != truth or ss.live_edges() != truth:
+        raise AssertionError(f"sharded decode differs from the live edge "
+                             f"set: {len(decoded ^ truth)} pairs")
+
+    # sharded reads from a snapshot (4 cloned replicas)
+    torch.cuda.reset_peak_memory_stats()
+    view = ss.query()
+    torch.cuda.synchronize()
+    snap_peak = torch.cuda.max_memory_allocated() - base
+    rng = random.Random(seed)
+    adj = {}
+    for (u, v) in truth:
+        adj.setdefault(u, set()).add(v)
+        adj.setdefault(v, set()).add(u)
+    labels = rng.sample(sorted(adj), min(128, len(adj)))
+    edges = sorted(truth)
+    pairs = [edges[rng.randrange(len(edges))] for _ in range(64)]
+    pairs += [(rng.choice(labels), rng.choice(labels)) for _ in range(64)]
+    reads, read_batch = {}, {}
+    for name, fn, want in (
+            ("degree", lambda: view.degree_batch(labels),
+             [len(adj[x]) for x in labels]),
+            ("has_edge", lambda: view.has_edge_batch(pairs),
+             [(min(a, b), max(a, b)) in truth for (a, b) in pairs]),
+            ("neighbors", lambda: view.neighbors_batch(labels),
+             [adj[x] for x in labels])):
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if got != want:
+            bad = sum(g != w for g, w in zip(got, want))
+            raise AssertionError(f"sharded query {name}: {bad} wrong")
+        if ops.ht_probe.launches == 0:
+            raise AssertionError(f"sharded query {name} launched no probe")
+        reads[name] = dict(queries=len(want), us_per_query=1e6 * dt
+                           / len(want), probe_launches=ops.ht_probe.launches)
+        for key, count in ops.ht_probe.by_batch.items():
+            read_batch[key] = read_batch.get(key, 0) + count
+        log(f"sharded reads: {name} x{len(want)} right, "
+            f"{reads[name]['us_per_query']:.1f} us/query, "
+            f"{ops.ht_probe.launches} probe launches")
+    del view
+
+    n = len(stream)
+    # pipelined: chunk i's engine stage runs in call i + 1 (the last one
+    # in the flush); the later chunks are the second half of the chunks
+    sizes = [len(stream[o:o + ss.router_chunk])
+             for o in range(0, n, ss.router_chunk)]
+    half = len(sizes) // 2
+    later_us = 1e6 * sum(call_s[half + 1:]) / sum(sizes[half:])
+    max_lanes = max(b for (_, b) in by_batch)
+    res = dict(changes=n, shards=SHARDS, nodes=nodes, seconds=elapsed,
+               acc_cap=ss.router_geometry.acc_cap,
+               call_s=call_s, us_per_change=1e6 * elapsed / n,
+               later_us_per_change=later_us,
+               probe_launches=launches, launches_per_change=launches / n,
+               probe_jobs=jobs, jobs_per_change=jobs / n,
+               host_syncs=syncs, syncs_per_change=syncs / n,
+               max_lanes_per_job=max_lanes,
+               by_batch={f"{m}:{b}": c for (m, b), c in
+                         sorted(by_batch.items(), key=lambda x: -x[1])},
+               read_by_batch={f"{m}:{b}": c for (m, b), c in
+                              sorted(read_batch.items())},
+               lanes=sorted({b for (_, b) in (*by_batch, *read_batch)}),
+               state_bytes=state_bytes, peak_bytes=peak,
+               snapshot_peak_bytes=snap_peak, stats=stats, phi=phi,
+               live_edges=len(truth), reads=reads)
+    log(f"sharded path: {n} changes in {elapsed:.3f} s = "
+        f"{res['us_per_change']:.1f} us/change (process calls + flush: "
+        + ", ".join(f"{x:.2f}" for x in call_s)
+        + f" s; later calls {res['later_us_per_change']:.1f} us/change); "
+        f"probe launches {launches} ({launches / n:.2f}/change) serving "
+        f"{jobs} jobs ({jobs / n:.2f}/change); host reads {syncs} "
+        f"({syncs / n:.2f}/change); largest job {max_lanes} lanes "
+        f"(a one-thread-per-lane probe wins from 2^14-2^16 lanes, by load); "
+        f"phi={phi} |E|={len(truth)}")
+    log(f"sharded path: state {state_bytes / 2**30:.3f} GiB, peak "
+        f"{peak / 2**30:.3f} GiB, with a query snapshot "
+        f"{snap_peak / 2**30:.3f} GiB; jobs by (mode:lanes) "
+        + ", ".join(f"{k} x{v}" for k, v in list(res["by_batch"].items())[:8])
+        + f"; {stats}")
+    log("sharded path: phi == phi_recomputed, the merged decode and "
+        "live_edges() equal the stream's live edges")
+    del ss
+    torch.cuda.empty_cache()
+    return res
+
+
+def intern_vs_plain(sharded: dict, gen) -> int:
+    """The probe kernel at phase 11's shapes, bitwise against its plain
+    version: ``SHARDS`` prehashed tables of ``intern_cap(full_config())``
+    slots holding ``n_cap`` keys (a full intern table: ~25% load, no
+    tombstones), probed in both modes at every lane count that phase 11
+    sent (the stream and the reads); then one ``ops.ht_probe_many`` of
+    the ``2 * SHARDS`` prehashed ``acc_cap``-lane find jobs of a chunk's
+    pre-lookup, and one of the ``SHARDS`` jobs of a read's resolve at
+    the largest read batch.  Returns the max |error| (0)."""
+    import torch
+    from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.dist.router import intern_cap
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ht_probe import ProbeJob, ht_probe_many_plain
+    cfg = full_config()
+    cap = intern_cap(cfg)
+    t = time.perf_counter()
+    tables = [bulk_table(cap, cfg.n_cap, 0, True, gen)[0]
+              for _ in range(SHARDS)]
+    build_s = time.perf_counter() - t
+    lanes = sharded["lanes"]
+    _, max_err = kernel_vs_plain({("25%", True): tables[0]}, lanes, gen,
+                                 time_it=False)
+    read_lanes = max(int(k.split(":")[1]) for k in sharded["read_by_batch"])
+    for per_table, n_lanes in ((2, sharded["acc_cap"]), (1, read_lanes)):
+        jobs = [ProbeJob(*tab, *queries(tab, n_lanes, gen), True, "find")
+                for tab in tables for _ in range(per_table)]
+        before = ops.ht_probe.launches
+        got = ops.ht_probe_many(jobs)
+        if ops.ht_probe.launches - before != 1:
+            raise AssertionError(f"{len(jobs)} intern jobs took "
+                                 f"{ops.ht_probe.launches - before} launches")
+        for j, (g, w) in enumerate(zip(got, ht_probe_many_plain(jobs))):
+            max_err = max(max_err, check_equal(
+                g, w, f"intern job {j} of {len(jobs)} x {n_lanes} lanes"))
+    log(f"kernel vs plain: bitwise equal on {SHARDS} prehashed cap=2^"
+        f"{cap.bit_length() - 1} intern tables of {cfg.n_cap} keys (built "
+        f"in {build_s:.1f} s) in find/insert at phase 11's lanes {lanes}; "
+        f"one ht_probe_many of {2 * SHARDS} x {sharded['acc_cap']} lanes "
+        f"and one of {SHARDS} x {read_lanes} lanes, one launch each")
+    del tables
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def _replica_leaves(ss):
+    from repro_torch.dist.router import sharded_state_to_numpy
+    return sharded_state_to_numpy(ss.states, ss.interns)
+
+
+def _check_leaves(a, b, what: str) -> None:
+    import numpy as np
+    for part_a, part_b in zip(a, b):
+        for k in part_a:
+            for w, x in (part_a[k].items() if isinstance(part_a[k], dict)
+                         else ((None, part_a[k]),)):
+                y = part_b[k][w] if w else part_b[k]
+                if not (x.dtype == y.dtype and np.array_equal(x, y)):
+                    raise AssertionError(f"{what}: leaf "
+                                         f"{k}{'.' + w if w else ''} differs")
+
+
+def sharded_router_paths(seed: int) -> dict:
+    """Phase 12: device routing, host routing, key skew at ``lane_cap=2``
+    and a bounded drain budget at ``smoke_config()`` with 3 shards, on the
+    card and on the CPU, every replica leaf bitwise equal after every
+    ``process`` call, and device routing equal to host routing after the
+    stream; then a short ``serve_summary(..., verify=True)`` on the card."""
+    from repro_torch.configs.mosso_stream import smoke_config
+    from repro_torch.core.engine import ShardedSummarizer
+    from repro_torch.dist import labelhash
+    from repro_torch.graph.streams import (barabasi_albert_edges,
+                                           edges_to_fully_dynamic_stream)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_summary import serve_summary
+
+    cfg = smoke_config()
+    chunk = 64
+    stream = edges_to_fully_dynamic_stream(
+        barabasi_albert_edges(40, 3, seed), delete_prob=0.15, seed=seed + 1)
+    leaves = [f"x{i:03d}" for i in range(32)]
+    lo = min(labelhash.hash_label(x) for x in leaves)
+    hub = next(h for h in (f"hub{j}" for j in range(100_000))
+               if labelhash.hash_label(h) < lo)
+    skew = ([(hub, x, True) for x in leaves]
+            + [(hub, x, False) for x in leaves[::3]])
+    cases = {"device": (stream, dict(routing="device")),
+             "host": (stream, dict(routing="host")),
+             "skew_lane_cap_2": (skew, dict(routing="device", lane_cap=2)),
+             "bounded_drain": (skew, dict(routing="device", lane_cap=8,
+                                          max_drain_rounds=2))}
+    out, final = {}, {}
+    for name, (changes, kw) in cases.items():
+        runs = {dev: ShardedSummarizer(cfg, device=dev, n_shards=3,
+                                       router_chunk=chunk, **kw)
+                for dev in ("cuda", "cpu")}
+        ops.reset_counts()
+        calls = 0
+        for off in range(0, len(changes), chunk):
+            for ss in runs.values():
+                ss.process(changes[off:off + chunk])
+            _check_leaves(_replica_leaves(runs["cuda"]),
+                          _replica_leaves(runs["cpu"]),
+                          f"{name} call {calls} card vs cpu")
+            calls += 1
+        stats = {dev: ss.stats() for dev, ss in runs.items()}   # flushed
+        final[name] = _replica_leaves(runs["cuda"])
+        if stats["cuda"] != stats["cpu"]:
+            raise AssertionError(f"{name}: stats differ {stats}")
+        if ops.ht_probe.launches == 0:
+            raise AssertionError(f"{name} launched no probe kernel")
+        truth = live_edges(changes)
+        if runs["cuda"].materialize().decode_edges() != truth:
+            raise AssertionError(f"{name}: lossless decode failed")
+        out[name] = dict(calls=calls, stats=stats["cuda"],
+                         probe_launches=ops.ht_probe.launches)
+        log(f"sharded router paths: {name}: card == cpu, every replica "
+            f"leaf bitwise after each of {calls} process calls; "
+            f"{ops.ht_probe.launches} probe launches; {stats['cuda']}")
+    _check_leaves(final["device"], final["host"],
+                  "device routing vs host routing on the card")
+    s = out["skew_lane_cap_2"]["stats"]
+    b = out["bounded_drain"]["stats"]
+    if s["router_drain_rounds"] < 2 or b["router_overflows"] == 0:
+        raise AssertionError(f"the skew cases did not drain: {s} {b}")
+    log("sharded router paths: device routing == host routing on the card, "
+        "bitwise after the stream")
+    ss = ShardedSummarizer(cfg, device="cuda", n_shards=3, router_chunk=chunk)
+    t = time.perf_counter()
+    served = serve_summary(ss, stream, reads_per_chunk=16, verify=True,
+                           seed=seed)
+    served["seconds"] = time.perf_counter() - t
+    if not served["verified"] or served["max_lag"] != 1:
+        raise AssertionError(f"serve_summary: {served}")
+    log(f"serve_summary on the card: {served['reads']} reads over "
+        f"{served['chunks']} chunks verified against each snapshot's epoch "
+        f"prefix, {served['us_per_read']:.1f} us/read, max epoch lag "
+        f"{served['max_lag']}, {served['seconds']:.2f} s")
+    out["serve_summary"] = served
+    return out
 
 
 
@@ -1530,6 +1847,15 @@ def main() -> int:
     lm_c = lm_serve(seed, lm_b["params"])
     lm_c["profile"] = lm_decode_profile(seed, lm_c["ms_per_token"])
     lm_d = lm_smoke_archs(seed)
+    torch.cuda.empty_cache()
+
+    # 11. the sharded summarizer at full width over the phase-3 stream
+    # (counts set to 0 inside, just before it); 12. the router's paths,
+    # card vs CPU, and the serve loop
+    sharded = sharded_path(NODES, 4, seed)
+    #     the probe kernel at phase 11's shapes on full-size intern tables
+    max_err = max(max_err, intern_vs_plain(sharded, gen))
+    router_paths = sharded_router_paths(seed)
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -1540,7 +1866,8 @@ def main() -> int:
         profile=prof_res, reads=read_res, summary_ops=summary_ops,
         csr_rows=csr_rows, graphsage=sage, smoke_archs=archs,
         attention_rows=attn_rows, lm_card_vs_cpu=lm_a, lm_prefill=lm_b,
-        lm_serve=lm_c, lm_smoke_archs=lm_d), indent=1))
+        lm_serve=lm_c, lm_smoke_archs=lm_d, sharded=sharded,
+        sharded_router_paths=router_paths), indent=1))
 
     entry = dict(name="ht_probe", route="cuda",
                  source="src/repro_torch/csrc/ht_probe.cu",
@@ -1551,7 +1878,10 @@ def main() -> int:
                  bound_ms=top["bound_ms"], bound_by="bytes",
                  library_ms=None, variant="tile8", mode=top["mode"],
                  lanes=top["lanes"], load=top["load"],
-                 jobs=path_res["probe_jobs"])
+                 jobs=path_res["probe_jobs"],
+                 sharded_launches=sharded["probe_launches"],
+                 sharded_jobs=sharded["probe_jobs"],
+                 sharded_max_lanes_per_job=sharded["max_lanes_per_job"])
     k = sage["kernel"]
     csr_entry = dict(name="csr_segment", route="cuda",
                      source="src/repro_torch/csrc/csr_segment.cu",

@@ -1,7 +1,8 @@
-"""Host-side front-end around the batched engine.
+"""Host-side front-ends around the batched engine.
 
-Port of the single-engine part of ``repro/core/engine/api.py``:
-:class:`BatchedSummarizer` and the state-level exports
+Port of ``repro/core/engine/api.py``: :class:`BatchedSummarizer` (one
+engine), :class:`ShardedSummarizer` (``n_shards`` engine replicas on one
+device, edge-partitioned by label hash) and the state-level exports
 (:func:`state_live_edges`, :func:`state_materialize`,
 :func:`state_phi_recomputed`).  Crash consistency (checkpoints and the
 write-ahead journal) is not ported yet.
@@ -9,19 +10,21 @@ write-ahead journal) is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Sequence, Set, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.engine.hashtable import TOMB, ht_rebuild
 from repro_torch.core.engine.state import (EngineConfig, EngineState,
-                                           new_state, state_to_numpy)
+                                           copy_state, new_state,
+                                           state_to_numpy)
 from repro_torch.core.engine.trial import step_fn
-from repro_torch.core.summary import (SummaryOutput, encoding_cost,
-                                      host_node_weight, is_superedge,
-                                      pair_key)
+from repro_torch.core.summary import (ShardedSummaryOutput, SummaryOutput,
+                                      encoding_cost, host_node_weight,
+                                      is_superedge, pair_key)
 from repro_torch.device import resolve_device
+from repro_torch.dist import labelhash, router
 
 Change = Tuple[int, int, bool]
 
@@ -277,3 +280,481 @@ class BatchedSummarizer:
 
     def phi_recomputed(self) -> int:
         return state_phi_recomputed(self.state, self.cfg)
+
+
+# --------------------------------------------------------------------------- #
+# sharded front-end
+# --------------------------------------------------------------------------- #
+
+
+def _relabel_output(out: SummaryOutput, rev: Sequence[object],
+                    sid_offset: int) -> SummaryOutput:
+    """Map a shard's engine-id output back to caller labels, with supernode
+    ids offset into a globally unique range."""
+    return SummaryOutput(
+        supernodes={sid_offset + sid: {rev[u] for u in mem}
+                    for sid, mem in out.supernodes.items()},
+        superedges={(sid_offset + a, sid_offset + b)
+                    for (a, b) in out.superedges},
+        c_plus={pair_key(rev[a], rev[b]) for (a, b) in out.c_plus},
+        c_minus={pair_key(rev[a], rev[b]) for (a, b) in out.c_minus},
+    )
+
+
+def _dropped(interns) -> int:
+    """Dropped endpoint interns over all replicas (one read)."""
+    return int(torch.stack([i.n_dropped for i in interns]).sum())
+
+
+class ShardedSummarizer:
+    """Edge-partitioned summarization: ``n_shards`` engine replicas on one
+    device.
+
+    Port of the JAX package's ``ShardedSummarizer`` on one card
+    (``n_dev = 1``; its ``n_shards > n_devices`` layout).  Every change is
+    routed to the shard owning its canonical pair, ``min(h(u), h(v)) %
+    n_shards`` over the stable 62-bit label hash ``h``
+    (:mod:`repro_torch.dist.labelhash`), so each replica summarizes a
+    disjoint edge partition losslessly in its own ``n_cap``-bounded id
+    space.  The merged output is the union of parts
+    (:class:`ShardedSummaryOutput`); ``phi`` is the sum of shard phis.
+    Replica states are leaf-bitwise the JAX package's after every
+    ``process`` call (:func:`~repro_torch.dist.router.
+    sharded_state_to_numpy` gives its stacked layout).
+
+    **Id spaces.**  Caller labels (any hashable); 62-bit label hashes,
+    two 31-bit words on the device; per-shard local ids assigned on the
+    device in delivery order by the intern tables of
+    :mod:`repro_torch.dist.router`.  The hash -> label map is folded
+    lazily at sync points from a per-chunk label buffer; a 62-bit
+    collision raises there.
+
+    **Routing** (``routing=``): ``"device"`` (default) routes each chunk
+    on the device (shard keys, capacity-bounded lanes, the drain loop)
+    and then runs the engine stage; with the default ``max_drain_rounds``
+    delivery is guaranteed and dispatch reads no watermark
+    (``sync_free``), and chunk k+1 is routed before chunk k's engine
+    stage runs (``pipeline``; one CUDA stream, so nothing overlaps, but
+    ``flush_epoch`` trails ``process`` by one routed chunk as in JAX).  A
+    lowered ``max_drain_rounds`` or ``chunk_sync=True`` reads the
+    watermark per chunk (``router_syncs``) and replays an undelivered
+    suffix through the host path (``router_overflows``).  ``"host"``
+    buckets on the host: the differential reference.
+
+    **Replicas** (``replica_exec=``): ``"map"``, stepped in turn;
+    ``"vmap"`` raises ``NotImplementedError``.
+
+    **Capacity.**  A shard past ``n_cap`` drops the endpoint intern and
+    skips the change; the next sync point (``phi``/``stats``/
+    ``materialize``/...) raises ``RuntimeError``.
+
+    **Device.**  The replicas live on ``device`` (default ``"cuda"``);
+    every table probe, the intern pre-lookups and inserts included, runs
+    the probe kernel there.  With no CUDA device visible the constructor
+    raises unless ``device="cpu"`` is passed.  Crash consistency
+    (``checkpoint_dir``) is not ported yet.
+    """
+
+    def __init__(self, cfg: EngineConfig | None = None, *, device="cuda",
+                 n_shards: Optional[int] = None, routing: str = "device",
+                 router_chunk: int = 1024, lane_cap: Optional[int] = None,
+                 max_drain_rounds: Optional[int] = None,
+                 chunk_sync: bool = False, pipeline: bool = True,
+                 replica_exec: Optional[str] = None, **overrides) -> None:
+        if cfg is None:
+            cfg = EngineConfig(**overrides)
+        elif overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        self.cfg = cfg
+        self.replica_exec = router.check_replica_exec(replica_exec)
+        self.device = resolve_device(device)
+        n_dev = 1
+        self.n_shards = n_dev if n_shards is None else int(n_shards)
+        if self.n_shards >= router.MAX_SHARDS:
+            raise ValueError(
+                f"n_shards={self.n_shards} must be < {router.MAX_SHARDS} "
+                f"(shard keys compose 31-bit hash words over uint32 "
+                f"residues)")
+        if routing not in ("device", "host"):
+            raise ValueError(f"routing must be 'device' or 'host': {routing}")
+        self.routing = routing
+        self.router_chunk = int(router_chunk)
+        self.lane_cap = (router.default_lane_cap(
+            self.router_chunk, n_dev, self.n_shards, cfg.batch)
+            if lane_cap is None else min(int(lane_cap), self.router_chunk))
+        self.router_overflows = 0   # changes spilled to the host path
+        self.router_syncs = 0       # per-chunk watermark fetches
+        self.chunk_sync = bool(chunk_sync)
+        self._drain_rounds = router.drain_telemetry_new(n_dev, self.device)
+        self._bucketed = router.make_bucketed_step(cfg)
+        if routing == "device":
+            self._route, self.router_geometry = router.make_route_step(
+                self.n_shards, self.router_chunk, self.lane_cap,
+                max_drain_rounds)
+            self._engine = router.make_engine_step(
+                cfg, self.n_shards, self.router_geometry.acc_cap)
+            self.lane_cap = self.router_geometry.lane_cap
+            self.max_drain_rounds = self.router_geometry.max_drain_rounds
+            self.sync_free = (self.router_geometry.drain_guaranteed
+                              and not self.chunk_sync)
+        else:
+            self._route = self._engine = None
+            self.router_geometry = None
+            self.max_drain_rounds = None
+            self.sync_free = False
+        self.pipeline = bool(pipeline) and self.sync_free
+        self._pending = None        # routed chunk awaiting its engine stage
+        self._epoch = 0             # engine stages applied to the replicas
+
+        self.states: List[EngineState] = []
+        for s in range(self.n_shards):
+            st = new_state(cfg, self.device)
+            st.step_no = torch.tensor(router.shard_step_no(cfg.seed, s),
+                                      dtype=torch.int64, device=self.device)
+            self.states.append(st)
+        self.interns: List[router.InternState] = [
+            router.intern_new(cfg, self.device)
+            for _ in range(self.n_shards)]
+
+        self._h2label: Dict[int, object] = {}  # 62-bit hash -> caller label
+        self._label_buf: List = []   # (labels, hi, lo) pending lazy fold
+        self._label_head = None      # compacted (labels, hashes), hash-sorted
+        self._host_dict_ops = 0      # label-map mutations inside dispatch
+        self._in_dispatch = False
+        self._host_cache = None
+
+    # ------------------------------------------------------------------ ids
+    def _pack_chunk(self, chunk: Sequence[Change], pad_to: int = 0):
+        """Hash one chunk of labeled changes into device words (numpy
+        ``int32``); the labels are buffered for the lazy reverse-map fold."""
+        m = len(chunk)
+        us = [c[0] for c in chunk]
+        vs = [c[1] for c in chunk]
+        uh, ul = labelhash.hash_words(us)
+        vh, vl = labelhash.hash_words(vs)
+        fl = np.fromiter((c[2] for c in chunk), np.int32, m)
+        self._label_buf.append((us, uh, ul))
+        self._label_buf.append((vs, vh, vl))
+        if pad_to > m:
+            def pad(a, fill):
+                return np.concatenate(
+                    [a, np.full(pad_to - m, fill, a.dtype)])
+            uh, ul, vh, vl = (pad(a, -1) for a in (uh, ul, vh, vl))
+            fl = pad(fl, 0)
+        return uh, ul, vh, vl, fl
+
+    @staticmethod
+    def _collision(a, b, h) -> RuntimeError:
+        return RuntimeError(
+            f"62-bit label-hash collision: {a!r} and {b!r} both hash to "
+            f"{int(h):#x}; rename one label (collision odds are ~n^2/2^63 "
+            f"— this is loud instead of silently merging the two nodes)")
+
+    def _compact_label_buf(self) -> None:
+        """Dedup the pending label buffer by hash (numpy only, no dict),
+        merged into a hash-sorted compacted head; a dropped duplicate that
+        is a different label raises as a collision."""
+        buf = self._label_buf
+        if not buf:
+            return
+        labels = [x for (ls, _, _) in buf for x in ls]
+        arr = np.array(labels, dtype=object)
+        if arr.ndim != 1:           # e.g. equal-length tuple labels
+            arr = np.empty(len(labels), object)
+            for i, x in enumerate(labels):
+                arr[i] = x
+        comb = np.concatenate([labelhash.combine(hi, lo)
+                               for (_, hi, lo) in buf])
+        uniq, first, inv = np.unique(comb, return_index=True,
+                                     return_inverse=True)
+        # a non-reflexive label (NaN) must not read as a self-collision
+        same = arr == arr[first[inv]]
+        for i in np.flatnonzero(~np.asarray(same, bool)):
+            j = int(first[inv[int(i)]])
+            if arr[int(i)] is not arr[j]:
+                raise self._collision(arr[j], arr[int(i)], comb[int(i)])
+        keep = arr[first]
+        if self._label_head is None:
+            self._label_head = (keep, uniq)
+        else:
+            h_lab, h_hash = self._label_head
+            pos = np.searchsorted(h_hash, uniq)
+            posc = np.minimum(pos, len(h_hash) - 1)
+            known = (pos < len(h_hash)) & (h_hash[posc] == uniq)
+            if bool(np.any(known)):
+                same2 = keep[known] == h_lab[posc[known]]
+                kidx = np.flatnonzero(known)
+                for k in np.flatnonzero(~np.asarray(same2, bool)):
+                    i = int(kidx[int(k)])
+                    if keep[i] is not h_lab[int(posc[i])]:
+                        raise self._collision(h_lab[int(posc[i])], keep[i],
+                                              uniq[i])
+            fresh = ~known
+            m_hash = np.concatenate([h_hash, uniq[fresh]])
+            order = np.argsort(m_hash)       # disjoint hashes: total order
+            self._label_head = (
+                np.concatenate([h_lab, keep[fresh]])[order], m_hash[order])
+        buf.clear()
+
+    def _fold_labels(self) -> None:
+        """Fold buffered/compacted labels into the hash -> label map, at
+        sync points only (``router_host_dict_ops`` counts a fold inside
+        dispatch); raises on a 62-bit collision between distinct labels."""
+        head, buf = self._label_head, self._label_buf
+        if head is None and not buf:
+            return
+        if self._in_dispatch:
+            self._host_dict_ops += (
+                (len(head[0]) if head is not None else 0)
+                + sum(len(e[0]) for e in buf))
+        h2l = self._h2label
+        entries = ([] if head is None
+                   else [(head[0].tolist(), head[1])])
+        entries += [(labels, labelhash.combine(hi, lo))
+                    for (labels, hi, lo) in buf]
+        for labels, comb in entries:
+            for label, h in zip(labels, comb.tolist()):
+                prev = h2l.setdefault(h, label)
+                if prev is not label and prev != label:
+                    raise self._collision(prev, label, h)
+        self._label_head = None
+        buf.clear()
+
+    def host_label_map(self) -> Dict[int, object]:
+        """The folded 62-bit hash -> caller label map (a sync point; treat
+        the returned dict as read-only)."""
+        self._flush_dispatch()
+        self._fold_labels()
+        return self._h2label
+
+    def shard_of(self, u: object, v: object) -> int:
+        """Owner shard of a streamed edge {u, v}; ``LookupError`` for a
+        label this summarizer has not seen.  Assigns nothing."""
+        self._fold_labels()
+        hu, hv = labelhash.hash_label(u), labelhash.hash_label(v)
+        for label, h in ((u, hu), (v, hv)):
+            if h not in self._h2label:
+                raise LookupError(
+                    f"shard_of: label {label!r} has not been streamed")
+        return min(hu, hv) % self.n_shards
+
+    # --------------------------------------------------------------- stream
+    def process(self, changes: Sequence[Change]) -> None:
+        """Apply a sequence of changes, ``router_chunk`` at a time.  On the
+        pipelined path the last chunk's engine stage is still pending when
+        this returns; every state accessor flushes first."""
+        changes = list(changes)
+        self._in_dispatch = True
+        try:
+            for off in range(0, len(changes), self.router_chunk):
+                chunk = changes[off:off + self.router_chunk]
+                if self.routing == "device":
+                    self._process_chunk_device(chunk)
+                else:
+                    self._process_chunk_host(chunk)
+        finally:
+            self._in_dispatch = False
+
+    def _process_chunk_host(self, chunk: Sequence[Change]) -> None:
+        """Host routing: bucket hashed changes per shard (stable, stream
+        order) and feed padded ``[n_shards, batch]`` rounds."""
+        self._flush_dispatch()
+        n, b = self.n_shards, self.cfg.batch
+        uh, ul, vh, vl, fl = self._pack_chunk(chunk)
+        dest = np.minimum(labelhash.combine(uh, ul),
+                          labelhash.combine(vh, vl)) % n
+        idxs = [np.flatnonzero(dest == s) for s in range(n)]
+        rounds = (max((len(i) for i in idxs), default=0) + b - 1) // b
+        for r in range(rounds):
+            buh = np.full((n, b), -1, np.int32)
+            bul = np.full((n, b), -1, np.int32)
+            bvh = np.full((n, b), -1, np.int32)
+            bvl = np.full((n, b), -1, np.int32)
+            bfl = np.zeros((n, b), np.int32)
+            for s, idx in enumerate(idxs):
+                sel = idx[r * b:(r + 1) * b]
+                k = len(sel)
+                if k:
+                    buh[s, :k], bul[s, :k] = uh[sel], ul[sel]
+                    bvh[s, :k], bvl[s, :k] = vh[sel], vl[sel]
+                    bfl[s, :k] = fl[sel]
+            self._bucketed(self.states, self.interns, buh, bul, bvh, bvl,
+                           bfl)
+        self._epoch += 1
+        self._host_cache = None
+        if len(self._label_buf) >= 128:
+            self._compact_label_buf()
+
+    def _process_chunk_device(self, chunk: Sequence[Change]) -> None:
+        """Device routing: the route stage, then the engine stage of the
+        previous routed chunk (pipelined) or of this one."""
+        packed = np.stack(self._pack_chunk(chunk, pad_to=self.router_chunk))
+        words = torch.from_numpy(packed).to(self.device).unbind(0)
+        buckets, _, delivered, rounds = self._route(*words)
+        routed = (buckets, rounds)
+        self._host_cache = None
+        if len(self._label_buf) >= 128:
+            self._compact_label_buf()
+        if self.pipeline:
+            prev, self._pending = self._pending, routed
+            if prev is not None:
+                self._run_engine(prev)
+            return
+        self._run_engine(routed)
+        if self.sync_free:
+            return                           # delivery guaranteed
+        self.router_syncs += 1               # the per-chunk watermark read
+        if delivered < len(chunk):
+            self.router_overflows += len(chunk) - delivered
+            self._process_chunk_host(chunk[delivered:])
+
+    def _run_engine(self, routed) -> None:
+        self._engine(self.states, self.interns, self._drain_rounds, *routed)
+        self._epoch += 1
+
+    def _flush_dispatch(self) -> None:
+        """Run the engine stage of a still-pending routed chunk."""
+        if self._pending is not None:
+            prev, self._pending = self._pending, None
+            self._run_engine(prev)
+
+    def flush(self) -> None:
+        """Barrier: drains the dispatch pipeline and waits for the
+        device."""
+        self._flush_dispatch()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, stream: Iterable[Change]) -> "ShardedSummarizer":
+        self.process(list(stream))
+        return self
+
+    # ---------------------------------------------------------------- reads
+    @property
+    def flush_epoch(self) -> int:
+        """Engine stages applied to the replicas so far; on the pipelined
+        path this trails the chunks handed to ``process`` by one."""
+        return self._epoch
+
+    def query(self, copy: bool = False):
+        """Snapshot read view (``neighbors``/``degree``/``has_edge`` in
+        caller-label space, merged across shards; no pipeline flush,
+        :mod:`repro_torch.serve.query`).  The view always holds a copy of
+        the replicas, since the engine writes in place: ``copy`` is taken
+        for the JAX package's signature and changes nothing."""
+        from repro_torch.serve.query import ShardedSummaryQuery
+        return ShardedSummaryQuery(self, copy=copy)
+
+    # ---------------------------------------------------------------- stats
+    def host_states(self) -> List[EngineState]:
+        """Copies of every replica's engine state on the CPU, memoized
+        until the next ``process`` call (a sync point)."""
+        return self._host_fetch()[0]
+
+    def host_interns(self) -> List["router.InternState"]:
+        """Copies of every replica's intern state on the CPU."""
+        return self._host_fetch()[1]
+
+    def _host_fetch(self):
+        self._flush_dispatch()
+        if self._host_cache is None:
+            self._host_cache = ([copy_state(st, "cpu") for st in self.states],
+                                [copy_state(i, "cpu") for i in self.interns])
+        self._check_capacity()
+        return self._host_cache
+
+    def _check_capacity(self) -> None:
+        self._flush_dispatch()
+        interns = (self._host_cache[1] if self._host_cache is not None
+                   else self.interns)
+        self._raise_if_dropped(_dropped(interns))
+
+    def _raise_if_dropped(self, dropped: int) -> None:
+        if dropped:
+            raise RuntimeError(
+                f"node capacity exceeded: {dropped} endpoint interns dropped "
+                f"(per-shard n_cap={self.cfg.n_cap}; raise n_cap or n_shards "
+                f"— losslessness does not hold for the dropped changes)")
+
+    def _shard_rev(self, shard: int) -> List[object]:
+        """nid -> caller label for one shard: the intern table's ``l2h``
+        rows through the folded hash -> label map."""
+        self._fold_labels()
+        ist = self.host_interns()[shard]
+        l2h = ist.l2h[:int(ist.n_nodes)].numpy()
+        return [self._h2label[int(h)]
+                for h in labelhash.combine(l2h[:, 0], l2h[:, 1])]
+
+    def shard_state(self, shard: int) -> EngineState:
+        return self.host_states()[shard]
+
+    def _scalars(self, *names: str) -> np.ndarray:
+        """``int64[len(names), n_shards]``: state scalars of every replica,
+        in one read."""
+        return torch.stack([torch.stack([getattr(st, k).to(torch.int64)
+                                         for st in self.states])
+                            for k in names]).cpu().numpy()
+
+    def shard_phis(self) -> List[int]:
+        self._check_capacity()
+        return [int(x) for x in self._scalars("phi")[0]]
+
+    @property
+    def phi(self) -> int:
+        """Sum of shard phis (per-pair encodings never span shards)."""
+        return sum(self.shard_phis())
+
+    @property
+    def num_edges(self) -> int:
+        self._check_capacity()
+        return int(self._scalars("num_edges").sum())
+
+    def compression_ratio(self) -> float:
+        e = self.num_edges
+        return float(self.phi) / e if e else 0.0
+
+    def stats(self) -> dict:
+        """Engine counters summed over the replicas plus routing telemetry:
+        ``router_overflows`` (changes replayed through the host path),
+        ``router_drain_rounds`` (extra drain rounds beyond the first),
+        ``router_syncs`` (per-chunk watermark reads), and
+        ``router_host_dict_ops`` (label-map mutations inside dispatch).
+        A sync point."""
+        self._flush_dispatch()
+        self._fold_labels()
+        phi, ne, tr, ac, sk = self._scalars(
+            "phi", "num_edges", "n_trials", "n_accept", "n_skipped").sum(1)
+        self._raise_if_dropped(_dropped(self.interns))
+        return dict(phi=int(phi), num_edges=int(ne), trials=int(tr),
+                    accepted=int(ac), skipped=int(sk),
+                    n_shards=self.n_shards, routing=self.routing,
+                    router_overflows=self.router_overflows,
+                    router_drain_rounds=int(self._drain_rounds.max()),
+                    router_syncs=self.router_syncs,
+                    router_host_dict_ops=self._host_dict_ops,
+                    router_sync_free=self.sync_free,
+                    router_pipelined=self.pipeline)
+
+    # ------------------------------------------------------------ materialize
+    def live_edges(self) -> Set[Tuple[object, object]]:
+        """Union of per-shard live edges, in caller labels."""
+        out: Set[Tuple[object, object]] = set()
+        for s, st in enumerate(self.host_states()):
+            rev = self._shard_rev(s)
+            for (a, b) in state_live_edges(st):
+                out.add(pair_key(rev[a], rev[b]))
+        return out
+
+    def materialize(self) -> ShardedSummaryOutput:
+        """Per-shard lossless summaries in caller labels, supernode ids
+        offset into disjoint ranges (``shard * n_cap``)."""
+        shards = []
+        for s, st in enumerate(self.host_states()):
+            out = state_materialize(st, self.cfg)
+            shards.append(
+                _relabel_output(out, self._shard_rev(s), s * self.cfg.n_cap))
+        return ShardedSummaryOutput(shards=shards)
+
+    def phi_recomputed(self) -> int:
+        return sum(state_phi_recomputed(st, self.cfg)
+                   for st in self.host_states())

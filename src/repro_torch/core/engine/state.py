@@ -129,12 +129,19 @@ class EngineState:
 
     def clone(self) -> "EngineState":
         """A deep copy (the in-place engine would change a shared one)."""
-        def copy(v):
-            if isinstance(v, HashTable):
-                return HashTable(v.k1.clone(), v.k2.clone(), v.val.clone())
-            return v.clone()
-        return EngineState(**{f.name: copy(getattr(self, f.name))
-                              for f in dataclasses.fields(self)})
+        return copy_state(self)
+
+
+def copy_state(st, device=None):
+    """A deep copy of a state dataclass of tensors and ``HashTable``s (an
+    ``EngineState`` or the router's ``InternState``), on ``device`` or,
+    by default, where each leaf lies."""
+    def copy(v):
+        if isinstance(v, HashTable):
+            return HashTable(*(copy(t) for t in (v.k1, v.k2, v.val)))
+        return v.to(v.device if device is None else device, copy=True)
+    return type(st)(**{f.name: copy(getattr(st, f.name))
+                       for f in dataclasses.fields(st)})
 
 
 def _scalar(x: int, dtype=torch.int32, device=None) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Lossless-summary primitives (plain Python).
 
 Copies of ``repro/core/summary.py``'s ``pair_key``, ``t_count``,
-``encoding_cost``, ``is_superedge`` and ``SummaryOutput``, and of
+``encoding_cost``, ``is_superedge``, ``SummaryOutput`` and
+``ShardedSummaryOutput``, and of
 ``repro/core/reference/weights.py``'s ``host_node_weight``.
 
 The output of lossless graph summarization (Sect. 2.1 of the paper) is a
@@ -13,7 +14,7 @@ missing pairs in C- (cost ``1 + |T_AB| - |E_AB|``), whichever is cheaper.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Set, Tuple
+from typing import Dict, List, Set, Tuple
 
 import numpy as np
 
@@ -85,6 +86,81 @@ class SummaryOutput:
 
     def node_count(self) -> int:
         return sum(len(m) for m in self.supernodes.values())
+
+
+@dataclass
+class ShardedSummaryOutput:
+    """Union-of-parts output of an edge-partitioned summarization run.
+
+    Each shard is an independent lossless summary of its edge partition, so
+    the global edge set is the UNION of per-shard decodes.  C- stays scoped
+    to its shard: a node may belong to supernodes in several shards, and a
+    shard's correction must never subtract an edge owned by another shard,
+    which is why the parts are kept rather than flattened into one
+    :class:`SummaryOutput`.
+
+    The merge is insensitive to DELIVERY ORDER: whether changes reached a
+    shard through host bucketing or through the device router
+    (``dist/router.py``), each edge has exactly
+    one owner shard (canonical-pair keying), so the per-shard summaries
+    cover disjoint edge sets and the union — and the additive ``phi`` — are
+    the same.  What delivery order *does* fix is each shard's internal node
+    numbering; producers therefore relabel every part back to caller labels
+    (via the device intern maps) and offset supernode ids into disjoint
+    per-shard ranges before constructing this object.  ``validate()``
+    checks the structural half of that contract.
+    """
+
+    shards: List[SummaryOutput]
+
+    @property
+    def phi(self) -> int:
+        """Global objective: per-pair encodings are disjoint across shards."""
+        return sum(s.phi for s in self.shards)
+
+    def phi_by_shard(self) -> List[int]:
+        return [s.phi for s in self.shards]
+
+    def decode_edges(self) -> Set[Pair]:
+        edges: Set[Pair] = set()
+        for s in self.shards:
+            edges |= s.decode_edges()
+        return edges
+
+    def node_count(self) -> int:
+        """Distinct nodes across shards (a node may appear in several)."""
+        nodes: Set[int] = set()
+        for s in self.shards:
+            for mem in s.supernodes.values():
+                nodes |= mem
+        return len(nodes)
+
+    def validate(self) -> "ShardedSummaryOutput":
+        """Assert the union-of-parts invariants; returns self for chaining.
+
+        * supernode id ranges are pairwise disjoint across shards (so the
+          union never aliases two shards' supernodes), and
+        * every part satisfies phi == |P| + |C+| + |C-| by construction
+          (``SummaryOutput.phi`` is definitional; here we check each part's
+          correction sets stay inside its own supernode universe).
+        """
+        seen_sids: Set[int] = set()
+        for i, s in enumerate(self.shards):
+            sids = set(s.supernodes)
+            overlap = sids & seen_sids
+            assert not overlap, f"shard {i} reuses supernode ids {overlap}"
+            seen_sids |= sids
+            members: Set[int] = set()
+            for mem in s.supernodes.values():
+                members |= mem
+            for (a, b) in s.superedges:
+                assert a in sids and b in sids, \
+                    f"shard {i} superedge {(a, b)} leaves its sid range"
+            for pair_set, name in ((s.c_plus, "C+"), (s.c_minus, "C-")):
+                for (u, v) in pair_set:
+                    assert u in members and v in members, \
+                        f"shard {i} {name} pair {(u, v)} names a foreign node"
+        return self
 
 
 _GOLDEN = np.uint32(0x9E3779B9)

@@ -1,15 +1,20 @@
 """MoSSo streaming CLI on the PyTorch engine.
 
-Port of the ``--engine batched`` path of ``repro/launch/stream.py``:
-summarize a synthetic dynamic graph stream with :class:`BatchedSummarizer`
-and report phi, the compression ratio (Eq. 3) and the time per change.
-The search and batch defaults come from the port's ``EngineConfig``.
+Port of the ``--engine batched`` and ``--engine sharded`` paths of
+``repro/launch/stream.py``: summarize a synthetic dynamic graph stream
+with :class:`BatchedSummarizer` or the edge-partitioned
+:class:`ShardedSummarizer` (``--shards`` replicas on one device, routed
+on the device by default, ``--routing host`` for host bucketing) and
+report phi, the compression ratio (Eq. 3) and the time per change.  The
+search and batch defaults come from the port's ``EngineConfig``.
 ``--device`` picks where the engine runs (default ``cuda``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stream --batch 64
   PYTHONPATH=src python -m repro_torch.launch.stream --device cpu \
       --nodes 200 --fully-dynamic
+  PYTHONPATH=src python -m repro_torch.launch.stream --engine sharded \
+      --shards 4 --routing device --router-chunk 1024
 """
 from __future__ import annotations
 
@@ -18,8 +23,10 @@ import time
 
 import torch
 
-from repro_torch.core.engine import BatchedSummarizer, EngineConfig
+from repro_torch.core.engine import (BatchedSummarizer, EngineConfig,
+                                    ShardedSummarizer)
 from repro_torch.core.engine.state import OBJECTIVES, PROPOSALS
+from repro_torch.dist.router import DEFAULT_REPLICA_EXEC, REPLICA_EXEC_MODES
 from repro_torch.graph.streams import (barabasi_albert_edges,
                                        copying_model_edges,
                                        edges_to_fully_dynamic_stream,
@@ -42,6 +49,29 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
                     help="torch device of the engine state (cuda or cpu)")
+    ap.add_argument("--engine", choices=["batched", "sharded"],
+                    default="batched")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="sharded: engine replicas on the device (default 1)")
+    ap.add_argument("--routing", choices=["device", "host"], default="device",
+                    help="sharded: device-side router or host bucketing")
+    ap.add_argument("--router-chunk", type=int, default=1024,
+                    help="sharded: changes per routed dispatch")
+    ap.add_argument("--lane-cap", type=int, default=None,
+                    help="sharded: per (source, shard) router lane capacity")
+    ap.add_argument("--max-drain-rounds", type=int, default=None,
+                    help="sharded: drain round budget (default: enough to "
+                         "guarantee full delivery, with no watermark read)")
+    ap.add_argument("--chunk-sync", action="store_true",
+                    help="sharded: read the watermark every chunk even when "
+                         "delivery is guaranteed")
+    ap.add_argument("--no-pipeline", action="store_true",
+                    help="sharded: run each chunk's engine stage right after "
+                         "its route stage (bit-identical results)")
+    ap.add_argument("--replica-exec", choices=list(REPLICA_EXEC_MODES),
+                    default=DEFAULT_REPLICA_EXEC,
+                    help="sharded: replica layout; 'map' steps the replicas "
+                         "in turn ('vmap' is not ported)")
     ap.add_argument("--graph", choices=["ba", "copying"], default="ba")
     ap.add_argument("--nodes", type=int, default=2000)
     ap.add_argument("--deg", type=int, default=4)
@@ -69,7 +99,22 @@ def main(argv=None) -> None:
         n_cap=n_cap, m_cap=m_cap, c=args.c, escape=args.escape,
         batch=args.batch, proposal=args.proposal, objective=args.objective,
         weight_levels=args.weight_levels)
-    bs = BatchedSummarizer(cfg, device=args.device)
+    if args.engine == "batched":
+        bs = BatchedSummarizer(cfg, device=args.device)
+    else:
+        # per-shard caps: a vertex cut replicates nodes over shards, so
+        # n_cap budgets more than |V| / n_shards
+        bs = ShardedSummarizer(
+            cfg, device=args.device, n_shards=args.shards,
+            routing=args.routing, router_chunk=args.router_chunk,
+            lane_cap=args.lane_cap, max_drain_rounds=args.max_drain_rounds,
+            chunk_sync=args.chunk_sync, pipeline=not args.no_pipeline,
+            replica_exec=args.replica_exec)
+        if args.routing == "device":
+            print(f"router: lane_cap={bs.lane_cap} "
+                  f"max_drain_rounds={bs.max_drain_rounds} "
+                  f"sync_free={bs.sync_free} pipeline={bs.pipeline} "
+                  f"replica_exec={bs.replica_exec}")
     t0 = time.perf_counter()
     bs.run(stream)
     bs.flush()

@@ -1,6 +1,8 @@
 """Online queries over the live compressed summary (no decompression).
 
-Port of the single-engine part of ``repro/serve/query.py``.
+Port of ``repro/serve/query.py``: :class:`SummaryQuery` over a
+``BatchedSummarizer`` and :class:`ShardedSummaryQuery` over a
+``ShardedSummarizer``.
 ``neighbors(u)``, ``degree(u)`` and ``has_edge(u, v)`` are answered from
 the ``EngineState`` tensors the way Lemma 1 prescribes: membership
 lookup (``n2s``), superedge scan over SN(A) under the optimal-encoding
@@ -12,9 +14,16 @@ summary encoding against the edge store on every query.
 The point probes (``eab``, ``epos``, the slot lists) are batched probe
 launches, through the same kernel as the write path.
 
-**Snapshots.**  The engine updates its tensors in place, so
-:class:`SummaryQuery` copies the state when it is created: its answers
-stay those of ``view.epoch`` while the summarizer goes on.
+**Sharded reads.**  A query label is hashed (``labelhash``) and resolved
+against every shard's intern table in one probe launch
+(:func:`_intern_resolve`); edge partitioning is a vertex cut, so every
+shard that knows the node answers, and the answers merge by union
+(neighbors), sum (degree) or any (has_edge: only the pair's owner shard
+can hold it).
+
+**Snapshots.**  The engine updates its tensors in place, so both views
+copy the state when they are created: their answers stay those of
+``view.epoch`` while the summarizer goes on.
 """
 from __future__ import annotations
 
@@ -23,9 +32,11 @@ from typing import List, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.engine.hashtable import ht_find_batch, ht_lookup_batch
+from repro_torch.core.engine.hashtable import (ht_find_batch,
+                                               ht_lookup_batch, probe_many)
 from repro_torch.core.engine.ops import host_read, t_of, take
-from repro_torch.core.engine.state import EngineState
+from repro_torch.core.engine.state import EngineState, copy_state
+from repro_torch.dist import labelhash
 
 
 # --------------------------------------------------------------------------- #
@@ -183,6 +194,146 @@ class SummaryQuery:
         v = self._lanes([p[1] for p in pairs])
         present, _, _ = _has_edge_core(self._state, u, v)
         return present[:len(pairs)].tolist()
+
+    def has_edge(self, u: object, v: object) -> bool:
+        return self.has_edge_batch([(u, v)])[0]
+
+
+# --------------------------------------------------------------------------- #
+# sharded fan-out
+# --------------------------------------------------------------------------- #
+
+
+def _intern_resolve(ists, hi: torch.Tensor, lo: torch.Tensor,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hash words -> ``(local nid, found)``, each ``[R, Q]``, against every
+    shard's intern table in one probe launch (prehashed, as the router
+    probes them); ``hi < 0`` marks padded query lanes."""
+    valid = hi >= 0
+    h1 = torch.where(valid, hi, 0)
+    h2 = torch.where(valid, lo, 0)
+    probed = probe_many([(ist.h2l, h1, h2, True, "find") for ist in ists])
+    found = torch.stack([p[1] for p in probed]) & valid
+    val = torch.stack([p[2] for p in probed])
+    return torch.where(found, val, -1), found
+
+
+class ShardedSummaryQuery:
+    """Read view over one ``ShardedSummarizer`` flush-epoch snapshot.
+
+    Does not flush the dispatch pipeline: on the pipelined router the
+    snapshot is the state after ``epoch`` engine stages, one routed chunk
+    behind ``process``.  It holds copies of every replica's engine and
+    intern state (the engine writes in place, so a view without a copy
+    would change under the next ``process``); ``copy`` is taken for the
+    JAX package's signature and changes nothing.  The snapshot's
+    ``n_dropped`` counters are checked on the first answer.
+    """
+
+    def __init__(self, summarizer, copy: bool = False) -> None:
+        self._est = [copy_state(st) for st in summarizer.states]
+        self._ist = [copy_state(it) for it in summarizer.interns]
+        self._summ = summarizer
+        self._rev_cache: dict = {}
+        self._intern_host = None
+        self.epoch = summarizer.flush_epoch
+        self.n_shards = summarizer.n_shards
+
+    # ------------------------------------------------------------- id space
+    def _resolve(self, labels: Sequence[object],
+                 ) -> Tuple[torch.Tensor, np.ndarray]:
+        """``(nid, found)`` per shard and label: nids as an ``[R, Q]``
+        device tensor (``Q`` padded to a power of two), ``found`` on the
+        host; raises ``LookupError`` for a label no shard has seen."""
+        hi, lo = labelhash.hash_words(list(labels))
+        dev = self._est[0].device
+        nid, found = _intern_resolve(
+            self._ist, torch.from_numpy(_pad_pow2(hi, -1)).to(dev),
+            torch.from_numpy(_pad_pow2(lo, -1)).to(dev))
+        found = np.array(host_read(found), bool)
+        self._snapshot_intern()
+        seen = found.any(axis=0)
+        for i, lab in enumerate(labels):
+            if not seen[i]:
+                raise LookupError(
+                    f"query: label {lab!r} has not been streamed "
+                    f"(as of epoch {self.epoch})")
+        return nid, found
+
+    def _snapshot_intern(self):
+        """Host copy of the snapshot's reverse maps (one read, memoized);
+        also the capacity tripwire for every answer this view serves."""
+        if self._intern_host is None:
+            n_dropped = int(torch.stack([i.n_dropped for i in self._ist])
+                            .sum())
+            self._summ._raise_if_dropped(n_dropped)
+            self._intern_host = ([i.l2h.cpu().numpy() for i in self._ist],
+                                 [int(i.n_nodes) for i in self._ist])
+        return self._intern_host
+
+    def _rev(self, shard: int) -> List[object]:
+        """nid -> caller label for one shard, from the snapshot's intern."""
+        if shard not in self._rev_cache:
+            l2h, n_nodes = self._snapshot_intern()
+            rows = l2h[shard][:n_nodes[shard]]
+            self._summ._fold_labels()   # append-only superset map: safe
+            h2l = self._summ._h2label
+            self._rev_cache[shard] = [
+                h2l[int(h)] for h in labelhash.combine(rows[:, 0],
+                                                       rows[:, 1])]
+        return self._rev_cache[shard]
+
+    def seen_labels(self) -> List[object]:
+        """Distinct labels interned in any shard at snapshot time."""
+        out, seen = [], set()
+        for s in range(self.n_shards):
+            for lab in self._rev(s):
+                if lab not in seen:
+                    seen.add(lab)
+                    out.append(lab)
+        return out
+
+    # -------------------------------------------------------------- queries
+    def neighbors_batch(self, labels: Sequence[object]) -> List[Set[object]]:
+        nid, found = self._resolve(labels)
+        out: List[Set[object]] = []
+        for q in range(len(labels)):
+            acc: Set[object] = set()
+            for s in np.flatnonzero(found[:, q]):
+                mask, _ = _neighbors_one(self._est[s], nid[s, q:q + 1])
+                hits = torch.nonzero(mask).flatten().tolist()
+                if hits:
+                    rev = self._rev(int(s))
+                    acc.update(rev[w] for w in hits)
+            out.append(acc)
+        return out
+
+    def neighbors(self, label: object) -> Set[object]:
+        return self.neighbors_batch([label])[0]
+
+    def degree_batch(self, labels: Sequence[object]) -> List[int]:
+        nid, _ = self._resolve(labels)
+        # per-shard edge partitions are disjoint, so degrees add exactly
+        d = sum(_degree_core(st, nid[s])[0]
+                for s, st in enumerate(self._est))
+        return d[:len(labels)].tolist()
+
+    def degree(self, label: object) -> int:
+        return self.degree_batch([label])[0]
+
+    def has_edge_by_shard(self, pairs: Sequence[Tuple[object, object]],
+                          ) -> np.ndarray:
+        """bool[n_shards, len(pairs)]: which shard holds each edge.  At
+        most one True per column, the pair's ``shard_key`` owner."""
+        nu, _ = self._resolve([p[0] for p in pairs])
+        nv, _ = self._resolve([p[1] for p in pairs])
+        present = torch.stack([_has_edge_core(st, nu[s], nv[s])[0]
+                               for s, st in enumerate(self._est)])
+        return np.array(host_read(present), bool)[:, :len(pairs)]
+
+    def has_edge_batch(self, pairs: Sequence[Tuple[object, object]],
+                       ) -> List[bool]:
+        return [bool(x) for x in self.has_edge_by_shard(pairs).any(axis=0)]
 
     def has_edge(self, u: object, v: object) -> bool:
         return self.has_edge_batch([(u, v)])[0]

@@ -9,9 +9,9 @@ Tolerance: exact — every value is an integer, or a float32 compare that
 must match bit for bit.
 
 The config is the small one of ``tests/test_differential.py``.  This file
-drives the default policy triple; ``test_torch_engine_policies.py`` a
-non-default one and ``test_torch_engine_pallas.py`` the JAX engine with
-its Pallas probe kernel (one JAX engine compile per file).
+drives the default policy triple; ``test_torch_engine_policies.py`` all
+eight triples and ``test_torch_engine_pallas.py`` the JAX engine with its
+Pallas probe kernel.
 """
 import dataclasses
 

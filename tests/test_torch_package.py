@@ -30,6 +30,9 @@ def test_port_imports_nothing_of_jax_or_repro():
     assert "repro_torch.kernels.flash_attention" in names
     assert "repro_torch.models.transformer" in names
     assert "repro_torch.launch.serve" in names
+    assert "repro_torch.dist.labelhash" in names
+    assert "repro_torch.dist.router" in names
+    assert "repro_torch.launch.serve_summary" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
