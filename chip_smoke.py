@@ -96,7 +96,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    budget, each on the card and on the CPU with every replica leaf
    bitwise equal after every ``process`` call, and device routing equal
    to host routing after the stream; then ``serve_summary(...,
-   verify=True)`` on the card.
+   verify=True)`` on the card;
+13. batched crash consistency at full width:
+   ``BatchedSummarizer(full_config(), checkpoint_dir=...)`` over the first
+   768 changes of phase 3's stream (3 chunks of 256: cut from 5 to keep
+   the run well inside its limit on hosts that ran phases 1-12 in 467-499
+   s).  Run A is uninterrupted with ``save()`` every 2 chunks and at the
+   end (``tools/recovery_check.py`` also times each chunk beside the same
+   chunk unjournaled); run B is killed at chunk boundary 3, after the last
+   dispatch (``ft.inject.drive``), and a fresh summarizer ``recover()``s
+   (epoch 2 + 1 journaled chunk): every leaf bitwise, ``stats()`` (less
+   ``stream_retries``) and degree / has_edge / neighbors reads equal
+   A's; then A's newest checkpoint is corrupted and ``recover()`` must
+   fall back one epoch and land bitwise.  Seconds per ``save()`` by phase
+   (host copy, ``np.savez``, fsync, sha256), bytes on disk, ms per journal
+   append, seconds per ``restore()`` and ``recover()``, us per change
+   journaled beside phase 3's over the same changes;
+14. sharded crash consistency: (a) right after phase 11, one ``save()``
+   of its live 4 x ``full_config()`` summarizer (~5.6 GiB; the free disk
+   is printed first) restored into a fresh ``ShardedSummarizer(
+   full_config(), n_shards=4)``: every replica and intern leaf equal on
+   the card, the label map, ``stats()`` and a snapshot's reads equal, save
+   and restore seconds and bytes; (b) the kill-at-every-chunk-boundary
+   bar at ``smoke_config()``, 3 shards, ``router_chunk`` 32, on the card
+   and on the CPU, every leaf bitwise the uninterrupted run's and card ==
+   CPU; (c) ``python -m repro_torch.launch.summarize_stream 60
+   --router-chunk 64`` on the card, by its own assertions.  Checkpoints
+   go under ``build/chip_smoke_ckpt/`` and are removed after each phase.
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -106,6 +132,7 @@ repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -113,6 +140,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"   # phases 13-14, removed
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 LANES = (1, 3, 20, 32, 48, 64, 160, 16384, 1 << 16, 1 << 20)
 CAP = 1 << 25                     # full_config's adj / epos capacity
@@ -125,6 +153,7 @@ TINY_CAPS = (8, 16, 32)
 STACKED = (4, 1 << 20, 16384)     # replicas, cap, lanes of the stacked form
 NODES = 600                       # BA nodes of the main path's stream
 SHARDS = 4                        # replicas of the sharded path (phase 11)
+RECOVERY_CHUNKS = 3               # phase 13: chunks of phase 3's stream
 FP32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 tensor-core rate
 # words in the names of cuBLAS/CUTLASS matrix-product kernels
@@ -870,9 +899,7 @@ def sharded_path(nodes: int, deg: int, seed: int) -> dict:
         + f"; {stats}")
     log("sharded path: phi == phi_recomputed, the merged decode and "
         "live_edges() equal the stream's live edges")
-    del ss
-    torch.cuda.empty_cache()
-    return res
+    return res, ss, stream
 
 
 def intern_vs_plain(sharded: dict, gen) -> int:
@@ -1015,6 +1042,428 @@ def sharded_router_paths(seed: int) -> dict:
         f"{served['max_lag']}, {served['seconds']:.2f} s")
     out["serve_summary"] = served
     return out
+
+
+# --------------------------------------------------------------------- #
+# phases 13-14: crash consistency
+# --------------------------------------------------------------------- #
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _flat(summ) -> dict:
+    from repro_torch.checkpoint.checkpointer import _flatten
+    return _flatten(summ._ckpt_tree())
+
+
+def _check_flat(got: dict, want: dict, what: str) -> None:
+    import numpy as np
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: archive keys differ")
+    for k, x in want.items():
+        if not (got[k].dtype == x.dtype and np.array_equal(got[k], x)):
+            raise AssertionError(f"{what}: leaf {k} differs")
+
+
+def _stats(summ) -> dict:
+    s = summ.stats()
+    s.pop("stream_retries")
+    return s
+
+
+def _read_all(view, labels, pairs) -> tuple:
+    return (view.degree_batch(labels), view.has_edge_batch(pairs),
+            view.neighbors_batch(labels))
+
+
+def _read_sample(stream, seed: int, n: int = 64):
+    import random
+    rng = random.Random(seed)
+    labels = sorted({x for c in stream for x in c[:2]})
+    labels = rng.sample(labels, min(n, len(labels)))
+    pairs = [c[:2] for c in rng.sample(stream, min(n, len(stream)))]
+    return labels, pairs
+
+
+def batched_recovery(stream, phase3_step_s, seed: int,
+                     twin: bool = False) -> dict:
+    """Phase 13: ``BatchedSummarizer(full_config(), checkpoint_dir=...)``
+    on the card over the first ``RECOVERY_CHUNKS`` chunks of phase 3's
+    stream.  Run A: uninterrupted, ``save()`` every 2 chunks and at the
+    end, as the recovering driver does; with ``twin``, each chunk is also
+    fed to a summarizer without a checkpoint directory, in alternating
+    order, and both are timed (the two must end bitwise equal; it adds
+    ``RECOVERY_CHUNKS`` chunks to the phase).  Run B: killed at
+    chunk boundary 3 by ``ft.inject.drive`` (checkpoint every 2 chunks);
+    a fresh summarizer ``recover()``s (epoch 2 + 1 journaled chunk) and
+    finishes the stream: every leaf, ``stats()`` less ``stream_retries``
+    and the reads must equal A's.  Then A's newest checkpoint is
+    corrupted and a fresh ``recover()`` must fall back one epoch and
+    still land bitwise.  Times ``save()`` by phase, ``restore()``,
+    ``recover()`` and the journal appends; us per change journaled (and
+    not journaled, with ``twin``) and phase 3's over the same changes."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.checkpoint.journal import ChunkJournal
+    from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.core.engine import BatchedSummarizer
+    from repro_torch.ft import inject
+    from repro_torch.kernels import ops
+
+    cfg = full_config()
+    b = cfg.batch
+    prefix = stream[:RECOVERY_CHUNKS * b]
+    root = CKPT_ROOT / "batched"
+    shutil.rmtree(root, ignore_errors=True)
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    dir_a, dir_b = str(root / "a"), str(root / "b")
+    log(f"batched recovery: full_config over the first {len(prefix)} "
+        f"changes of phase 3's stream ({RECOVERY_CHUNKS} chunks of {b}); "
+        f"checkpoints under {root}; free disk "
+        f"{shutil.disk_usage(CKPT_ROOT).free / 2**30:.1f} GiB")
+
+    appends = []
+    append = ChunkJournal.append
+
+    def timed_append(self, seq, changes):
+        t = time.perf_counter()
+        append(self, seq, changes)
+        appends.append(time.perf_counter() - t)
+
+    ChunkJournal.append = timed_append
+    try:
+        # run A (counts set to 0 just before, read just after), each chunk
+        # beside the same chunk on a summarizer that journals nothing
+        a = BatchedSummarizer(cfg, device="cuda", checkpoint_dir=dir_a)
+        plain = BatchedSummarizer(cfg, device="cuda") if twin else None
+        ops.reset_counts()
+        step_s, plain_s, saves = [], [], []
+        for i, off in enumerate(range(0, len(prefix), b)):
+            runs = ((a, step_s), (plain, plain_s))[:1 + twin]
+            for summ, times in runs[::-1] if i % 2 == 0 else runs:
+                t = time.perf_counter()
+                summ.process(prefix[off:off + b])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            if (i + 1) % 2 == 0 or i + 1 == RECOVERY_CHUNKS:
+                checkpointer.save_seconds.clear()
+                t = time.perf_counter()
+                path = a.save()
+                total = time.perf_counter() - t
+                saves.append(dict(checkpointer.save_seconds, total=total,
+                                  epoch=i + 1, bytes=_dir_bytes(path)))
+        launches_a = ops.ht_probe.launches
+        if launches_a == 0:
+            raise AssertionError("run A launched no probe kernel")
+        want = _flat(a)
+        want_stats = _stats(a)
+        if twin:
+            _check_flat(_flat(plain), want, "journaled vs not journaled")
+        del plain
+        labels, pairs = _read_sample(prefix, seed)
+        view = a.query()
+        want_reads = _read_all(view, labels, pairs)
+        del view, a
+        torch.cuda.empty_cache()
+        n_appends = len(appends)
+
+        # run B: killed at boundary 3, recovered by a fresh summarizer
+        crashed = BatchedSummarizer(cfg, device="cuda",
+                                    checkpoint_dir=dir_b)
+        try:
+            inject.drive(crashed, prefix, ckpt_every=2, kill_at_chunk=3)
+            raise AssertionError("the kill point was never reached")
+        except inject.SimulatedCrash:
+            pass
+        del crashed
+        torch.cuda.empty_cache()
+        restored = BatchedSummarizer(cfg, device="cuda",
+                                     checkpoint_dir=dir_b)
+        t = time.perf_counter()
+        restored.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        del restored
+        rec = BatchedSummarizer(cfg, device="cuda", checkpoint_dir=dir_b)
+        ops.reset_counts()
+        t = time.perf_counter()
+        info = rec.recover()
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t
+        if (info["epoch"], info["replayed_chunks"]) != (2, 1) or \
+                info["cursor"] != 3 * b:
+            raise AssertionError(f"recover(): {info}")
+        inject.drive(rec, prefix, start=rec.stream_cursor)
+        torch.cuda.synchronize()
+        launches_b = ops.ht_probe.launches
+        if launches_b == 0:
+            raise AssertionError("the recovery launched no probe kernel")
+        _check_flat(_flat(rec), want, "recovered run B vs run A")
+        if _stats(rec) != want_stats:
+            raise AssertionError(f"stats: {rec.stats()} != {want_stats}")
+        view = rec.query()
+        if _read_all(view, labels, pairs) != want_reads:
+            raise AssertionError("run B's reads differ from run A's")
+        del view, rec
+        torch.cuda.empty_cache()
+        log(f"batched recovery: killed at chunk boundary 3, recover() "
+            f"restored epoch {info['epoch']} and replayed "
+            f"{info['replayed_chunks']} chunk; continued, every leaf, "
+            f"stats() and {len(labels)} degree / {len(pairs)} has_edge / "
+            f"{len(labels)} neighbors reads equal run A's, bitwise")
+
+        # the newest checkpoint corrupted: fall back one epoch
+        newest = checkpointer.latest_step(dir_a)
+        inject.corrupt_checkpoint_arrays(dir_a, newest)
+        fb = BatchedSummarizer(cfg, device="cuda", checkpoint_dir=dir_a)
+        t = time.perf_counter()
+        fb_info = fb.recover()
+        torch.cuda.synchronize()
+        fallback_s = time.perf_counter() - t
+        if not (fb_info["step"] < newest and fb_info["rejected"]
+                and fb_info["cursor"] == len(prefix)):
+            raise AssertionError(f"fallback recover(): {fb_info}")
+        _check_flat(_flat(fb), want, "fallback recovery vs run A")
+        if _stats(fb) != want_stats:
+            raise AssertionError("fallback recovery: stats differ")
+        del fb
+        torch.cuda.empty_cache()
+    finally:
+        ChunkJournal.append = append
+        shutil.rmtree(root, ignore_errors=True)
+
+    n = len(prefix)
+    journaled_us = 1e6 * sum(step_s) / n
+    plain_us = 1e6 * sum(plain_s) / n if twin else None
+    phase3_us = 1e6 * sum(phase3_step_s[:RECOVERY_CHUNKS]) / n
+    res = dict(changes=n, chunks=RECOVERY_CHUNKS, saves=saves,
+               restore_s=restore_s, recover_s=recover_s,
+               fallback_recover_s=fallback_s, fallback_info=fb_info,
+               recover_info=info, journal_append_s=appends[:n_appends],
+               journal_append_ms=1e3 * sum(appends[:n_appends]) / n_appends,
+               journaled_us_per_change=journaled_us,
+               journaled_chunk_s=step_s, plain_chunk_s=plain_s,
+               plain_us_per_change=plain_us,
+               phase3_us_per_change_same_changes=phase3_us,
+               run_a_probe_launches=launches_a,
+               recovery_probe_launches=launches_b)
+    for s in saves:
+        log(f"batched save at epoch {s['epoch']}: {s['total']:.3f} s "
+            f"(host copy {s['host_copy']:.3f}, np.savez {s['savez']:.3f}, "
+            f"fsync {s['fsync']:.3f}, sha256 {s['sha256']:.3f}, host.pkl "
+            f"{s['blobs']:.3f}, meta + rename {s['meta']:.3f}); "
+            f"{s['bytes']} bytes ({s['bytes'] / 2**30:.3f} GiB) on disk")
+    log(f"batched recovery: restore() {restore_s:.3f} s, recover() "
+        f"{recover_s:.3f} s (restore + 1 replayed chunk), fallback "
+        f"recover() {fallback_s:.3f} s (epoch {fb_info['epoch']} + "
+        f"{fb_info['replayed_chunks']} chunk); journal append "
+        f"{res['journal_append_ms']:.3f} ms per {b}-change chunk "
+        f"({n_appends} appends); {journaled_us:.1f} us/change journaled"
+        + (f" against {plain_us:.1f} not journaled (chunks alternating: "
+           + ", ".join(f"{x:.2f}/{y:.2f}" for x, y in zip(step_s, plain_s))
+           + " s; the two runs bitwise equal)" if twin else "")
+        + f" and phase 3's {phase3_us:.1f} over the same changes; probe "
+        f"launches {launches_a} (run A{' and its twin' if twin else ''}), "
+        f"{launches_b} (recovery + rest)")
+    return res
+
+
+def sharded_checkpoint(ss, stream, seed: int) -> dict:
+    """Phase 14(a): one ``save()`` of phase 11's live 4 x ``full_config()``
+    summarizer, restored into a fresh ``ShardedSummarizer(full_config(),
+    n_shards=4)``: every replica and intern leaf equal on the card, the
+    hash -> label map, ``stats()`` and a query snapshot's degree /
+    has_edge / neighbors reads equal.  Save and restore seconds, bytes,
+    and the free disk before the save."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.core.engine import ShardedSummarizer
+    from repro_torch.core.engine.hashtable import HashTable
+    from repro_torch.kernels import ops
+
+    root = CKPT_ROOT / "sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CKPT_ROOT).free
+    log(f"sharded checkpoint: free disk before the save {free / 2**30:.1f} "
+        f"GiB under {CKPT_ROOT}")
+    try:
+        checkpointer.save_seconds.clear()
+        t = time.perf_counter()
+        path = ss.save(str(root))
+        save_s = time.perf_counter() - t
+        parts = dict(checkpointer.save_seconds)
+        n_bytes = _dir_bytes(path)
+        fresh = ShardedSummarizer(full_config(), device="cuda",
+                                  n_shards=ss.n_shards,
+                                  router_chunk=ss.router_chunk)
+        ops.reset_counts()
+        t = time.perf_counter()
+        info = fresh.restore(str(root))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for what, xs, ys in (("replica", ss.states, fresh.states),
+                         ("intern", ss.interns, fresh.interns)):
+        for r, (x, y) in enumerate(zip(xs, ys)):
+            for f in dataclasses.fields(x):
+                u, v = getattr(x, f.name), getattr(y, f.name)
+                pairs = ([(getattr(u, w), getattr(v, w))
+                          for w in ("k1", "k2", "val")]
+                         if isinstance(u, HashTable) else [(u, v)])
+                for p, q in pairs:
+                    if not (p.dtype == q.dtype and p.device == q.device
+                            and torch.equal(p, q)):
+                        raise AssertionError(f"{what} {r} leaf {f.name} "
+                                             f"differs after restore")
+    if fresh.host_label_map() != ss.host_label_map():
+        raise AssertionError("restored hash -> label map differs")
+    if _stats(fresh) != _stats(ss):
+        raise AssertionError(f"stats: {fresh.stats()} != {ss.stats()}")
+    labels, pairs = _read_sample(stream, seed)
+    view = ss.query()
+    want = _read_all(view, labels, pairs)
+    del view
+    ops.reset_counts()
+    view = fresh.query()
+    got = _read_all(view, labels, pairs)
+    del view
+    if got != want:
+        raise AssertionError("reads of the restored summarizer differ")
+    if ops.ht_probe.launches == 0:
+        raise AssertionError("the restored reads launched no probe kernel")
+    res = dict(save_s=save_s, save_parts=parts, bytes=n_bytes,
+               restore_s=restore_s, free_bytes=free, epoch=info["epoch"],
+               read_probe_launches=ops.ht_probe.launches)
+    del fresh
+    torch.cuda.empty_cache()
+    log(f"sharded checkpoint: save() {save_s:.3f} s (host copy "
+        f"{parts['host_copy']:.3f}, np.savez {parts['savez']:.3f}, fsync "
+        f"{parts['fsync']:.3f}, sha256 {parts['sha256']:.3f}, host.pkl "
+        f"{parts['blobs']:.3f}, meta + rename {parts['meta']:.3f}); "
+        f"{n_bytes} bytes ({n_bytes / 2**30:.3f} GiB); restore() "
+        f"{restore_s:.3f} s into a fresh 4-shard summarizer: every replica "
+        f"and intern leaf, the label map, stats() and {len(labels)} degree "
+        f"/ {len(pairs)} has_edge / {len(labels)} neighbors reads equal")
+    return res
+
+
+def sharded_kill_bar(seed: int) -> dict:
+    """Phase 14(b): ``smoke_config()``, 3 shards, ``router_chunk`` 32,
+    device routing, on the card and on the CPU: killed at every chunk
+    boundary (checkpoint every 2 chunks) and recovered by a fresh
+    summarizer, then continued; every leaf, the host closure and
+    ``stats()`` equal the uninterrupted run's, and the card's equal the
+    CPU's."""
+    import shutil
+    import numpy as np
+    from repro_torch.configs.mosso_stream import smoke_config
+    from repro_torch.core.engine import ShardedSummarizer
+    from repro_torch.ft import inject
+    from repro_torch.graph.streams import (barabasi_albert_edges,
+                                           edges_to_fully_dynamic_stream)
+    from repro_torch.kernels import ops
+
+    cfg = smoke_config()
+    chunk = 32
+    stream = edges_to_fully_dynamic_stream(
+        barabasi_albert_edges(40, 3, seed), delete_prob=0.15, seed=seed + 1)
+    n_chunks = -(-len(stream) // chunk)
+    root = CKPT_ROOT / "kill_bar"
+
+    def make(dev, d=None):
+        return ShardedSummarizer(cfg, device=dev, n_shards=3,
+                                 router_chunk=chunk, checkpoint_dir=d)
+
+    def closure(summ):
+        summ.flush()
+        host = dict(summ._ckpt_host())
+        host["drain_rounds"] = np.asarray(host["drain_rounds"]).tolist()
+        return _flat(summ), host, _stats(summ)
+
+    out = {}
+    try:
+        finals = {}
+        for dev in ("cuda", "cpu"):
+            ref = make(dev)
+            ref.process(stream)
+            want = finals[dev] = closure(ref)
+            ops.reset_counts()
+            t = time.perf_counter()
+            for k in range(n_chunks + 1):
+                d = str(root / f"{dev}{k}")
+                try:
+                    inject.drive(make(dev, d), stream, ckpt_every=2,
+                                 kill_at_chunk=k)
+                    raise AssertionError("the kill point was never reached")
+                except inject.SimulatedCrash:
+                    pass
+                rec = make(dev, d)
+                rec.recover()
+                if rec.stream_cursor != min(k * chunk, len(stream)):
+                    raise AssertionError(f"{dev} kill {k}: cursor "
+                                         f"{rec.stream_cursor}")
+                inject.drive(rec, stream, start=rec.stream_cursor)
+                got = closure(rec)
+                _check_flat(got[0], want[0], f"{dev} kill {k}")
+                if got[1:] != want[1:]:
+                    raise AssertionError(f"{dev} kill {k}: host closure or "
+                                         f"stats differ")
+            out[dev] = dict(kills=n_chunks + 1,
+                            seconds=time.perf_counter() - t,
+                            probe_launches=ops.ht_probe.launches)
+        if out["cuda"]["probe_launches"] == 0:
+            raise AssertionError("the card's recoveries launched no probe")
+        _check_flat(finals["cuda"][0], finals["cpu"][0], "card vs cpu")
+        if finals["cuda"][1:] != finals["cpu"][1:]:
+            raise AssertionError("card vs cpu: host closure or stats differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"sharded kill bar: smoke_config, 3 shards, {len(stream)} changes "
+        f"in {n_chunks} chunks of {chunk}; killed at each of "
+        f"{n_chunks + 1} boundaries and recovered, every leaf, the host "
+        f"closure and stats() bitwise the uninterrupted run's, on the card "
+        f"({out['cuda']['seconds']:.1f} s, {out['cuda']['probe_launches']} "
+        f"probe launches) and on the CPU ({out['cpu']['seconds']:.1f} s); "
+        f"card == cpu")
+    return out
+
+
+def summarize_stream_driver() -> dict:
+    """Phase 14(c): ``python -m repro_torch.launch.summarize_stream`` on
+    the card at 60 nodes, ``router_chunk`` 64 (4 chunks, killed at
+    boundary 3): kill, recover, identical reads, bitwise continuation, by
+    its own assertions."""
+    import os
+    import shutil
+    d = CKPT_ROOT / "summarize_stream"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.summarize_stream",
+             "60", "--router-chunk", "64", "--checkpoint-dir", str(d)],
+            env=env,
+            capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    seconds = time.perf_counter() - t
+    for line in proc.stdout.strip().splitlines():
+        log(f"  summarize_stream: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"summarize_stream exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    if "crash-recover verified: bitwise state match" not in proc.stdout:
+        raise AssertionError("summarize_stream did not verify its recovery")
+    log(f"summarize_stream on the card: exit 0 in {seconds:.1f} s")
+    return dict(seconds=seconds, stdout=proc.stdout)
 
 
 
@@ -1852,10 +2301,20 @@ def main() -> int:
     # 11. the sharded summarizer at full width over the phase-3 stream
     # (counts set to 0 inside, just before it); 12. the router's paths,
     # card vs CPU, and the serve loop
-    sharded = sharded_path(NODES, 4, seed)
+    sharded, ss, sharded_stream = sharded_path(NODES, 4, seed)
+    # 14(a). phase 11's live summarizer saved and restored bitwise
+    sharded_ckpt = sharded_checkpoint(ss, sharded_stream, seed)
+    del ss
+    torch.cuda.empty_cache()
     #     the probe kernel at phase 11's shapes on full-size intern tables
     max_err = max(max_err, intern_vs_plain(sharded, gen))
     router_paths = sharded_router_paths(seed)
+    # 13. batched crash consistency at full width (counts set to 0 inside,
+    # just before each run); 14(b). the kill-at-every-boundary bar, card
+    # and CPU; 14(c). the recovering stream driver
+    recovery = batched_recovery(stream, path_res["step_s"], seed)
+    kill_bar = sharded_kill_bar(seed)
+    driver = summarize_stream_driver()
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -1867,7 +2326,9 @@ def main() -> int:
         csr_rows=csr_rows, graphsage=sage, smoke_archs=archs,
         attention_rows=attn_rows, lm_card_vs_cpu=lm_a, lm_prefill=lm_b,
         lm_serve=lm_c, lm_smoke_archs=lm_d, sharded=sharded,
-        sharded_router_paths=router_paths), indent=1))
+        sharded_router_paths=router_paths, batched_recovery=recovery,
+        sharded_checkpoint=sharded_ckpt, sharded_kill_bar=kill_bar,
+        summarize_stream=driver), indent=1))
 
     entry = dict(name="ht_probe", route="cuda",
                  source="src/repro_torch/csrc/ht_probe.cu",
@@ -1881,7 +2342,9 @@ def main() -> int:
                  jobs=path_res["probe_jobs"],
                  sharded_launches=sharded["probe_launches"],
                  sharded_jobs=sharded["probe_jobs"],
-                 sharded_max_lanes_per_job=sharded["max_lanes_per_job"])
+                 sharded_max_lanes_per_job=sharded["max_lanes_per_job"],
+                 recovery_launches=recovery["recovery_probe_launches"],
+                 sharded_recovery_launches=kill_bar["cuda"]["probe_launches"])
     k = sage["kernel"]
     csr_entry = dict(name="csr_segment", route="cuda",
                      source="src/repro_torch/csrc/csr_segment.cu",

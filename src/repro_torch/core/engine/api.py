@@ -4,8 +4,9 @@ Port of ``repro/core/engine/api.py``: :class:`BatchedSummarizer` (one
 engine), :class:`ShardedSummarizer` (``n_shards`` engine replicas on one
 device, edge-partitioned by label hash) and the state-level exports
 (:func:`state_live_edges`, :func:`state_materialize`,
-:func:`state_phi_recomputed`).  Crash consistency (checkpoints and the
-write-ahead journal) is not ported yet.
+:func:`state_phi_recomputed`), and both tiers' crash consistency: epoch
+checkpoints and the write-ahead chunk journal (``checkpoint_dir``,
+``save``/``restore``/``recover``, :mod:`repro_torch.checkpoint`).
 """
 from __future__ import annotations
 
@@ -15,10 +16,12 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.engine.hashtable import TOMB, ht_rebuild
+from repro_torch.checkpoint import summary as ckpt
+from repro_torch.checkpoint.journal import ChunkJournal
+from repro_torch.core.engine.hashtable import TOMB, HashTable, ht_rebuild
 from repro_torch.core.engine.state import (EngineConfig, EngineState,
                                            copy_state, new_state,
-                                           state_to_numpy)
+                                           state_from_numpy, state_to_numpy)
 from repro_torch.core.engine.trial import step_fn
 from repro_torch.core.summary import (ShardedSummaryOutput, SummaryOutput,
                                       encoding_cost, host_node_weight,
@@ -151,11 +154,133 @@ def state_phi_recomputed(state: EngineState,
 
 
 # --------------------------------------------------------------------------- #
+# crash consistency (shared by both front-ends)
+# --------------------------------------------------------------------------- #
+
+
+def _probe_backend(device: torch.device) -> str:
+    """The probe route a device's state takes: the CUDA kernel or its
+    plain version (recorded in a checkpoint's manifest, not pinned)."""
+    return "cuda" if device.type == "cuda" else "plain"
+
+
+def _numpy_tree(leaves: dict) -> dict:
+    """Numpy leaves from ``state_to_numpy`` / ``sharded_state_to_numpy``
+    with each table as a ``HashTable`` node, so that it flattens to the
+    JAX package's archive keys (``adj/.k1``, ...)."""
+    return {k: HashTable(**v) if isinstance(v, dict) else v
+            for k, v in leaves.items()}
+
+
+def _like_tree(st, stack: Optional[int] = None) -> dict:
+    """Shapes and dtypes of a state's leaves as meta tensors (no copy,
+    no memory), with a leading ``[stack]`` axis when given: the restore's
+    ``like`` tree."""
+    def meta(t: torch.Tensor) -> torch.Tensor:
+        shape = tuple(t.shape) if stack is None else (stack, *t.shape)
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+    out = {}
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        out[f.name] = (HashTable(meta(v.k1), meta(v.k2), meta(v.val))
+                       if isinstance(v, HashTable) else meta(v))
+    return out
+
+
+class _CrashConsistency:
+    """Epoch checkpoints + write-ahead chunk journal for a summarizer.
+
+    Port of the JAX package's mixin.  Both front-ends dispatch the stream
+    in fixed-size chunks (``dispatch_chunk``), and chunk boundaries fully
+    determine padding and the engine-round/PRNG schedule — so a run is
+    reconstructible bitwise from (checkpoint at epoch E) + (the exact
+    chunk slices dispatched after E):
+
+    * with ``checkpoint_dir`` set, every chunk is durably journaled
+      (:class:`~repro_torch.checkpoint.journal.ChunkJournal`) **before**
+      it is dispatched; without it the hook only counts (no I/O, no sync,
+      no device work);
+    * ``save()`` writes the full recovery closure at a flushed epoch and
+      compacts the journal; ``restore()`` loads the newest checkpoint
+      that passes its checksums (refusing config mismatches);
+    * ``recover()`` = restore + deterministic journal-tail replay.
+
+    ``stream_cursor`` counts stream changes applied so far — a driver
+    resumes feeding from there after ``recover()``.  ``_incarnation``
+    bumps on every restore so pinned query views fail loudly instead of
+    resolving labels against a state they were not snapshotted from.
+    """
+
+    def _init_crash_consistency(self, checkpoint_dir: Optional[str]) -> None:
+        self._ckpt_dir = checkpoint_dir
+        self._journal = None        # lazily opened ChunkJournal
+        self._journal_seq = 0       # chunks dispatched (journal record seq)
+        self._cursor = 0            # stream changes applied
+        self._replaying = False     # recovery replay: don't re-journal
+        self._recovered = False     # this instance resumed an old directory
+        self.stream_retries = 0     # recoveries performed by a retry driver
+        self._incarnation = 0       # bumps per restore; query views pin it
+
+    @property
+    def stream_cursor(self) -> int:
+        """Stream changes applied (journaled-and-dispatched) so far."""
+        return self._cursor
+
+    def _journal_chunk(self, chunk) -> None:
+        """WAL append for one dispatch chunk; seq advances regardless of
+        whether journaling is enabled so save/restore counters line up."""
+        seq = self._journal_seq
+        self._journal_seq += 1
+        if self._ckpt_dir is None or self._replaying:
+            return
+        if self._journal is None:
+            self._journal = ChunkJournal(ckpt.journal_path(self._ckpt_dir))
+            if seq == 0 and not self._recovered:
+                self._journal.reset()   # fresh stream into an old directory
+        self._journal.append(seq, chunk)
+
+    def _replay_chunk(self, changes) -> None:
+        """Re-dispatch one journaled chunk during recovery (no re-append):
+        each record is one original dispatch slice, so replaying it as its
+        own ``process`` call reproduces the original padding and
+        engine-round schedule exactly."""
+        self._replaying = True
+        try:
+            self.process(changes)
+        finally:
+            self._replaying = False
+
+    def _require_ckpt_dir(self, ckpt_dir: Optional[str]) -> str:
+        d = ckpt_dir or self._ckpt_dir
+        if d is None:
+            raise ValueError(
+                "no checkpoint directory: pass one explicitly or construct "
+                "the summarizer with checkpoint_dir=...")
+        return d
+
+    def save(self, ckpt_dir: Optional[str] = None) -> str:
+        """Checkpoint the full recovery closure at a flushed epoch."""
+        return ckpt.save_summarizer(self, self._require_ckpt_dir(ckpt_dir))
+
+    def restore(self, ckpt_dir: Optional[str] = None,
+                step: Optional[int] = None) -> dict:
+        """Load the newest verifiable checkpoint (or ``step``) into this
+        summarizer; raises on config mismatch, falls back across corrupt
+        epochs."""
+        return ckpt.restore_summarizer(self, self._require_ckpt_dir(ckpt_dir),
+                                       step=step)
+
+    def recover(self, ckpt_dir: Optional[str] = None) -> dict:
+        """Crash recovery: restore last valid epoch + replay journal tail."""
+        return ckpt.recover_summarizer(self, self._require_ckpt_dir(ckpt_dir))
+
+
+# --------------------------------------------------------------------------- #
 # single-engine front-end
 # --------------------------------------------------------------------------- #
 
 
-class BatchedSummarizer:
+class BatchedSummarizer(_CrashConsistency):
     """Feed a fully dynamic graph stream through the engine step.
 
     **Id space.** ``process``/``run`` intern arbitrary hashable labels
@@ -166,10 +291,15 @@ class BatchedSummarizer:
     **Device.** The state lives on ``device`` (default ``"cuda"``); the
     table probes run the CUDA kernel there.  With no CUDA device visible
     the constructor raises unless ``device="cpu"`` is passed.
+
+    **Crash consistency.**  With ``checkpoint_dir`` every ``batch`` slice
+    is journaled before it is interned and stepped; ``save()`` /
+    ``restore()`` / ``recover()`` as in :class:`_CrashConsistency`, in
+    the JAX package's on-disk format.
     """
 
     def __init__(self, cfg: EngineConfig | None = None, *, device="cuda",
-                 **overrides) -> None:
+                 checkpoint_dir: Optional[str] = None, **overrides) -> None:
         if cfg is None:
             cfg = EngineConfig(**overrides)
         elif overrides:
@@ -180,6 +310,7 @@ class BatchedSummarizer:
         self._ids: Dict[object, int] = {}
         self._rev: List[object] = []
         self._epoch = 0             # engine steps applied so far
+        self._init_crash_consistency(checkpoint_dir)
 
     # ------------------------------------------------------------------ ids
     def _nid(self, label: object) -> int:
@@ -194,11 +325,20 @@ class BatchedSummarizer:
         return i
 
     # --------------------------------------------------------------- stream
+    @property
+    def dispatch_chunk(self) -> int:
+        """Stream slice size per journaled dispatch (= ``cfg.batch``)."""
+        return self.cfg.batch
+
     def process(self, changes: Sequence[Change]) -> None:
         b = self.cfg.batch
         changes = list(changes)
+        # each batch slice is journaled, then interned and stepped on its
+        # own, so a journal replay of the same slices reproduces the
+        # interning order, padding and PRNG schedule exactly
         for off in range(0, len(changes), b):
             sl = changes[off:off + b]
+            self._journal_chunk(sl)
             buf = [(self._nid(u), self._nid(v), ins) for (u, v, ins) in sl]
             pad = b - len(buf)
             u = np.array([c[0] for c in buf] + [-1] * pad, np.int32)
@@ -206,6 +346,7 @@ class BatchedSummarizer:
             ins = np.array([c[2] for c in buf] + [False] * pad, bool)
             step_fn(self.state, u, v, ins, self.cfg)
             self._epoch += 1
+            self._cursor += len(sl)
 
     def run(self, stream: Iterable[Change]) -> "BatchedSummarizer":
         self.process(list(stream))
@@ -269,7 +410,42 @@ class BatchedSummarizer:
         s = self.state
         return dict(phi=int(s.phi), num_edges=int(s.num_edges),
                     trials=int(s.n_trials), accepted=int(s.n_accept),
-                    skipped=int(s.n_skipped))
+                    skipped=int(s.n_skipped),
+                    stream_retries=self.stream_retries)
+
+    # ----------------------------------------------------- recovery closure
+    def _ckpt_tree(self) -> dict:
+        """The state as host numpy copies (the engine writes in place; on
+        the CPU ``.numpy()`` alone would share the live memory)."""
+        return {"est": _numpy_tree(state_to_numpy(
+            copy_state(self.state, "cpu")))}
+
+    def _ckpt_like(self) -> dict:
+        return {"est": _like_tree(self.state)}
+
+    def _ckpt_host(self) -> dict:
+        return {"ids": dict(self._ids), "rev": list(self._rev)}
+
+    def _ckpt_manifest(self) -> dict:
+        return {"tier": "batched", "config": self.cfg.manifest(),
+                "trial_backend": _probe_backend(self.device)}
+
+    @staticmethod
+    def _ckpt_pins() -> tuple:
+        # the probe route is a bitwise-identical execution variant:
+        # recorded, not pinned
+        return ("tier", "config")
+
+    def _ckpt_apply(self, tree: dict, host: dict, extra: dict) -> None:
+        # fresh tensors: a live query view may still hold the old ones
+        self.state = state_from_numpy(tree["est"], self.device)
+        self._ids = dict(host["ids"])
+        self._rev = list(host["rev"])
+        self._epoch = int(extra["epoch"])
+        self._journal_seq = int(extra["journal_seq"])
+        self._cursor = int(extra["cursor"])
+        self._recovered = True
+        self._incarnation += 1
 
     # ------------------------------------------------------------ materialize
     def live_edges(self) -> Set[Tuple[int, int]]:
@@ -306,7 +482,7 @@ def _dropped(interns) -> int:
     return int(torch.stack([i.n_dropped for i in interns]).sum())
 
 
-class ShardedSummarizer:
+class ShardedSummarizer(_CrashConsistency):
     """Edge-partitioned summarization: ``n_shards`` engine replicas on one
     device.
 
@@ -351,8 +527,13 @@ class ShardedSummarizer:
     **Device.**  The replicas live on ``device`` (default ``"cuda"``);
     every table probe, the intern pre-lookups and inserts included, runs
     the probe kernel there.  With no CUDA device visible the constructor
-    raises unless ``device="cpu"`` is passed.  Crash consistency
-    (``checkpoint_dir``) is not ported yet.
+    raises unless ``device="cpu"`` is passed.
+
+    **Crash consistency.**  With ``checkpoint_dir`` every ``router_chunk``
+    slice is journaled before it is routed; ``save()`` flushes the
+    pipeline and writes the replicas, the interns, the drain telemetry and
+    the folded hash -> label map in the JAX package's stacked layout and
+    on-disk format (:class:`_CrashConsistency`).
     """
 
     def __init__(self, cfg: EngineConfig | None = None, *, device="cuda",
@@ -360,7 +541,8 @@ class ShardedSummarizer:
                  router_chunk: int = 1024, lane_cap: Optional[int] = None,
                  max_drain_rounds: Optional[int] = None,
                  chunk_sync: bool = False, pipeline: bool = True,
-                 replica_exec: Optional[str] = None, **overrides) -> None:
+                 replica_exec: Optional[str] = None,
+                 checkpoint_dir: Optional[str] = None, **overrides) -> None:
         if cfg is None:
             cfg = EngineConfig(**overrides)
         elif overrides:
@@ -405,6 +587,7 @@ class ShardedSummarizer:
         self.pipeline = bool(pipeline) and self.sync_free
         self._pending = None        # routed chunk awaiting its engine stage
         self._epoch = 0             # engine stages applied to the replicas
+        self._init_crash_consistency(checkpoint_dir)
 
         self.states: List[EngineState] = []
         for s in range(self.n_shards):
@@ -548,12 +731,19 @@ class ShardedSummarizer:
         try:
             for off in range(0, len(changes), self.router_chunk):
                 chunk = changes[off:off + self.router_chunk]
+                self._journal_chunk(chunk)      # durable BEFORE dispatch
                 if self.routing == "device":
                     self._process_chunk_device(chunk)
                 else:
                     self._process_chunk_host(chunk)
+                self._cursor += len(chunk)
         finally:
             self._in_dispatch = False
+
+    @property
+    def dispatch_chunk(self) -> int:
+        """Stream slice size per journaled dispatch (= ``router_chunk``)."""
+        return self.router_chunk
 
     def _process_chunk_host(self, chunk: Sequence[Change]) -> None:
         """Host routing: bucket hashed changes per shard (stable, stream
@@ -733,7 +923,73 @@ class ShardedSummarizer:
                     router_syncs=self.router_syncs,
                     router_host_dict_ops=self._host_dict_ops,
                     router_sync_free=self.sync_free,
-                    router_pipelined=self.pipeline)
+                    router_pipelined=self.pipeline,
+                    # recoveries performed by a retry driver on this live
+                    # object; not part of the checkpoint closure
+                    stream_retries=self.stream_retries)
+
+    # ----------------------------------------------------- recovery closure
+    def _ckpt_tree(self) -> dict:
+        """Replicas and interns as host numpy copies (``np.stack``
+        copies) in the JAX package's stacked ``[R, ...]`` layout."""
+        est, ist = router.sharded_state_to_numpy(self.states, self.interns)
+        return {"est": _numpy_tree(est), "ist": _numpy_tree(ist)}
+
+    def _ckpt_like(self) -> dict:
+        n = self.n_shards
+        return {"est": _like_tree(self.states[0], n),
+                "ist": _like_tree(self.interns[0], n)}
+
+    def _ckpt_host(self) -> dict:
+        # host_label_map() drains the pipeline and folds the lazy label
+        # buffer, so the map alone carries label recovery
+        return {"h2label": dict(self.host_label_map()),
+                "drain_rounds": self._drain_rounds.cpu().numpy().copy(),
+                "router_overflows": self.router_overflows,
+                "router_syncs": self.router_syncs,
+                "host_dict_ops": self._host_dict_ops}
+
+    def _ckpt_manifest(self) -> dict:
+        # the drain geometry shapes the PRNG schedule only when delivery is
+        # not statically guaranteed; pinned only then
+        guaranteed = (bool(self.router_geometry.drain_guaranteed)
+                      if self.router_geometry is not None else True)
+        return {"tier": "sharded", "config": self.cfg.manifest(),
+                "n_shards": self.n_shards,
+                "router_chunk": self.router_chunk,
+                "drain_geometry": (None if guaranteed else
+                                   [self.lane_cap, self.max_drain_rounds]),
+                "routing": self.routing,
+                "replica_exec": self.replica_exec,
+                "trial_backend": _probe_backend(self.device),
+                "n_devices": 1}
+
+    @staticmethod
+    def _ckpt_pins() -> tuple:
+        # routing / replica_exec / the probe route / n_devices are
+        # bitwise-identical execution variants: recorded, not pinned
+        return ("tier", "config", "n_shards", "router_chunk",
+                "drain_geometry")
+
+    def _ckpt_apply(self, tree: dict, host: dict, extra: dict) -> None:
+        # fresh tensors: a live query view may still hold the old ones
+        self.states, self.interns = router.sharded_state_from_numpy(
+            tree["est"], tree["ist"], self.device)
+        self._drain_rounds = router.drain_telemetry_restore(
+            host["drain_rounds"], 1, self.device)
+        self._h2label = dict(host["h2label"])
+        self._label_buf = []
+        self._label_head = None
+        self.router_overflows = int(host["router_overflows"])
+        self.router_syncs = int(host["router_syncs"])
+        self._host_dict_ops = int(host["host_dict_ops"])
+        self._pending = None
+        self._host_cache = None
+        self._epoch = int(extra["epoch"])
+        self._journal_seq = int(extra["journal_seq"])
+        self._cursor = int(extra["cursor"])
+        self._recovered = True
+        self._incarnation += 1
 
     # ------------------------------------------------------------ materialize
     def live_edges(self) -> Set[Tuple[object, object]]:

@@ -9,12 +9,24 @@ report phi, the compression ratio (Eq. 3) and the time per change.  The
 search and batch defaults come from the port's ``EngineConfig``.
 ``--device`` picks where the engine runs (default ``cuda``).
 
+With ``--checkpoint-dir`` both engines run crash-consistent: every
+dispatch chunk is write-ahead journaled, an epoch checkpoint lands every
+``--checkpoint-every`` chunks, and a failed chunk abandons the live
+summarizer, restores the latest valid epoch, replays the journal tail and
+resumes (``repro_torch.ft.resilience.run_stream_with_recovery``; retries
+are reported as ``stream_retries`` in the final stats).  ``--resume``
+recovers from the directory before processing, so a killed run continues
+from its last journaled chunk.  The directory's format is the JAX
+package's: either CLI resumes the other's.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stream --batch 64
   PYTHONPATH=src python -m repro_torch.launch.stream --device cpu \
       --nodes 200 --fully-dynamic
   PYTHONPATH=src python -m repro_torch.launch.stream --engine sharded \
       --shards 4 --routing device --router-chunk 1024
+  PYTHONPATH=src python -m repro_torch.launch.stream --engine sharded \
+      --checkpoint-dir build/mosso-ckpt --checkpoint-every 8 --resume
 """
 from __future__ import annotations
 
@@ -27,6 +39,7 @@ from repro_torch.core.engine import (BatchedSummarizer, EngineConfig,
                                     ShardedSummarizer)
 from repro_torch.core.engine.state import OBJECTIVES, PROPOSALS
 from repro_torch.dist.router import DEFAULT_REPLICA_EXEC, REPLICA_EXEC_MODES
+from repro_torch.ft.resilience import run_stream_with_recovery
 from repro_torch.graph.streams import (barabasi_albert_edges,
                                        copying_model_edges,
                                        edges_to_fully_dynamic_stream,
@@ -88,6 +101,19 @@ def main(argv=None) -> None:
     ap.add_argument("--weight-levels", type=int, default=dflt.weight_levels,
                     help="weighted objective: node weights 1 + hash % N "
                          "(0/1 = uniform)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="crash-consistent mode: write-ahead journal every "
+                         "dispatch chunk and checkpoint epochs into this "
+                         "directory")
+    ap.add_argument("--checkpoint-every", type=int, default=16,
+                    help="chunks between epoch checkpoints "
+                         "(with --checkpoint-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="recover from --checkpoint-dir (last valid epoch "
+                         "+ journal replay) before processing")
+    ap.add_argument("--max-failures", type=int, default=3,
+                    help="failed chunks tolerated before giving up "
+                         "(with --checkpoint-dir)")
     args = ap.parse_args(argv)
 
     stream = make_stream(args.graph, args.nodes, args.deg, args.beta,
@@ -99,24 +125,37 @@ def main(argv=None) -> None:
         n_cap=n_cap, m_cap=m_cap, c=args.c, escape=args.escape,
         batch=args.batch, proposal=args.proposal, objective=args.objective,
         weight_levels=args.weight_levels)
-    if args.engine == "batched":
-        bs = BatchedSummarizer(cfg, device=args.device)
-    else:
+
+    def make_summarizer():
+        if args.engine == "batched":
+            return BatchedSummarizer(cfg, device=args.device,
+                                     checkpoint_dir=args.checkpoint_dir)
         # per-shard caps: a vertex cut replicates nodes over shards, so
         # n_cap budgets more than |V| / n_shards
-        bs = ShardedSummarizer(
+        return ShardedSummarizer(
             cfg, device=args.device, n_shards=args.shards,
             routing=args.routing, router_chunk=args.router_chunk,
             lane_cap=args.lane_cap, max_drain_rounds=args.max_drain_rounds,
             chunk_sync=args.chunk_sync, pipeline=not args.no_pipeline,
-            replica_exec=args.replica_exec)
-        if args.routing == "device":
+            replica_exec=args.replica_exec,
+            checkpoint_dir=args.checkpoint_dir)
+
+    if args.checkpoint_dir:
+        # the summarizers are built (and rebuilt after a fault) inside
+        t0 = time.perf_counter()
+        bs = run_stream_with_recovery(
+            make_summarizer, stream, args.checkpoint_dir,
+            ckpt_every=args.checkpoint_every, resume=args.resume,
+            max_failures=args.max_failures)
+    else:
+        bs = make_summarizer()
+        if args.engine == "sharded" and args.routing == "device":
             print(f"router: lane_cap={bs.lane_cap} "
                   f"max_drain_rounds={bs.max_drain_rounds} "
                   f"sync_free={bs.sync_free} pipeline={bs.pipeline} "
                   f"replica_exec={bs.replica_exec}")
-    t0 = time.perf_counter()
-    bs.run(stream)
+        t0 = time.perf_counter()
+        bs.run(stream)
     bs.flush()
     el = time.perf_counter() - t0
     device = bs.device

@@ -23,7 +23,9 @@ can hold it).
 
 **Snapshots.**  The engine updates its tensors in place, so both views
 copy the state when they are created: their answers stay those of
-``view.epoch`` while the summarizer goes on.
+``view.epoch`` while the summarizer goes on.  A checkpoint ``restore()``
+(or ``recover()``) on the summarizer fences every view taken before it:
+their reads raise ``RuntimeError``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -149,12 +151,27 @@ class SummaryQuery:
         self._rev = summarizer._rev
         self._n_seen = len(summarizer._rev)
         self.epoch = summarizer.flush_epoch
+        self._summ = summarizer
+        self._inc = summarizer._incarnation  # restore fences this view
+
+    def _check_pin(self) -> None:
+        """A checkpoint ``restore()`` rewinds the summarizer to a different
+        epoch lineage and replaces its label maps; a view pinned before the
+        restore would resolve labels against state it was never snapshotted
+        from.  Fail loudly instead — take a fresh ``query()`` view."""
+        if self._summ._incarnation != self._inc:
+            raise RuntimeError(
+                f"query view pinned at epoch {self.epoch} predates a "
+                f"checkpoint restore on this summarizer; take a fresh "
+                f"view with .query()")
 
     def seen_labels(self) -> List[object]:
         """Labels interned at snapshot time, in encounter order."""
+        self._check_pin()
         return list(self._rev[:self._n_seen])
 
     def _nids(self, labels: Sequence[object]) -> np.ndarray:
+        self._check_pin()
         out = np.empty(len(labels), np.int32)
         for i, lab in enumerate(labels):
             nid = self._ids.get(lab)
@@ -238,13 +255,20 @@ class ShardedSummaryQuery:
         self._intern_host = None
         self.epoch = summarizer.flush_epoch
         self.n_shards = summarizer.n_shards
+        self._inc = summarizer._incarnation  # restore fences this view
 
     # ------------------------------------------------------------- id space
+    # the restore fence: this view resolves nids through the summarizer's
+    # live hash -> label map, which a restore replaces with another
+    # lineage's
+    _check_pin = SummaryQuery._check_pin
+
     def _resolve(self, labels: Sequence[object],
                  ) -> Tuple[torch.Tensor, np.ndarray]:
         """``(nid, found)`` per shard and label: nids as an ``[R, Q]``
         device tensor (``Q`` padded to a power of two), ``found`` on the
         host; raises ``LookupError`` for a label no shard has seen."""
+        self._check_pin()
         hi, lo = labelhash.hash_words(list(labels))
         dev = self._est[0].device
         nid, found = _intern_resolve(
@@ -274,6 +298,7 @@ class ShardedSummaryQuery:
     def _rev(self, shard: int) -> List[object]:
         """nid -> caller label for one shard, from the snapshot's intern."""
         if shard not in self._rev_cache:
+            self._check_pin()
             l2h, n_nodes = self._snapshot_intern()
             rows = l2h[shard][:n_nodes[shard]]
             self._summ._fold_labels()   # append-only superset map: safe

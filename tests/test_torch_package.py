@@ -33,6 +33,10 @@ def test_port_imports_nothing_of_jax_or_repro():
     assert "repro_torch.dist.labelhash" in names
     assert "repro_torch.dist.router" in names
     assert "repro_torch.launch.serve_summary" in names
+    for name in ("checkpoint", "checkpoint.checkpointer", "checkpoint.journal",
+                 "checkpoint.summary", "ft", "ft.inject", "ft.resilience",
+                 "launch.summarize_stream"):
+        assert f"repro_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -74,6 +78,25 @@ def test_lm_entry_points_raise_without_a_card_unless_asked_for_the_cpu():
     proc = _run(code, env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["raised", "raised"]
+
+
+def test_recovery_entry_points_raise_without_a_card_unless_asked_for_the_cpu(
+        tmp_path):
+    code = ("from repro_torch.launch.summarize_stream import main\n"
+            "from repro_torch.launch.stream import main as stream\n"
+            f"d = {str(tmp_path)!r}\n"
+            "for fn in (lambda: main(['40']),\n"
+            "           lambda: stream(['--checkpoint-dir', d]),\n"
+            "           lambda: stream(['--checkpoint-dir', d, '--engine',\n"
+            "                           'sharded', '--resume'])):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as e:\n"
+            "        assert \"device='cpu'\" in str(e), e\n"
+            "        print('raised')\n")
+    proc = _run(code, env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split().count("raised") == 3
 
 
 def test_stream_cli_runs_on_the_cpu():

@@ -6,7 +6,7 @@ and ``repro.core.engine.ShardedSummarizer`` on one device: the same
 stream, the same ``process`` calls, and after EVERY call the stacked
 ``EngineState`` and ``InternState`` leaves bitwise equal (through
 ``sharded_state_to_numpy``) and ``flush_epoch`` equal; at the end
-``stats()`` (less ``stream_retries``), ``materialize()`` part by part,
+``stats()``, ``materialize()`` part by part,
 ``phi == phi_recomputed()`` and ``live_edges()`` against the stream's live
 set.  The JAX side runs ``trial_backend="xla"`` (leaf-bitwise equal to
 ``"pallas"`` by its own contract) and ``replica_exec="map"``.  Tolerance:
@@ -72,9 +72,7 @@ def assert_replicas_equal(p: ShardedSummarizer, j, tag: str) -> None:
 def assert_outputs_equal(p: ShardedSummarizer, j, live, tag: str) -> None:
     """``stats()``, ``materialize()`` part by part, the phi fold and the
     live edge set, after the last call."""
-    want = j.stats()
-    want.pop("stream_retries")
-    assert p.stats() == want, tag
+    assert p.stats() == j.stats(), tag
     got, ref = p.materialize().validate(), j.materialize().validate()
     assert len(got.shards) == len(ref.shards)
     for a, b in zip(got.shards, ref.shards):

@@ -38,7 +38,8 @@ def main() -> int:
     out = dict(card=smi,
                batched=chip_smoke.main_path(chip_smoke.NODES, 4, 0)[0])
     torch.cuda.empty_cache()
-    out["sharded"] = chip_smoke.sharded_path(chip_smoke.NODES, 4, 0)
+    out["sharded"] = chip_smoke.sharded_path(chip_smoke.NODES, 4, 0)[0]
+    torch.cuda.empty_cache()
     out["router_paths"] = chip_smoke.sharded_router_paths(0)
     sh, ba = out["sharded"], out["batched"]
     chip_smoke.log(
