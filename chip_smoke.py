@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. card: name and power limit, torch/CUDA versions; the three kernels
+1. card: name and power limit, torch/CUDA versions; the four kernels
    built at once (one ``nvcc`` per source in ``src/repro_torch/csrc/``, into
    ``build/``), with ``nvcc``'s register and spill lines;
 2. probe kernel vs plain: the CUDA probe kernel against its plain torch
@@ -122,7 +122,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and on the CPU, every leaf bitwise the uninterrupted run's and card ==
    CPU; (c) ``python -m repro_torch.launch.summarize_stream 60
    --router-chunk 64`` on the card, by its own assertions.  Checkpoints
-   go under ``build/chip_smoke_ckpt/`` and are removed after each phase.
+   go under ``build/chip_smoke_ckpt/`` and are removed after each phase;
+15. ``ht_rebuild`` on the card (its parts run where their inputs live):
+   (a) after phase 2, the rebuild kernel bitwise against the sequential
+   fold (k1, k2, val) on tables of caps 8, 16 and 32 built by ``ht_set``
+   whose runs wrap past slot 0 (and full ones), 2^16 and 2^20 slots at
+   53% and 70%, plain and prehashed, and 2^22 at 70%, where the host fold
+   that the kernel replaces is timed; a table with a key behind an EMPTY
+   slot of its chain must raise; (b) the kernel on phase 2's 2^25-slot
+   tables at 70% (plain and prehashed) and a 2^24-slot one: every old
+   live key found by the probe kernel with its old value, the live count
+   kept, no tombstone, every key at or after its home inside its run; the
+   kernel's and the whole call's device time (CUDA events, best of
+   several) beside the byte bound of the table's live sectors, the old
+   table's longest run, the call from Python; (c) after phase 5,
+   ``smoke_config()`` on the card and on the CPU with
+   ``maybe_compact(threshold=0.0)`` after batch 2 and mid-stream, every
+   state leaf bitwise equal after every batch; (d) after phase 4,
+   ``maybe_compact(threshold=0.0)`` on phase 3's live ``full_config()``
+   summarizer (every table of 2^24-2^25 slots rebuilt, counts set to 0
+   just before), timed, then ``phi == phi_recomputed()``, the lossless
+   decode, degree / has_edge / neighbors reads against the live edge set
+   and 256 more changes still lossless; the kernel against the fold on
+   that summarizer's ``adj`` table, timed (the ``kernels`` line's row).
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -154,6 +176,9 @@ STACKED = (4, 1 << 20, 16384)     # replicas, cap, lanes of the stacked form
 NODES = 600                       # BA nodes of the main path's stream
 SHARDS = 4                        # replicas of the sharded path (phase 11)
 RECOVERY_CHUNKS = 3               # phase 13: chunks of phase 3's stream
+REBUILD_TINY_CAPS = (8, 16, 32)   # phase 15(a): tables with wrapped runs
+REBUILD_CAPS = (1 << 16, 1 << 20)  # phase 15(a): at 53% and 70%
+REBUILD_BIG = 1 << 22             # phase 15(a): at 70%, the host fold timed
 FP32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 tensor-core rate
 # words in the names of cuBLAS/CUTLASS matrix-product kernels
@@ -717,24 +742,28 @@ def reads(bs, truth, n_labels: int, seed: int) -> dict:
     return out
 
 
-def cuda_vs_cpu(seed: int) -> int:
+def cuda_vs_cpu(seed: int, compact: bool = False) -> int:
+    """The smoke configuration on the card and on the CPU, every state
+    leaf bitwise equal after every batch; with ``compact``, both also
+    ``maybe_compact(threshold=0.0)`` after batch 2 and mid-stream
+    (phase 15(c)), and the card's rebuild kernel must have launched."""
     import numpy as np
     from repro_torch.configs.mosso_stream import smoke_config
     from repro_torch.core.engine import BatchedSummarizer
     from repro_torch.core.engine.state import state_to_numpy
     from repro_torch.graph.streams import (edges_to_fully_dynamic_stream,
                                            sbm_edges)
+    from repro_torch.kernels import ops
     cfg = smoke_config()
     stream = edges_to_fully_dynamic_stream(
         sbm_edges(60, 4, 0.5, 0.04, seed=seed), delete_prob=0.15,
         seed=seed + 1)
+    n_batches = -(-len(stream) // cfg.batch)
+    compact_at = {2, n_batches // 2} if compact else set()
     on_card = BatchedSummarizer(cfg, device="cuda")
     on_cpu = BatchedSummarizer(cfg, device="cpu")
-    n = 0
-    for off in range(0, len(stream), cfg.batch):
-        chunk = stream[off:off + cfg.batch]
-        on_card.process(chunk)
-        on_cpu.process(chunk)
+
+    def check(what):
         a, b = state_to_numpy(on_card.state), state_to_numpy(on_cpu.state)
         for k in a:
             for w, x in (a[k].items() if isinstance(a[k], dict)
@@ -742,10 +771,31 @@ def cuda_vs_cpu(seed: int) -> int:
                 y = b[k][w] if w else b[k]
                 if not (x.dtype == y.dtype and np.array_equal(x, y)):
                     raise AssertionError(f"leaf {k}{'.' + w if w else ''} "
-                                         f"differs after batch {n}")
+                                         f"differs {what}")
+
+    launches = ops.ht_rebuild.launches
+    n = 0
+    for off in range(0, len(stream), cfg.batch):
+        chunk = stream[off:off + cfg.batch]
+        on_card.process(chunk)
+        on_cpu.process(chunk)
+        check(f"after batch {n}")
+        if n in compact_at:
+            if not (on_card.maybe_compact(threshold=0.0)
+                    and on_cpu.maybe_compact(threshold=0.0)):
+                raise AssertionError("maybe_compact rebuilt nothing")
+            check(f"after maybe_compact at batch {n}")
         n += 1
-    log(f"cuda vs cpu: smoke_config, {len(stream)} changes, every state "
-        f"leaf bitwise equal after each of {n} batches (phi={on_cpu.phi})")
+    launches = ops.ht_rebuild.launches - launches
+    if compact and not launches:
+        raise AssertionError("maybe_compact on the card launched no "
+                             "rebuild kernel")
+    log(f"{'phase 15(c): ' if compact else ''}cuda vs cpu: smoke_config, "
+        f"{len(stream)} changes, every state leaf bitwise equal after each "
+        f"of {n} batches (phi={on_cpu.phi})"
+        + (f" and after maybe_compact(threshold=0.0) at batches "
+           f"{sorted(compact_at)} ({launches} rebuild launches on the card)"
+           if compact else ""))
     return n
 
 
@@ -2166,6 +2216,335 @@ def lm_smoke_archs(seed: int) -> dict:
 # --------------------------------------------------------------------- #
 
 
+# --------------------------------------------------------------------- #
+# phase 15: ht_rebuild on the card
+# --------------------------------------------------------------------- #
+
+
+def set_built_table(cap: int, load: float, prehashed: bool, rng):
+    """A small table as ``ht_set`` and deletes make it, built on the CPU
+    and moved to the card: ``load`` of the slots live, a tenth (fewer when
+    nearly full) tombstoned after the upserts; four keys homed in the
+    last two slots go in first, so that their chain wraps past slot 0, in
+    the old table and the rebuilt one."""
+    import torch
+    from repro_torch.core.engine.hashtable import (TOMB, _probe_start,
+                                                   ht_new, ht_set)
+    n_live = max(1, int(cap * load))
+    n_tomb = min(cap // 10, cap - n_live)
+    hi = (1 << 31) - 1 if prehashed else 1 << 20
+    keys = []
+    while len(keys) < n_live + n_tomb:
+        k = (rng.randrange(hi), rng.randrange(hi))
+        home = int(_probe_start(torch.tensor([k[0]]), torch.tensor([k[1]]),
+                                cap, prehashed))
+        if k not in keys and (len(keys) >= min(4, n_live)
+                              or home >= cap - 2):
+            keys.append(k)
+    ht = ht_new(cap, "cpu")
+    for a, b in keys:
+        ht_set(ht, torch.tensor([a], dtype=torch.int32),
+               torch.tensor([b], dtype=torch.int32),
+               rng.randrange(-2 ** 31, 2 ** 31), prehashed=prehashed)
+    for a, b in rng.sample(keys[min(4, n_live):], n_tomb):
+        slot = (ht.k1 == a) & (ht.k2 == b)        # as ht_delete writes it
+        ht.k1[slot], ht.k2[slot], ht.val[slot] = TOMB, TOMB, 0
+    return ht.k1.cuda(), ht.k2.cuda(), ht.val.cuda()
+
+
+def wrapped(table, prehashed: bool) -> bool:
+    """Whether some key of a table sits before its home slot."""
+    import torch
+    from repro_torch.core.engine.hashtable import _probe_start
+    k1, k2, _ = table
+    idx = torch.nonzero(k1 >= 0).flatten()
+    home = _probe_start(k1[idx], k2[idx], k1.shape[0], prehashed)
+    return bool((idx < home).any())
+
+
+def rebuild_vs_plain(table, prehashed: bool, what: str):
+    """The kernel's table (``ht_rebuild_cuda``) against the sequential
+    fold on a host copy, bitwise; returns it, the fold's seconds and the
+    largest |kernel - fold| over k1, k2 and val (0)."""
+    import torch
+    from repro_torch.kernels import ht_rebuild as hr
+    got = hr.ht_rebuild_cuda(*table, prehashed=prehashed)
+    cpu = [t.cpu() for t in table]
+    t = time.perf_counter()
+    want = hr.ht_rebuild_plain(*cpu, prehashed=prehashed)
+    plain_s = time.perf_counter() - t
+    err = max(int((g.cpu().long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"ht_rebuild differs from the plain fold by up "
+                             f"to {err}: {what}")
+    return got, plain_s, err
+
+
+def rebuild_bound_ms(k1) -> float:
+    """The least bytes a rebuild of this table moves, over the card's
+    memory rate: k1 read whole (4 B a slot), k2 and val read by the 32 B
+    sectors (8 slots) that hold a live key, k1, k2 and val written whole
+    (12 B a slot).  About 24 B a slot at 70% load, 16 at a near-empty
+    table."""
+    cap = k1.shape[0]
+    sectors = int((k1 >= 0).view(-1, 8).any(1).sum())
+    return (16 * cap + 2 * 32 * sectors) / HBM_BYTES_PER_S * 1e3
+
+
+def longest_old_run(k1) -> int:
+    """The longest run of non-EMPTY slots of a table (one kernel thread
+    replays each), a run wrapping past slot 0 counted whole."""
+    import torch
+    from repro_torch.core.engine.hashtable import EMPTY
+    filled = k1 != EMPTY
+    if bool(filled.all()):
+        return k1.shape[0]
+    first = int(torch.nonzero(~filled)[0])
+    filled = torch.roll(filled, -(first + 1))      # ends at an EMPTY slot
+    run = torch.cumsum((~filled).to(torch.int64), 0)[filled]
+    return int(torch.bincount(run).max()) if run.numel() else 0
+
+
+def time_rebuild(table, prehashed: bool, reps: int = 5) -> dict:
+    """The kernel alone (CUDA events around one launch into a table
+    allocated before, best of ``reps``), the whole call (allocation,
+    launch and the status read; CUDA events and the host clock, best of
+    3), the longest run of the old table, and the byte bound, which is
+    held against the whole call."""
+    import torch
+    from repro_torch.kernels import ht_rebuild as hr
+    k1 = table[0]
+    out = tuple(torch.empty_like(t) for t in table)
+    status = torch.zeros(1, dtype=torch.int32, device=k1.device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    kernel = []
+    for _ in range(reps):
+        start.record()
+        hr.launch_cuda(*table, out, status, prehashed=prehashed)
+        end.record()
+        torch.cuda.synchronize()
+        kernel.append(start.elapsed_time(end))
+    if int(status.item()):
+        raise AssertionError("ht_rebuild: the kernel found a broken chain")
+    device, host = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        hr.ht_rebuild_cuda(*table, prehashed=prehashed)
+        end.record()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t))
+        device.append(start.elapsed_time(end))
+    return dict(cap=k1.shape[0], live=int((k1 >= 0).sum()),
+                longest_run=longest_old_run(k1), kernel_ms=min(kernel),
+                ms=min(device), call_ms=min(host),
+                bound_ms=rebuild_bound_ms(k1))
+
+
+def check_rebuilt(old, new, prehashed: bool, what: str) -> None:
+    """The rebuilt table of ``old`` without the plain fold: every old live
+    key found (probe kernel) with its old value, the live count kept, no
+    tombstone, and every key at or after its home inside its run (no
+    EMPTY slot between its home and its slot)."""
+    import torch
+    from repro_torch.core.engine.hashtable import EMPTY, TOMB, _probe_start
+    from repro_torch.kernels.ht_probe import ht_probe_cuda
+    k1, k2, val = new
+    cap = k1.shape[0]
+    idx = torch.nonzero(old[0] >= 0).flatten()
+    _, found, got = ht_probe_cuda(k1, k2, val, old[0][idx], old[1][idx],
+                                  prehashed=prehashed, mode="find")
+    if not bool(found.all()) or not torch.equal(got, old[2][idx]):
+        raise AssertionError(f"ht_rebuild {what}: an old key is lost or "
+                             f"its value changed")
+    filled = k1 != EMPTY
+    if int((k1 >= 0).sum()) != idx.numel() or bool((k1 == TOMB).any()):
+        raise AssertionError(f"ht_rebuild {what}: live count changed or a "
+                             f"tombstone is left")
+    pos = torch.arange(cap, device=k1.device)
+    last_empty = torch.cummax(torch.where(filled, -1, pos), 0).values
+    last_empty = torch.where(last_empty < 0, last_empty[-1] - cap,
+                             last_empty)
+    depth = pos - last_empty - 1       # filled slots before each in its run
+    slots = torch.nonzero(filled).flatten()
+    home = _probe_start(k1[slots], k2[slots], cap, prehashed)
+    if not bool((((slots - home) & (cap - 1)) <= depth[slots]).all()):
+        raise AssertionError(f"ht_rebuild {what}: a key sits outside the "
+                             f"run of its home")
+
+
+def rebuild_kernel_vs_plain(seed: int) -> dict:
+    """Phase 15(a): the kernel bitwise against the fold on tables of caps
+    8/16/32 made by ``ht_set`` with wrapped runs (and full), 2^16 and 2^20
+    at 53% and 70% plain and prehashed, and 2^22 at 70%, whose fold is
+    timed; a table with a key behind an EMPTY slot of its chain raises."""
+    import random
+    import torch
+    from repro_torch.core.engine.hashtable import _probe_start, ht_new
+    from repro_torch.kernels import ht_rebuild as hr
+    rng = random.Random(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = err = 0
+    for cap in REBUILD_TINY_CAPS:
+        for pre in (False, True):
+            for load in (0.5, 0.7, 0.9, 1.0):
+                table = set_built_table(cap, load, pre, rng)
+                got, _, e = rebuild_vs_plain(table, pre, f"cap={cap} "
+                                             f"load={load} prehashed={pre}")
+                err = max(err, e)
+                if load < 1.0 and not wrapped(got, pre):
+                    raise AssertionError(f"cap={cap}: no run wrapped")
+                n += 1
+    plain_s = {}
+    for cap in REBUILD_CAPS:
+        for load in ("53%", "70%"):
+            for pre in (False, True):
+                table, _ = bulk_table(cap, *rebuild_counts(cap, load), pre,
+                                      gen)
+                _, s, e = rebuild_vs_plain(table, pre, f"cap={cap} "
+                                           f"load={load} prehashed={pre}")
+                err = max(err, e)
+                plain_s[f"{cap}:{load}:{pre}"] = s
+                n += 1
+    table, _ = bulk_table(REBUILD_BIG, *rebuild_counts(REBUILD_BIG, "70%"),
+                          False, gen)
+    _, big_s, e = rebuild_vs_plain(table, False, "cap=2^22 load=70%")
+    broken = ht_new(64, "cuda")
+    home = int(_probe_start(torch.tensor([7]), torch.tensor([9]), 64, False))
+    broken.k1[(home + 2) % 64], broken.k2[(home + 2) % 64] = 7, 9
+    try:
+        hr.ht_rebuild_cuda(broken.k1, broken.k2, broken.val)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ht_rebuild took a key behind an EMPTY slot")
+    res = dict(tables=n + 1, plain_s=plain_s, plain_s_2p22=big_s,
+               max_abs_err=max(err, e), big=time_rebuild(table, False))
+    b = res["big"]
+    log(f"phase 15(a): ht_rebuild kernel == plain fold bitwise on {n + 1} "
+        f"tables (caps {list(REBUILD_TINY_CAPS)} built by ht_set with "
+        f"wrapped runs and full, {[c.bit_length() - 1 for c in REBUILD_CAPS]}"
+        f" (2^k) at 53%/70% plain and prehashed, 2^22 at 70%); a broken "
+        f"chain raises; the host fold at 2^22, 70%: {big_s:.2f} s against "
+        f"the kernel call's {b['call_ms']:.3f} ms")
+    return res
+
+
+def rebuild_counts(cap: int, load: str):
+    """(keys, tombstones) of a table at 53% (50% live + 1/32 tombstones)
+    or 70% (60% live + 10%), the shares of phase 2."""
+    live, tomb = {"53%": (cap // 2, cap // 32),
+                  "70%": (cap * 6 // 10, cap // 10)}[load]
+    return live + tomb, tomb
+
+
+def rebuild_full_size(big_tables, gen) -> list:
+    """Phase 15(b): the kernel alone on 2^25-slot tables at 70% (phase 2's,
+    plain and prehashed) and a 2^24-slot one: invariants, device times
+    beside the byte bound, the longest run, the call from Python."""
+    from repro_torch.kernels import ht_rebuild as hr
+    tables = dict(big_tables)
+    t = time.perf_counter()
+    tables["2^24", False], _ = bulk_table(
+        CAP_SMALL, *rebuild_counts(CAP_SMALL, "70%"), False, gen)
+    build_s = time.perf_counter() - t
+    rows = []
+    for (name, pre), table in tables.items():
+        new = hr.ht_rebuild_cuda(*table, prehashed=pre)
+        what = f"{name} load 70% prehashed={pre}"
+        check_rebuilt(table, new, pre, what)
+        row = dict(table=name, prehashed=pre, **time_rebuild(table, pre))
+        rows.append(row)
+        log(f"phase 15(b): ht_rebuild {what}: every old key found with its "
+            f"value, live {row['live']}, no tombstone, every key inside the "
+            f"run of its home; kernel {row['kernel_ms']:.3f} ms, call "
+            f"{row['ms']:.3f} ms on the device ({row['call_ms']:.3f} ms "
+            f"from Python), bound {row['bound_ms']:.3f} ms (bytes, against "
+            f"the call); the old table's longest run {row['longest_run']} "
+            f"slots")
+    log(f"phase 15(b): the 2^24-slot table built in {build_s:.1f} s")
+    return rows
+
+
+def compact_live_summarizer(bs, truth, seed: int) -> dict:
+    """Phase 15(d): ``maybe_compact(threshold=0.0)`` on phase 3's live
+    ``full_config()`` summarizer (counts set to 0 just before, read just
+    after), then phi, the decode and the reads against the live edge set,
+    and 256 more changes still lossless.  The kernel against the fold at
+    this path's ``adj`` table, timed."""
+    import random
+    import torch
+    from repro_torch.core.summary import pair_key
+    from repro_torch.kernels import ops
+    adj = tuple(t.clone() for t in (bs.state.adj.k1, bs.state.adj.k2,
+                                    bs.state.adj.val))
+    pressure = bs.table_pressure()
+    dirty = [name for name, p in pressure.items() if p > 0.0]
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if not bs.maybe_compact(threshold=0.0):
+        raise AssertionError("maybe_compact(threshold=0.0) rebuilt nothing")
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t
+    launches = ops.ht_rebuild.launches
+    if launches != len(dirty):
+        raise AssertionError(f"maybe_compact launched the rebuild kernel "
+                             f"{launches} times for {len(dirty)} tables")
+    for name in pressure:
+        if getattr(bs.state, name).k1.device.type != "cuda":
+            raise AssertionError(f"table {name} left the card")
+
+    def lossless(live, what):
+        if bs.phi != bs.phi_recomputed():
+            raise AssertionError(f"{what}: phi != phi_recomputed")
+        want = {pair_key(bs._ids[u], bs._ids[v]) for (u, v) in live}
+        if bs.materialize().decode_edges() != want:
+            raise AssertionError(f"{what}: the decode differs from the "
+                                 f"live edge set")
+
+    lossless(truth, "after maybe_compact")
+    read_res = reads(bs, truth, 256, seed)
+    rng = random.Random(seed + 15)
+    nodes = sorted({u for e in truth for u in e})
+    changes = [(u, v, False) for (u, v) in rng.sample(sorted(truth), 128)]
+    new = set()
+    while len(new) < 128:
+        u, v = rng.sample(nodes, 2)
+        e = (min(u, v), max(u, v))
+        if e not in truth:
+            new.add(e)
+    changes += [(u, v, True) for (u, v) in sorted(new)]
+    rng.shuffle(changes)
+    live = set(truth)
+    t = time.perf_counter()
+    for off in range(0, len(changes), bs.cfg.batch):
+        bs.process(changes[off:off + bs.cfg.batch])
+    torch.cuda.synchronize()
+    more_s = time.perf_counter() - t
+    for (u, v, ins) in changes:
+        (live.add if ins else live.discard)((u, v))
+    lossless(live, "256 changes after maybe_compact")
+    _, plain_s, err = rebuild_vs_plain(adj, False, "phase 3's adj table")
+    timing = time_rebuild(adj, False)
+    res = dict(compact_s=compact_s, launches=launches, pressure=pressure,
+               reads=read_res, more_changes=len(changes),
+               more_us_per_change=1e6 * more_s / len(changes),
+               adj=dict(timing, plain_ms=1e3 * plain_s, max_abs_err=err))
+    log(f"phase 15(d): maybe_compact(threshold=0.0) on phase 3's live "
+        f"full_config summarizer: {launches} rebuild launches, "
+        f"{compact_s:.3f} s; phi == phi_recomputed, lossless, reads right; "
+        f"256 more changes ({res['more_us_per_change']:.1f} us/change) "
+        f"lossless; its adj table (2^25 slots, {timing['live']} live): "
+        f"kernel {timing['kernel_ms']:.3f} ms, call {timing['ms']:.3f} ms "
+        f"({timing['call_ms']:.3f} from Python), plain fold "
+        f"{1e3 * plain_s:.1f} ms, bound {timing['bound_ms']:.3f} ms")
+    return res
+
+
 def main() -> int:
     seed = 0
 
@@ -2179,7 +2558,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import (_build, csr_segment, flash_attention,
-                                     ht_probe)
+                                     ht_probe, ht_rebuild)
     # full float32 matrix products on the card, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2194,7 +2573,7 @@ def main() -> int:
         f" python {sys.version.split()[0]}")
     t = time.perf_counter()
     built = _build.build_all([ht_probe.SOURCE, csr_segment.SOURCE,
-                              flash_attention.SOURCE])
+                              flash_attention.SOURCE, ht_rebuild.SOURCE])
     build_s = time.perf_counter() - t
     log(f"build: {', '.join(p.name for p, _ in built.values())} in "
         f"{build_s:.2f} s (one nvcc per source, started together)")
@@ -2233,11 +2612,16 @@ def main() -> int:
     read_res = reads(bs, truth, 256, seed)
     #    and the graph ops over the live summary (counts set to 0 inside)
     summary_ops = graph_ops_over_summary(bs, truth, seed)
+    # 15(d). maybe_compact on the live summarizer (counts set to 0 inside,
+    # just before it)
+    rebuild_d = compact_live_summarizer(bs, truth, seed)
     del bs
     # key_averages() takes ~0.7 ms per event: 8 changes are ~60k kernels
     prof_res = profile_step(stream, 8)
-    # 5. the smoke configuration on the card and on the CPU
+    # 5. the smoke configuration on the card and on the CPU; 15(c). again
+    # with maybe_compact after batch 2 and mid-stream
     cuda_vs_cpu(seed)
+    cuda_vs_cpu(seed + 1, compact=True)
 
     # the kernel at the main path's lane counts on a table of the main
     # path's other capacity (eab / snadj / snpos), at 53% load
@@ -2272,6 +2656,11 @@ def main() -> int:
     log("ht_probe: no single PyTorch call walks a probe chain, so "
         "library_ms is null")
     top = max(rows, key=lambda r: r.get("main_path_jobs", 0))
+    # 15(a)-(b). the rebuild kernel against the fold, then alone at full
+    # size on phase 2's 2^25-slot tables at 70% and a 2^24-slot one
+    rebuild_a = rebuild_kernel_vs_plain(seed)
+    rebuild_b = rebuild_full_size(
+        {("2^25", pre): tables["70%", pre] for pre in (False, True)}, gen)
     del tables
     torch.cuda.empty_cache()
 
@@ -2328,7 +2717,10 @@ def main() -> int:
         lm_serve=lm_c, lm_smoke_archs=lm_d, sharded=sharded,
         sharded_router_paths=router_paths, batched_recovery=recovery,
         sharded_checkpoint=sharded_ckpt, sharded_kill_bar=kill_bar,
-        summarize_stream=driver), indent=1))
+        summarize_stream=driver, rebuild_kernel_vs_plain=rebuild_a,
+        rebuild_full_size=rebuild_b,
+        rebuild_live_summarizer=rebuild_d),
+        indent=1))
 
     entry = dict(name="ht_probe", route="cuda",
                  source="src/repro_torch/csrc/ht_probe.cu",
@@ -2369,7 +2761,27 @@ def main() -> int:
                                      for key in ("ms", "library_ms",
                                                  "bound_ms", "plain_ms",
                                                  "max_abs_err")})
-    print(json.dumps({"kernels": [entry, csr_entry, attn_entry]}))
+    adj = rebuild_d["adj"]
+    rebuild_entry = dict(name="ht_rebuild", route="cuda",
+                         source="src/repro_torch/csrc/ht_rebuild.cu",
+                         replaces="src/repro/core/engine/hashtable.py:285",
+                         launches=rebuild_d["launches"],
+                         max_abs_err=max(adj["max_abs_err"],
+                                         rebuild_a["max_abs_err"]),
+                         ms=adj["ms"], kernel_ms=adj["kernel_ms"],
+                         call_ms=adj["call_ms"], plain_ms=adj["plain_ms"],
+                         bound_ms=adj["bound_ms"], bound_by="bytes",
+                         library_ms=None, live=adj["live"],
+                         longest_run=adj["longest_run"],
+                         shape="phase 3's adj table, 2^25 slots",
+                         full_size_70pct=[
+                             {k: r[k] for k in (
+                                 "table", "prehashed", "kernel_ms", "ms",
+                                 "call_ms", "bound_ms", "longest_run")}
+                             for r in rebuild_b],
+                         plain_s_2p22=rebuild_a["plain_s_2p22"])
+    print(json.dumps({"kernels": [entry, csr_entry, attn_entry,
+                                  rebuild_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

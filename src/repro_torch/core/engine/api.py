@@ -387,7 +387,8 @@ class BatchedSummarizer(_CrashConsistency):
 
     def maybe_compact(self, threshold: float = 0.7) -> bool:
         """Rebuild tables whose occupied fraction (live + tombstones)
-        crosses ``threshold``."""
+        crosses ``threshold``, on the state's device (on the card, the
+        rebuild kernel; nothing is copied to the host)."""
         dirty = [n for n, p in self.table_pressure().items() if p > threshold]
         for name in dirty:
             setattr(self.state, name, ht_rebuild(getattr(self.state, name)))

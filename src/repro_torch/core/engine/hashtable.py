@@ -38,7 +38,6 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Sequence, Tuple, Union
 
-import numpy as np
 import torch
 
 EMPTY = -1
@@ -259,34 +258,10 @@ def ht_rebuild(ht: HashTable, prehashed: bool = False) -> HashTable:
     """Compaction: rehash live entries, in slot order, into a fresh table.
 
     The same upserts as the JAX ``ht_rebuild`` fold, so the layout is
-    bitwise the same.  Runs on the host: the order of the inserts is the
-    layout, so it is one sequential pass (a maintenance step between
-    batches, not on the step's path).  ``prehashed`` must match how the
-    table is probed.
+    bitwise the same.  A table on the card is rebuilt there by the rebuild
+    kernel (``kernels/ht_rebuild.py``), a table on the CPU by the
+    sequential fold.  ``prehashed`` must match how the table is probed.
     """
-    cap = ht.capacity
-    k1 = ht.k1.cpu().numpy()
-    k2 = ht.k2.cpu().numpy()
-    val = ht.val.cpu().numpy()
-    live = np.flatnonzero(k1 >= 0)
-    start = _probe_start(torch.from_numpy(k1[live]),
-                         torch.from_numpy(k2[live]), cap, prehashed).tolist()
-    n1 = np.full(cap, EMPTY, np.int32)
-    n2 = np.full(cap, EMPTY, np.int32)
-    nv = np.zeros(cap, np.int32)
-    for s, i in zip(start, live.tolist()):
-        a, b = int(k1[i]), int(k2[i])
-        j = 0
-        # a fresh table holds no tombstones and only distinct live keys:
-        # the upsert slot is the first EMPTY slot or the key's own
-        while j < cap:
-            x = (s + j) & (cap - 1)
-            if n1[x] == EMPTY or (n1[x] == a and n2[x] == b):
-                break
-            j += 1
-        x = (s + j) & (cap - 1)
-        n1[x], n2[x], nv[x] = a, b, val[i]
-    dev = ht.k1.device
-    return HashTable(k1=torch.from_numpy(n1).to(dev),
-                     k2=torch.from_numpy(n2).to(dev),
-                     val=torch.from_numpy(nv).to(dev))
+    from repro_torch.kernels import ops as kops
+    return HashTable(*kops.ht_rebuild(ht.k1, ht.k2, ht.val,
+                                      prehashed=prehashed))

@@ -1,9 +1,10 @@
 """Lossless-summary primitives (plain Python).
 
 Copies of ``repro/core/summary.py``'s ``pair_key``, ``t_count``,
-``encoding_cost``, ``is_superedge``, ``SummaryOutput`` and
-``ShardedSummaryOutput``, and of
-``repro/core/reference/weights.py``'s ``host_node_weight``.
+``encoding_cost``, ``is_superedge``, ``SummaryOutput``,
+``ShardedSummaryOutput`` and ``StreamStats``, and of
+``repro/core/reference/weights.py``'s ``host_node_weight`` (which
+``repro_torch.core.reference.weights`` re-exports).
 
 The output of lossless graph summarization (Sect. 2.1 of the paper) is a
 summary graph ``G* = (S, P)`` plus edge corrections ``C = (C+, C-)``.
@@ -13,7 +14,7 @@ missing pairs in C- (cost ``1 + |T_AB| - |E_AB|``), whichever is cheaper.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Set, Tuple
 
 import numpy as np
@@ -161,6 +162,20 @@ class ShardedSummaryOutput:
                     assert u in members and v in members, \
                         f"shard {i} {name} pair {(u, v)} names a foreign node"
         return self
+
+
+@dataclass
+class StreamStats:
+    """Per-run accounting of the Tier-A reference algorithms."""
+
+    changes: int = 0
+    insertions: int = 0
+    deletions: int = 0
+    trials: int = 0
+    accepted: int = 0
+    escapes: int = 0
+    phi_history: List[Tuple[int, int, int]] = field(
+        default_factory=list)            # (t, phi, |E|)
 
 
 _GOLDEN = np.uint32(0x9E3779B9)

@@ -7,7 +7,8 @@ launches in a plain integer attribute of its wrapper, set where the
 wrapper launches it and nowhere else: ``ht_probe.launches`` (with
 ``ht_probe.jobs``, the probe batches those launches served, and
 ``ht_probe.by_batch`` by each job's ``(mode, lanes)``; :func:`ht_probe`
-and :func:`ht_probe_many` share the three), ``segment_reduce.launches``
+and :func:`ht_probe_many` share the three), ``ht_rebuild.launches``,
+``segment_reduce.launches``
 (incremented by :func:`segment_reduce_csr`, the one place that launches
 the CSR kernel) and ``attention.launches`` (with ``attention.by_variant``
 by :func:`~repro_torch.kernels.flash_attention.kernel_variant`), so a run
@@ -33,6 +34,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  kernel_variant)
 from repro_torch.kernels.ht_probe import (Probe, ProbeJob, ht_probe_many_cuda,
                                           ht_probe_many_plain)
+from repro_torch.kernels.ht_rebuild import (Table, ht_rebuild_cuda,
+                                            ht_rebuild_plain)
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -80,6 +83,22 @@ def ht_probe_many(jobs: Sequence[ProbeJob]) -> List[Probe]:
 ht_probe.launches = 0
 ht_probe.jobs = 0
 ht_probe.by_batch = Counter()
+
+
+def ht_rebuild(k1: torch.Tensor, k2: torch.Tensor, val: torch.Tensor, *,
+               prehashed: bool = False) -> Table:
+    """Compaction: the fresh table ``(k1, k2, val)`` that inserting every
+    live entry, in old-slot order, gives (see ``kernels/ht_rebuild.py``).
+    A CUDA table goes to the rebuild kernel and stays on the card (or the
+    call raises); a CPU table to the sequential fold."""
+    if _route(k1, "ht_rebuild"):
+        out = ht_rebuild_cuda(k1, k2, val, prehashed=prehashed)
+        ht_rebuild.launches += 1
+        return out
+    return ht_rebuild_plain(k1, k2, val, prehashed=prehashed)
+
+
+ht_rebuild.launches = 0
 
 
 # --------------------------------------------------------------------- #
@@ -228,6 +247,7 @@ def reset_counts() -> None:
     ht_probe.launches = 0
     ht_probe.jobs = 0
     ht_probe.by_batch = Counter()
+    ht_rebuild.launches = 0
     segment_reduce.launches = 0
     attention.launches = 0
     attention.by_variant = Counter()

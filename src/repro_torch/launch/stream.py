@@ -1,13 +1,16 @@
 """MoSSo streaming CLI on the PyTorch engine.
 
-Port of the ``--engine batched`` and ``--engine sharded`` paths of
-``repro/launch/stream.py``: summarize a synthetic dynamic graph stream
-with :class:`BatchedSummarizer` or the edge-partitioned
-:class:`ShardedSummarizer` (``--shards`` replicas on one device, routed
-on the device by default, ``--routing host`` for host bucketing) and
-report phi, the compression ratio (Eq. 3) and the time per change.  The
-search and batch defaults come from the port's ``EngineConfig``.
-``--device`` picks where the engine runs (default ``cuda``).
+Port of ``repro/launch/stream.py``: summarize a synthetic dynamic graph
+stream with :class:`BatchedSummarizer` (the default), the
+edge-partitioned :class:`ShardedSummarizer` (``--shards`` replicas on one
+device, routed on the device by default, ``--routing host`` for host
+bucketing) or the faithful Tier-A reference (``--engine reference
+--algo ...``, host Python), and report phi, the compression ratio (Eq. 3)
+and the time per change.  The search and batch defaults come from the
+port's ``EngineConfig``.  ``--device`` picks where the engine runs
+(default ``cuda``); the reference tier runs on the host and ignores it.
+The JAX CLI defaults to ``--engine reference``; this one to the batched
+engine on the card.
 
 With ``--checkpoint-dir`` both engines run crash-consistent: every
 dispatch chunk is write-ahead journaled, an epoch checkpoint lands every
@@ -21,6 +24,8 @@ package's: either CLI resumes the other's.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stream --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.stream --engine reference \
+      --algo mosso --nodes 2000
   PYTHONPATH=src python -m repro_torch.launch.stream --device cpu \
       --nodes 200 --fully-dynamic
   PYTHONPATH=src python -m repro_torch.launch.stream --engine sharded \
@@ -38,6 +43,7 @@ import torch
 from repro_torch.core.engine import (BatchedSummarizer, EngineConfig,
                                     ShardedSummarizer)
 from repro_torch.core.engine.state import OBJECTIVES, PROPOSALS
+from repro_torch.core.reference import ALGORITHMS, WeightedDynamicSummary
 from repro_torch.dist.router import DEFAULT_REPLICA_EXEC, REPLICA_EXEC_MODES
 from repro_torch.ft.resilience import run_stream_with_recovery
 from repro_torch.graph.streams import (barabasi_albert_edges,
@@ -57,12 +63,35 @@ def make_stream(kind: str, nodes: int, edges_per_node: int, beta: float,
     return edges_to_insertion_stream(edges, seed=seed)
 
 
+def run_reference(args, stream) -> None:
+    """The Tier-A reference over the stream, on the host."""
+    t0 = time.perf_counter()
+    algo = ALGORITHMS[args.algo](seed=args.seed)
+    if args.objective == "weighted":
+        # the driver hooks are summary-agnostic: swap in the weighted host
+        # state machine before any change is processed
+        algo.s = WeightedDynamicSummary(weight_levels=args.weight_levels)
+    if hasattr(algo, "c"):
+        algo.c = args.c
+    if hasattr(algo, "escape"):
+        algo.escape = args.escape
+    algo.run(stream)
+    el = time.perf_counter() - t0
+    phi, m = algo.s.phi, algo.s.num_edges
+    print(f"phi={phi} |E|={m} compression_ratio={phi / max(m, 1):.4f}")
+    print(f"total {el:.1f}s ({1e6 * el / max(len(stream), 1):.0f} "
+          f"us/change)  trials={algo.stats.trials} "
+          f"accepted={algo.stats.accepted}")
+
+
 def main(argv=None) -> None:
     dflt = EngineConfig()
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the engine state (cuda or cpu)")
-    ap.add_argument("--engine", choices=["batched", "sharded"],
+                    help="torch device of the engine state (cuda or cpu); "
+                         "the reference tier runs on the host and ignores "
+                         "it")
+    ap.add_argument("--engine", choices=["reference", "batched", "sharded"],
                     default="batched")
     ap.add_argument("--shards", type=int, default=None,
                     help="sharded: engine replicas on the device (default 1)")
@@ -85,6 +114,8 @@ def main(argv=None) -> None:
                     default=DEFAULT_REPLICA_EXEC,
                     help="sharded: replica layout; 'map' steps the replicas "
                          "in turn ('vmap' is not ported)")
+    ap.add_argument("--algo", choices=list(ALGORITHMS), default="mosso",
+                    help="reference: the Tier-A algorithm")
     ap.add_argument("--graph", choices=["ba", "copying"], default="ba")
     ap.add_argument("--nodes", type=int, default=2000)
     ap.add_argument("--deg", type=int, default=4)
@@ -95,16 +126,19 @@ def main(argv=None) -> None:
     ap.add_argument("--escape", type=float, default=dflt.escape)
     ap.add_argument("--batch", type=int, default=dflt.batch)
     ap.add_argument("--proposal", choices=list(PROPOSALS),
-                    default=dflt.proposal)
+                    default=dflt.proposal,
+                    help="candidate scheme (batched/sharded engines; the "
+                         "reference analog is --algo mosso vs --algo mags)")
     ap.add_argument("--objective", choices=list(OBJECTIVES),
-                    default=dflt.objective)
+                    default=dflt.objective,
+                    help="move-scoring objective (all engines)")
     ap.add_argument("--weight-levels", type=int, default=dflt.weight_levels,
                     help="weighted objective: node weights 1 + hash % N "
                          "(0/1 = uniform)")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="crash-consistent mode: write-ahead journal every "
-                         "dispatch chunk and checkpoint epochs into this "
-                         "directory")
+                    help="batched/sharded: crash-consistent mode — "
+                         "write-ahead journal every dispatch chunk and "
+                         "checkpoint epochs into this directory")
     ap.add_argument("--checkpoint-every", type=int, default=16,
                     help="chunks between epoch checkpoints "
                          "(with --checkpoint-dir)")
@@ -115,10 +149,16 @@ def main(argv=None) -> None:
                     help="failed chunks tolerated before giving up "
                          "(with --checkpoint-dir)")
     args = ap.parse_args(argv)
+    if args.checkpoint_dir and args.engine == "reference":
+        ap.error("--checkpoint-dir requires --engine batched or sharded "
+                 "(the reference tier has no checkpoint closure)")
 
     stream = make_stream(args.graph, args.nodes, args.deg, args.beta,
                          args.fully_dynamic, args.seed)
     print(f"stream: {len(stream)} changes")
+    if args.engine == "reference":
+        run_reference(args, stream)
+        return
     n_cap = 1 << max(8, (args.nodes * 2).bit_length())
     m_cap = 1 << max(10, (len(stream) * 2).bit_length())
     cfg = EngineConfig(

@@ -26,6 +26,7 @@ from repro_torch.core.engine import ops as tops  # noqa: E402
 from repro_torch.core.engine.state import EngineConfig  # noqa: E402
 from repro_torch.core.summary import host_node_weight  # noqa: E402
 from repro_torch.kernels import ht_probe as tprobe  # noqa: E402
+from repro_torch.kernels import ht_rebuild as trebuild  # noqa: E402
 from repro_torch.kernels import ops as tkops  # noqa: E402
 
 _jset = jax.jit(jht.ht_set, static_argnames=("prehashed",))
@@ -317,15 +318,201 @@ def test_split_writes_and_probe_many_match_jax(seed):
                     err_msg=f"step {step} table {i}: {w} differs")
 
 
-def test_rebuild_matches_jax_fold():
-    jt, _ = _jax_table(64, 30, 12, seed=3)
-    tt = tht.HashTable(_t(jt.k1), _t(jt.k2), _t(jt.val))
-    want = jht.ht_rebuild(jt)
-    got = tht.ht_rebuild(tt)
+def _rebuild_table(cap, load, prehashed, wrap, seed):
+    """An int32 table for the rebuild: ``load`` of its slots live, a tenth
+    tombstoned (fewer when full), at random slots (the fold reads only the
+    old slot order, not the chains).  With ``wrap``, keys homed in the
+    last two slots come first, so that their run wraps past slot 0 of the
+    rebuilt table."""
+    rng = np.random.default_rng(seed)
+    n_live = max(1, int(cap * load))
+    n_tomb = min(cap // 10, cap - n_live)
+    hi = (1 << 31) - 1 if prehashed else 1 << 20
+    keys = set()
+    if wrap:                    # homes cap - 2 and cap - 1
+        while len(keys) < min(4, n_live):
+            a, b = (int(x) for x in rng.integers(0, hi, 2))
+            home = int(tht._probe_start(_t([a]), _t([b]), cap, prehashed))
+            if home >= cap - 2:
+                keys.add((a, b))
+    while len(keys) < n_live:
+        keys.add(tuple(int(x) for x in rng.integers(0, hi, 2)))
+    keys = np.array(sorted(keys, key=lambda k: (
+        -int(tht._probe_start(_t([k[0]]), _t([k[1]]), cap, prehashed))
+        if wrap else 0)), np.int32)
+    k1 = np.full(cap, tht.EMPTY, np.int32)
+    k2 = np.full(cap, tht.EMPTY, np.int32)
+    val = np.zeros(cap, np.int32)
+    slots = rng.permutation(cap)[:n_live + n_tomb]
+    if wrap:                    # the wrapping keys in the lowest old slots
+        slots[:n_live] = np.sort(slots[:n_live])
+    k1[slots[:n_live]], k2[slots[:n_live]] = keys[:, 0], keys[:, 1]
+    val[slots[:n_live]] = rng.integers(-2**31, 2**31, n_live)
+    k1[slots[n_live:]] = k2[slots[n_live:]] = tht.TOMB
+    return jht.HashTable(jnp.asarray(k1), jnp.asarray(k2), jnp.asarray(val))
+
+
+_jrebuild = jax.jit(jht.ht_rebuild, static_argnames=("prehashed",))
+
+
+@pytest.mark.parametrize("prehashed", [False, True])
+@pytest.mark.parametrize("cap,load,wrap", [
+    (8, 0.7, True), (16, 0.5, True), (32, 0.9, False), (64, 0.3, False),
+    (64, 0.7, True), (512, 0.53, False), (4096, 0.6, True), ("built", 0, 0)])
+def test_rebuild_matches_jax_fold(cap, load, wrap, prehashed):
+    """The plain fold (``ops.ht_rebuild`` on CPU tensors) bitwise equal to
+    JAX's ``ht_rebuild`` fold: caps 8 to 4096, loads up to 70% live (90%
+    at cap 32) with tombstones, plain and prehashed keys, tables whose
+    rebuilt runs wrap past slot 0, and a table built by JAX's own
+    ``ht_set``/``ht_delete``."""
+    if cap == "built":
+        jt, _ = _jax_table(64, 30, 12, seed=3)
+        cap = 64
+    else:
+        jt = _rebuild_table(cap, load, prehashed, wrap, seed=cap)
+    want = _jrebuild(jt, prehashed=prehashed)
+    before = tkops.ht_rebuild.launches
+    got = tht.ht_rebuild(tht.HashTable(_t(jt.k1), _t(jt.k2), _t(jt.val)),
+                         prehashed=prehashed)
+    assert tkops.ht_rebuild.launches == before       # the CPU: no kernel
     for w in ("k1", "k2", "val"):
         np.testing.assert_array_equal(getattr(got, w).numpy(),
                                       np.asarray(getattr(want, w)))
     assert tht.ht_load(got) == pytest.approx(float(jht.ht_load(want)))
+    live = got.k1 >= 0
+    assert int(live.sum()) == int((np.asarray(jt.k1) >= 0).sum())
+    assert not bool((got.k1 == tht.TOMB).any())
+    if wrap:        # some key sits before its home: its run wrapped
+        idx = torch.nonzero(live).flatten()
+        home = tht._probe_start(got.k1[idx], got.k2[idx], cap, prehashed)
+        assert bool((idx < home).any())
+
+
+def _set_built_table(cap, load, prehashed, wrap, seed):
+    """A table as the hashtable's operations make it: ``n_live + n_tomb``
+    distinct keys upserted by JAX's ``ht_set`` (``prehashed`` as given),
+    up to half of the ``n_tomb`` tombstoned two thirds of the way in (so
+    later upserts reuse tombstones) and the rest at the end, as ``ht_delete``
+    does it (TOMB, TOMB, 0 at the key's slot).  ``load`` of the slots end
+    live.  With ``wrap``, four keys homed in the last two slots go in
+    first: their chain wraps past slot 0, in the old table and the new."""
+    rng = np.random.default_rng(seed)
+    n_live = max(1, int(cap * load))
+    n_tomb = min(cap // 10, cap - n_live)
+    hi = (1 << 31) - 1 if prehashed else 1 << 20
+    keys, seen = [], set()
+    while len(keys) < n_live + n_tomb:
+        k = tuple(int(x) for x in rng.integers(0, hi, 2))
+        home = int(tht._probe_start(_t([k[0]]), _t([k[1]]), cap, prehashed))
+        if k not in seen and (not wrap or len(keys) >= min(4, n_live)
+                              or home >= cap - 2):
+            keys.append(k)
+            seen.add(k)
+    mid = 2 * len(keys) // 3
+    dead = sorted(min(4, n_live) * wrap + rng.permutation(
+        len(keys) - min(4, n_live) * wrap)[:n_tomb])
+    early = [keys[i] for i in dead if i < mid][: n_tomb // 2]
+    late = [keys[i] for i in dead if keys[i] not in early]
+    jt = jht.ht_new(cap)
+
+    def delete(t, ks):
+        k1, k2, val = (np.array(x) for x in t)
+        for a, b in ks:
+            (slot,) = np.flatnonzero((k1 == a) & (k2 == b))
+            k1[slot], k2[slot], val[slot] = tht.TOMB, tht.TOMB, 0
+        return jht.HashTable(jnp.asarray(k1), jnp.asarray(k2),
+                             jnp.asarray(val))
+
+    for i, (a, b) in enumerate(keys):
+        if i == mid:
+            jt = delete(jt, early)
+        jt = _jset(jt, a, b, int(rng.integers(-2**31, 2**31)),
+                   prehashed=prehashed)
+    return delete(jt, late)
+
+
+def _replay_old_runs(k1, k2, val, prehashed):
+    """The rebuild kernel's order in Python (``csrc/ht_rebuild.cu``): each
+    maximal run of the old table's non-EMPTY slots on its own, from its
+    first slot, the low slots of the run that wraps past slot ``cap - 1``
+    first, every key at the first slot from its home that is EMPTY or its
+    own.  Raises where the kernel sets its status word: a live key whose
+    home lies outside ``[run start, its slot]``."""
+    k1, k2, val = (t.tolist() for t in (k1, k2, val))
+    cap, mask, empty = len(k1), len(k1) - 1, tht.EMPTY
+    n1, n2, nv = [empty] * cap, [empty] * cap, [0] * cap
+    starts = [s for s in range(cap)
+              if k1[s] != empty and k1[s - 1] == empty]
+    full = not starts and empty not in k1
+    for s in ([0] if full else starts):
+        n = cap if full else next(i for i in range(1, cap + 1)
+                                  if k1[(s + i) & mask] == empty)
+        split = cap - s if s + n > cap else n
+        for i in list(range(split, n)) + list(range(split)):
+            p = (s + i) & mask
+            if k1[p] < 0:
+                continue
+            x = int(tht._probe_start(_t([k1[p]]), _t([k2[p]]), cap,
+                                     prehashed))
+            if not full and (x - s) & mask > i:
+                raise ValueError(f"slot {p}: an EMPTY slot in its chain")
+            while n1[x] != empty and (n1[x], n2[x]) != (k1[p], k2[p]):
+                x = (x + 1) & mask
+            n1[x], n2[x], nv[x] = k1[p], k2[p], val[p]
+    return tuple(torch.tensor(t, dtype=torch.int32) for t in (n1, n2, nv))
+
+
+_SET_BUILT = [(8, 1.0, False), (8, 0.7, True), (16, 0.5, True),
+              (32, 0.9, False), (64, 0.7, True), (1024, 0.53, False),
+              (1024, 0.7, True), (4096, 0.7, False), (4096, 0.6, True)]
+
+
+@pytest.mark.parametrize("prehashed", [False, True])
+@pytest.mark.parametrize("cap,load,wrap", _SET_BUILT + [("broken", 0, 0)])
+def test_rebuild_old_runs_replay_matches_the_fold(cap, load, wrap, prehashed):
+    """The kernel's design on the CPU, on tables made by ``ht_set`` and
+    deletes: every live key has no EMPTY slot between its home and its
+    slot, and replaying each old run on its own, in the kernel's order,
+    gives the sequential fold's table bitwise (a full table, runs wrapping
+    past slot 0 and prehashed keys included), every key inside its old
+    run.  A table that breaks a chain is refused."""
+    if cap == "broken":         # slots 3 and 4 EMPTY, a key homed at 3 at 5
+        rng = np.random.default_rng(5)
+        while True:
+            a, b = (int(x) for x in rng.integers(0, 1 << 20, 2))
+            if int(tht._probe_start(_t([a]), _t([b]), 16, prehashed)) == 3:
+                break
+        empty = tht.ht_new(16, "cpu")
+        k1, k2, val = empty.k1, empty.k2, empty.val
+        k1[5], k2[5], val[5] = a, b, 1
+        with pytest.raises(ValueError, match="EMPTY slot in its chain"):
+            _replay_old_runs(k1, k2, val, prehashed)
+        return
+    k1, k2, val = (_t(x) for x in _set_built_table(cap, load, prehashed,
+                                                     wrap, seed=cap + 1))
+    want = trebuild.ht_rebuild_plain(k1, k2, val, prehashed=prehashed)
+    got = _replay_old_runs(k1, k2, val, prehashed)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] >= 0).sum()) == int((k1 >= 0).sum())
+    new = torch.nonzero(got[0] >= 0).flatten()
+    assert bool((k1[new] != tht.EMPTY).all())       # inside the old runs
+    if wrap:        # some key sits before its home: its run wrapped
+        home = tht._probe_start(got[0][new], got[1][new], cap, prehashed)
+        assert bool((new < home).any())
+
+
+def test_rebuild_wrapper_checks_its_arguments():
+    k = torch.full((8,), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="power of two"):
+        tkops.ht_rebuild(k[:6], k[:6], k[:6])
+    with pytest.raises(TypeError, match="int32"):
+        tkops.ht_rebuild(k, k, k.to(torch.int64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        trebuild.ht_rebuild_cuda(k, k, k)
+    out = tkops.ht_rebuild(k, k, torch.zeros_like(k))   # stays empty
+    assert all(torch.equal(o, getattr(tht.ht_new(8, "cpu"), w))
+               for o, w in zip(out, ("k1", "k2", "val")))
 
 
 # --------------------------------------------------------------------- #
@@ -435,3 +622,77 @@ def test_cuda_kernel_matches_plain_on_the_card():
         for g, w in zip(got, want):
             for x, y in zip(g, w):
                 assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_kernel_matches_plain_on_the_card():
+    """The CUDA rebuild kernel against the sequential fold, bitwise, on
+    tables on the card (run on a machine with one; skipped elsewhere):
+    tables made by ``ht_set`` and deletes, caps 8 to 4096, loads up to 70%
+    with tombstones, runs wrapping past slot 0, a full table, plain and
+    prehashed; one launch per call, an empty table too, and the result
+    stays on the card.  A table with a key behind an EMPTY slot of its
+    chain raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for cap, load, wrap in _SET_BUILT:
+        for pre in (False, True):
+            cpu = [_t(x) for x in _set_built_table(cap, load, pre, wrap,
+                                                   seed=cap + 2)]
+            before = tkops.ht_rebuild.launches
+            got = tkops.ht_rebuild(*(x.cuda() for x in cpu), prehashed=pre)
+            assert tkops.ht_rebuild.launches == before + 1
+            want = trebuild.ht_rebuild_plain(*cpu, prehashed=pre)
+            for g, w in zip(got, want):
+                assert g.is_cuda and torch.equal(g.cpu(), w), (cap, load, pre)
+    empty = tht.ht_new(64, "cuda")
+    got = tkops.ht_rebuild(empty.k1, empty.k2, empty.val)
+    assert all(torch.equal(g, getattr(empty, w))
+               for g, w in zip(got, ("k1", "k2", "val")))
+    k1 = empty.k1.clone()
+    k1[int(tht._probe_start(_t([7]), _t([9]), 64, False)) + 2 & 63] = 7
+    with pytest.raises(ValueError, match="EMPTY slot"):
+        tkops.ht_rebuild(k1, torch.full_like(k1, 9), empty.val)
+
+
+def test_maybe_compact_mid_stream_matches_jax():
+    """``maybe_compact(threshold=0.0)`` (every table rebuilt) after batch 2
+    and again mid-stream, on the port's ``BatchedSummarizer`` on the CPU
+    and on JAX's at the same batch: every ``EngineState`` leaf bitwise
+    equal after every batch and after each compaction, and the port still
+    lossless."""
+    from repro.core.engine import BatchedSummarizer as JaxSummarizer
+    from repro.graph.streams import edges_to_fully_dynamic_stream, sbm_edges
+    from repro_torch.core.engine import BatchedSummarizer
+    from repro_torch.core.engine.state import state_to_numpy
+    from repro_torch.core.summary import pair_key
+    from test_torch_engine import BASE, assert_leaves_equal, jax_leaves
+
+    edges = sbm_edges(32, 4, 0.55, 0.05, seed=21)
+    stream = edges_to_fully_dynamic_stream(edges, delete_prob=0.2, seed=22)
+    kw = dict(BASE, batch=32)
+    jbs = JaxSummarizer(JaxConfig(**kw))
+    bs = BatchedSummarizer(EngineConfig(**kw), device="cpu")
+    b = kw["batch"]
+    n_batches = -(-len(stream) // b)
+    compact_at = {2, n_batches // 2 + 1}
+    live = set()
+    for n, off in enumerate(range(0, len(stream), b)):
+        chunk = stream[off:off + b]
+        jbs.process(chunk)
+        bs.process(chunk)
+        tag = f"batch {n}"
+        if n in compact_at:
+            assert_leaves_equal(state_to_numpy(bs.state),
+                                jax_leaves(jbs.state), tag + " before")
+            assert jbs.maybe_compact(threshold=0.0)
+            assert bs.maybe_compact(threshold=0.0)
+            tag += " after maybe_compact"
+        assert_leaves_equal(state_to_numpy(bs.state), jax_leaves(jbs.state),
+                            tag)
+        for (x, y, i) in chunk:
+            (live.add if i else live.discard)(pair_key(x, y))
+        assert bs.phi == bs.phi_recomputed(), tag
+        assert bs.materialize().decode_edges() == {
+            pair_key(bs._ids[x], bs._ids[y]) for (x, y) in live}, tag
+    assert max(compact_at) < n_batches

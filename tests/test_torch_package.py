@@ -35,7 +35,10 @@ def test_port_imports_nothing_of_jax_or_repro():
     assert "repro_torch.launch.serve_summary" in names
     for name in ("checkpoint", "checkpoint.checkpointer", "checkpoint.journal",
                  "checkpoint.summary", "ft", "ft.inject", "ft.resilience",
-                 "launch.summarize_stream"):
+                 "launch.summarize_stream", "core.reference",
+                 "core.reference.algorithms", "core.reference.weights",
+                 "testing", "testing.proptest", "launch.quickstart",
+                 "kernels.ht_rebuild"):
         assert f"repro_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
@@ -106,3 +109,51 @@ def test_stream_cli_runs_on_the_cpu():
     assert proc.returncode == 0, proc.stderr
     out = proc.stdout
     assert "stream:" in out and "phi=" in out and "device=cpu" in out
+
+
+def _cli_numbers(stdout: str) -> tuple:
+    """The stream line, the phi line and the trials of a stream CLI run
+    (the time on the last line aside)."""
+    lines = stdout.strip().splitlines()
+    return lines[0], lines[-2], lines[-1].split("  ", 1)[1]
+
+
+@pytest.mark.parametrize("flags", [
+    ("--algo", "mosso"),
+    ("--algo", "mosso", "--objective", "weighted", "--weight-levels", "3"),
+    ("--algo", "mags", "--c", "12", "--escape", "0.2")])
+def test_stream_cli_reference_engine_prints_the_jax_cli_numbers(flags):
+    """``--engine reference`` of the port's CLI against the JAX CLI on the
+    same flags: the same stream, phi, |E| and trials / accepted line (the
+    reference tier runs on the host, with no card and no ``--device``)."""
+    args = ("--engine", "reference", "--nodes", "60", "--deg", "3",
+            "--fully-dynamic", "--seed", "2", *flags)
+    port = _run("", "-m", "repro_torch.launch.stream", *args,
+                env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    jax = _run("", "-m", "repro.launch.stream", *args,
+               env_extra={"JAX_PLATFORMS": "cpu"})
+    assert port.returncode == 0, port.stderr
+    assert jax.returncode == 0, jax.stderr
+    assert _cli_numbers(port.stdout) == _cli_numbers(jax.stdout)
+    assert "trials=" in port.stdout and "phi=" in port.stdout
+    refused = _run("", "-m", "repro_torch.launch.stream", *args,
+                   "--checkpoint-dir", "unused")
+    assert refused.returncode == 2
+    assert "requires --engine batched or sharded" in refused.stderr
+
+
+def test_quickstart_prints_the_jax_example_lines():
+    """``python -m repro_torch.launch.quickstart`` prints exactly the lines
+    of ``examples/quickstart.py`` (same stream, seeds and numbers) and
+    imports nothing of JAX or ``repro``."""
+    port = _run("import runpy, sys\n"
+                "runpy.run_module('repro_torch.launch.quickstart',\n"
+                "                 run_name='__main__')\n"
+                "bad = [m for m in sys.modules if m == 'jax' or\n"
+                "       m.startswith(('jax.', 'repro.')) or m == 'repro']\n"
+                "assert not bad, bad\n")
+    example = _run("", str(SRC.parent / "examples" / "quickstart.py"))
+    assert port.returncode == 0, port.stderr
+    assert example.returncode == 0, example.stderr
+    assert port.stdout == example.stdout
+    assert "lossless" in port.stdout
