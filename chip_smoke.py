@@ -144,7 +144,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    just before), timed, then ``phi == phi_recomputed()``, the lossless
    decode, degree / has_edge / neighbors reads against the live edge set
    and 256 more changes still lossless; the kernel against the fold on
-   that summarizer's ``adj`` table, timed (the ``kernels`` line's row).
+   that summarizer's ``adj`` table, timed (the ``kernels`` line's row);
+16. training, after phase 8: (a) the CSR segment sum's backward (the
+   kernel over the transposed layout) against torch's autograd of the
+   plain version, rtol = atol = 1e-5, at the GraphSAGE request's two
+   layer inputs (phase 7's batch: masked edges, empty rows) and at
+   ``_agg``'s edge-id form; the backward's launch timed beside its byte
+   bound and ``torch.sparse.mm`` of the transposed adjacency; (b) SASRec
+   ``full_config()`` (10^6 items, d 50, L 50) trained at B = 65,536 from
+   ``sasrec_batches``: one step on the first 1,024 rows card vs CPU (loss
+   1e-5, gradients 1e-4), 4 AdamW steps (the loss must fall), ms per
+   step, peak memory, one profiled step's device busy share, and
+   ``serve_topk`` at ``serve_p99`` (B 512, C 4,096) and
+   ``retrieval_cand`` (B 1, C 10^6), scores card vs CPU (1e-4); (c)
+   graphsage-reddit ``full_config()`` trained on phase 7's batch (n = e =
+   262,144, F 602, random labels): one step card vs CPU (loss and every
+   gradient, 1e-4), every parameter's gradient nonzero on the card, 4
+   AdamW steps, ms per step and CSR launches per step (forward and
+   backward); (d) ``python -m repro_torch.launch.train`` for
+   granite-moe-3b-a800m, graphsage-reddit and sasrec (4 steps, the three
+   at once), and each trained to step 3 with a checkpoint and restarted
+   to step 6: equal to the same restart on the CPU (1e-4), the GNN's
+   equal to an unbroken run (1e-5).
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -205,6 +226,9 @@ LAYER_SHAPE = (2, 48, 8, 4096, 128, True)   # internlm2-20b, B=2 T=4096
 GRANITE_LAYER = (2, 24, 8, 4096, 64, True)  # granite-moe-3b-a800m
 PREFILL = (2, 4096)               # (B, T) of the prefill request
 SERVE = (4, 16, 32)               # batch, prompt, tokens of the serve run
+TRAIN_STEPS = 4                   # phase 16: AdamW steps of each training run
+CHECK_ROWS = 1024                 # phase 16(b): rows held card vs CPU
+TRAIN_ARCHS = ("granite-moe-3b-a800m", "graphsage-reddit", "sasrec")
 
 
 _T0 = time.perf_counter()
@@ -1712,9 +1736,10 @@ def device_breakdown(run, kinds) -> dict:
                 top={k: sorted(v, reverse=True)[:4] for k, v in top.items()})
 
 
-def graphsage_request(seed: int) -> dict:
+def graphsage_request(seed: int) -> tuple:
     """One graphsage-reddit full_config() inference request at full width
-    (see phase 7), held to the plain path on the CPU."""
+    (see phase 7), held to the plain path on the CPU.  Returns the results
+    and the request's padded batch (phase 16 trains on it)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import GNN_SHAPES
@@ -1836,7 +1861,7 @@ def graphsage_request(seed: int) -> dict:
         f" us, plain {kernel['plain_ms'] * 1e3:.1f} us, torch.sparse.mm "
         f"{kernel['library_ms'] * 1e3:.1f} us, bound "
         f"{kernel['bound_ms'] * 1e3:.1f} us")
-    return res
+    return res, batch
 
 
 def smoke_archs(seed: int) -> dict:
@@ -1872,6 +1897,369 @@ def smoke_archs(seed: int) -> dict:
             f"(n=2048, e=8192; max |err| {err:.2e}; {launches} kernel "
             f"launches)")
     return out
+
+
+# --------------------------------------------------------------------- #
+# phase 16: training on the card
+# --------------------------------------------------------------------- #
+
+
+def _tree_err(got, want, rtol: float, atol: float, what: str) -> float:
+    """Max |got - want| over two trees of tensors (``got`` on the card,
+    ``want`` on the CPU), after holding every leaf within the
+    tolerances."""
+    import torch
+    from repro_torch.models.common import tree_leaves
+    err = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        a = a.detach().cpu()
+        bad = ~((a - b).abs() <= atol + rtol * b.abs())
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: leaf {i} {tuple(b.shape)} differs "
+                                 f"in {int(bad.sum())} entries beyond "
+                                 f"rtol={rtol} atol={atol}")
+        if b.numel():
+            err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def csr_backward_vs_plain(batch, gen) -> dict:
+    """Phase 16(a): the segment sum's backward (the kernel over the
+    transposed layout) against torch's autograd of the plain version on
+    the same card, rtol = atol = 1e-5: at the GraphSAGE request's two
+    layer inputs (phase 7's padded batch: masked edges and empty rows),
+    and at ``_agg``'s edge-id form over the same edges; then the
+    backward's launch timed beside its byte bound and ``torch.sparse.mm``
+    of the transposed adjacency, and the transposed layout's build."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.csr_segment import csr_segment_plain
+    n = batch.node_feat.shape[0]
+    layout = ops.csr_layout(batch.senders, batch.receivers, n,
+                            batch.edge_mask)
+    edges = torch.arange(batch.senders.shape[0], device="cuda")
+    by_edge = ops.csr_layout(edges, batch.receivers, n, batch.edge_mask)
+    masked = int((~batch.edge_mask).sum())
+    empty = int((layout.degree() == 0).sum())
+    f = 128                                    # d_hidden: both layers' width
+    rows, max_err = [], 0.0
+    for what, lay, n_src in (("layer 1 (z = x @ w_nbr)", layout, n),
+                             ("layer 2 (h)", layout, n),
+                             ("_agg's edge ids", by_edge, edges.numel())):
+        x = torch.randn((n_src, f), generator=gen, device="cuda")
+        g = torch.randn((n, f), generator=gen, device="cuda")
+        grads = []
+        for fn in (lambda t: ops.segment_reduce_csr(lay, t, "sum"),
+                   lambda t: csr_segment_plain(*lay, t, "sum")):
+            xr = x.clone().requires_grad_(True)
+            torch.sum(fn(xr) * g).backward()
+            grads.append(xr.grad)
+        torch.cuda.synchronize()
+        err = close(grads[0], grads[1], "sum", what=f"backward at {what}")
+        max_err = max(max_err, err)
+        rows.append(dict(what=what, n_src=n_src, f=f, max_abs_err=err))
+        log(f"phase 16(a): csr backward at {what}: kernel == plain autograd "
+            f"(max |err| {err:.2e}; [{n_src}, {f}], {masked} masked edges, "
+            f"{empty} empty rows)")
+    # the backward's one launch, at layer 1: the transposed layout's sum
+    # of a [n, 128] gradient
+    g = torch.randn((n, f), generator=gen, device="cuda")
+    t_layout = layout.transposed(n)
+    res = dict(rows=rows, max_abs_err=max_err, masked_edges=masked,
+               empty_rows=empty, **time_csr(t_layout, g, "sum", False))
+    res["transpose_ms"] = cuda_ms(lambda: ops.Csr(*layout).transposed(n),
+                                  10)
+    log(f"phase 16(a): csr backward launch at layer 1 (transposed "
+        f"layout, {int(t_layout.row_off[-1] - t_layout.row_off[0])} "
+        f"edges, F={f}): kernel {res['ms'] * 1e3:.1f} us (call "
+        f"{res['call_ms'] * 1e3:.1f} us), plain "
+        f"{res['plain_ms'] * 1e3:.1f} us, torch.sparse.mm of the "
+        f"transposed adjacency {res['library_ms'] * 1e3:.1f} us, bound "
+        f"{res['bound_ms'] * 1e3:.1f} us (each input once); building "
+        f"the transposed layout {res['transpose_ms'] * 1e3:.1f} us "
+        f"(once per step)")
+    return res
+
+
+def sasrec_training(seed: int) -> dict:
+    """Phase 16(b): SASRec ``full_config()`` trained at
+    ``RECSYS_SHAPES["train_batch"]`` (B 65,536, L 50) from
+    ``sasrec_batches``: one step's loss and gradients on the first 1,024
+    rows card vs CPU (rtol = atol = 1e-4), then ``TRAIN_STEPS`` AdamW steps
+    (ms per step, peak memory, the loss falling), one profiled step's
+    device busy share; then ``serve_topk`` at ``serve_p99`` and
+    ``retrieval_cand``, scores card vs CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.configs.sasrec import full_config
+    from repro_torch.data.synthetic import sasrec_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.sasrec import (init_sasrec, params_to,
+                                           score_candidates, serve_topk,
+                                           train_loss)
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step, value_and_grad
+
+    cfg = full_config()
+    batch, steps = RECSYS_SHAPES["train_batch"]["batch"], TRAIN_STEPS
+    params = init_sasrec(cfg, seed, "cuda")
+    loss_fn = lambda p, *b: train_loss(p, *b, cfg)  # noqa: E731
+    data = sasrec_batches(cfg.n_items, batch, cfg.seq_len, seed=seed,
+                          device="cuda")
+    first = next(data)
+
+    # one step's loss and gradients, card vs CPU, on the first 1,024 rows
+    small = tuple(x[:CHECK_ROWS] for x in first)
+    loss_c, grads_c = value_and_grad(loss_fn, params, *small)
+    loss_h, grads_h = value_and_grad(loss_fn, params_to(params, "cpu"),
+                                     *(x.cpu() for x in small))
+    if abs(float(loss_c) - float(loss_h)) > 1e-5 * abs(float(loss_h)):
+        raise AssertionError(f"SASRec loss card {float(loss_c)} != CPU "
+                             f"{float(loss_h)}")
+    grad_err = _tree_err(grads_c, grads_h, 1e-4, 1e-4, "SASRec gradient")
+    del grads_c, grads_h
+    log(f"phase 16(b): sasrec full_config one step on {CHECK_ROWS} rows: "
+        f"loss card {float(loss_c):.6f} == CPU {float(loss_h):.6f}, "
+        f"gradients within 1e-4 (max |err| {grad_err:.2e})")
+
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=1000)
+    opt = adamw.init(params, opt_cfg)
+    step = make_train_step(loss_fn, opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    losses, step_s, data_s, b = [], [], [], first
+    for i in range(steps):
+        if i:
+            t = time.perf_counter()
+            b = next(data)
+            torch.cuda.synchronize()
+            data_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        params, opt, metrics = step(params, opt, *b)
+        losses.append(float(metrics["loss"]))   # a host read, as train.py
+        step_s.append(time.perf_counter() - t)
+    attn_launches = ops.attention.launches
+    res = dict(batch=batch, seq_len=cfg.seq_len, n_items=cfg.n_items,
+               losses=losses, step_s=step_s, data_s=data_s,
+               grad_max_abs_err=grad_err, loss_1024=float(loss_c),
+               attention_launches=attn_launches)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"SASRec loss did not fall: {losses}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"SASRec loss not finite: {losses}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    res["ms_per_step"] = 1e3 * steady
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_breakdown(
+        lambda: step(params, opt, *b),
+        {"matmul": MATMUL_WORDS,
+         "index (embedding gather/scatter)": ("index", "scatter",
+                                              "gather", "embedding"),
+         "softmax": ("softmax",)})
+    res["profile"] = prof
+    res["device_ms"] = sum(prof["device_us"].values()) / 1e3
+    res["busy_share"] = res["device_ms"] / res["ms_per_step"]
+    log(f"phase 16(b): sasrec full_config training, B={batch} L="
+        f"{cfg.seq_len}: {steps} AdamW steps, loss "
+        + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; {res['ms_per_step']:.1f} ms per step (median of steps "
+        f"2-{steps}, first {1e3 * step_s[0]:.1f} ms), batch drawn on "
+        f"the host {1e3 * sum(data_s) / max(len(data_s), 1):.1f} ms; "
+        f"peak {res['peak_gb']:.2f} GB; one step's device time "
+        f"{res['device_ms']:.1f} ms = {100 * res['busy_share']:.1f}% "
+        f"busy ({prof['device_kernels']} kernels; "
+        + ", ".join(f"{k} {v / 1e3:.1f} ms"
+                    for k, v in prof["device_us"].items())
+        + f"); attention launches {attn_launches} (T=50: the reference)")
+    for kind, rows in prof["top"].items():
+        for t_us, count, key in rows[:2]:
+            log(f"  {kind:34s} {t_us:10.1f} us  x{count:3d}  {key}")
+
+    # serving: serve_topk at serve_p99 and retrieval_cand, card vs CPU
+    rng = np.random.default_rng(seed + 5)
+    cpu_params = params_to(params, "cpu")
+    res["serve"] = {}
+    for name in ("serve_p99", "retrieval_cand"):
+        shape = RECSYS_SHAPES[name]
+        seq = first[0][:shape["batch"]]
+        cand = torch.from_numpy(rng.integers(
+            1, cfg.n_items, shape["n_cand"]).astype(np.int32)).cuda()
+        with torch.no_grad():
+            vals, idx = serve_topk(params, seq, cand, cfg)
+            want = score_candidates(cpu_params, seq.cpu(), cand.cpu(), cfg)
+            got = score_candidates(params, seq, cand, cfg).cpu()
+        bad = ~((got - want).abs() <= 1e-4 + 1e-4 * want.abs())
+        if bool(bad.any()):
+            raise AssertionError(f"{name}: scores card vs CPU differ in "
+                                 f"{int(bad.sum())} entries")
+        # the card's top 10 are the CPU's scores at those candidates, and
+        # no other candidate beats the tenth (within the tolerance)
+        at = torch.gather(want, 1, idx.cpu().long())
+        kth = torch.topk(want, 10, dim=-1).values[:, -1:]
+        if not (bool(((at - vals.cpu()).abs() <= 2e-4).all())
+                and bool((at >= kth - 2e-4).all())):
+            raise AssertionError(f"{name}: the card's top 10 are not the "
+                                 f"CPU's")
+        row = dict(batch=shape["batch"], n_cand=shape["n_cand"],
+                   max_abs_err=float((got - want).abs().max()))
+        with torch.no_grad():
+            row["ms"] = cuda_ms(lambda: serve_topk(params, seq, cand,
+                                                   cfg), 20)
+        log(f"phase 16(b): sasrec serve_topk at {name} (B="
+            f"{shape['batch']}, C={shape['n_cand']}): "
+            f"{row['ms']:.3f} ms per request; scores card == CPU "
+            f"(max |err| {row['max_abs_err']:.2e}), top 10 agree")
+        res["serve"][name] = row
+    return res
+
+
+def graphsage_training(batch, seed: int) -> dict:
+    """Phase 16(c): graphsage-reddit ``full_config()`` trained on phase
+    7's sampled subgraph (padded to ``minibatch_lg``, n = e = 262,144, F
+    602) with random labels on its live nodes: one step's loss and
+    gradients card vs CPU (rtol = atol = 1e-4), every parameter's card
+    gradient nonzero, then ``TRAIN_STEPS`` AdamW steps: ms per step and CSR
+    launches per step, forward and backward."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.graphsage_reddit import full_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.gnn import gnn_loss, init_gnn, params_to
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step, value_and_grad
+
+    cfg = full_config()
+    n = batch.node_feat.shape[0]
+    labels = np.random.default_rng(seed + 3).integers(
+        0, cfg.n_classes, n).astype(np.int32)
+    batch = batch._replace(labels=torch.from_numpy(labels).cuda())
+    params = init_gnn(cfg, seed, device="cuda")
+    loss_fn = lambda p, g: gnn_loss(p, g, cfg)  # noqa: E731
+    ops.reset_counts()
+    loss_c, grads_c = value_and_grad(loss_fn, params, batch)
+    torch.cuda.synchronize()
+    launches = (ops.segment_reduce.launches,
+                ops.segment_reduce.backward_launches)
+    t = time.perf_counter()
+    loss_h, grads_h = value_and_grad(loss_fn, params_to(params, "cpu"),
+                                     batch.to("cpu"))
+    cpu_s = time.perf_counter() - t
+    if abs(float(loss_c) - float(loss_h)) > 1e-4 + 1e-4 * abs(float(loss_h)):
+        raise AssertionError(f"GraphSAGE loss card {float(loss_c)} != CPU "
+                             f"{float(loss_h)}")
+    grad_err = _tree_err(grads_c, grads_h, 1e-4, 1e-4, "GraphSAGE gradient")
+    zero = [i for i, g in enumerate(tree_leaves(grads_c))
+            if not bool((g != 0).any())]
+    if zero:
+        raise AssertionError(f"GraphSAGE leaves {zero} got no gradient on "
+                             f"the card")
+    log(f"phase 16(c): graphsage full_config one step, n=e={n}: loss card "
+        f"{float(loss_c):.6f} == CPU {float(loss_h):.6f}, every one of "
+        f"{len(tree_leaves(grads_c))} parameters with a nonzero gradient, "
+        f"within 1e-4 of the CPU's (max |err| {grad_err:.2e}; CPU step "
+        f"{cpu_s:.2f} s); CSR launches {launches[0] - launches[1]} forward "
+        f"+ {launches[1]} backward")
+    if launches[1] == 0:
+        raise AssertionError("the GraphSAGE backward launched no kernel")
+
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=1000)
+    opt = adamw.init(params, opt_cfg)
+    step = make_train_step(loss_fn, opt_cfg)
+    # the path: counts set to 0 just before, read just after
+    ops.reset_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t)
+    fwd = ops.segment_reduce.launches - ops.segment_reduce.backward_launches
+    bwd = ops.segment_reduce.backward_launches
+    if fwd == 0 or bwd == 0:
+        raise AssertionError(f"GraphSAGE training launched {fwd} forward "
+                             f"and {bwd} backward CSR kernels")
+    res = dict(n=n, losses=losses, step_s=step_s, cpu_step_s=cpu_s,
+               grad_max_abs_err=grad_err, loss=float(loss_c),
+               launches=fwd + bwd,
+               forward_launches_per_step=fwd / TRAIN_STEPS,
+               backward_launches_per_step=bwd / TRAIN_STEPS)
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    res["ms_per_step"] = 1e3 * steady
+    log(f"phase 16(c): graphsage full_config training: {TRAIN_STEPS} AdamW "
+        f"steps, loss " + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; {res['ms_per_step']:.2f} ms per step (median of steps "
+        f"2-{TRAIN_STEPS}, first {1e3 * step_s[0]:.1f} ms); CSR launches per "
+        f"step {fwd / TRAIN_STEPS:g} forward + {bwd / TRAIN_STEPS:g} backward")
+    return res
+
+
+def train_launcher() -> dict:
+    """Phase 16(d): ``python -m repro_torch.launch.train`` for
+    granite-moe-3b-a800m (MoE), graphsage-reddit and sasrec, the three at
+    once; then, in this process, each arch trained to step 3 with a
+    checkpoint and restarted to step 6 on the card: the GNN (one fixed
+    batch) equal to an unbroken 6-step run, and every arch's restart
+    equal to the same restart on the CPU from a copy of the directory
+    (the trainer restarts its data stream, as JAX's does)."""
+    import os
+    import shutil
+    from repro_torch.launch.train import train
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--steps", str(TRAIN_STEPS)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for arch in TRAIN_ARCHS}
+    res = {}
+    try:
+        for arch, proc in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"launch.train --arch {arch} failed:"
+                                     f"\n{out}")
+            res[arch] = dict(cli=out.strip().splitlines()[-1])
+            log(f"phase 16(d): python -m repro_torch.launch.train --arch "
+                f"{arch} --steps {TRAIN_STEPS}: {res[arch]['cli']}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for arch in TRAIN_ARCHS:
+        d = CKPT_ROOT / f"train_{arch}"
+        shutil.rmtree(d, ignore_errors=True)
+        first = train(arch, 3, ckpt_dir=str(d), ckpt_every=3,
+                      log_every=0)["losses"]
+        shutil.copytree(d, str(d) + "_cpu")
+        t = time.perf_counter()
+        rest = train(arch, 6, ckpt_dir=str(d), ckpt_every=3,
+                     log_every=0)["losses"]
+        restart_s = time.perf_counter() - t
+        cpu = train(arch, 6, ckpt_dir=str(d) + "_cpu", ckpt_every=3,
+                    log_every=0, device="cpu")["losses"]
+        diff = max(abs(a - b) for a, b in zip(rest, cpu))
+        if len(rest) != 3 or diff > 1e-4 * max(abs(x) for x in cpu):
+            raise AssertionError(f"{arch}: restart on the card {rest} != on "
+                                 f"the CPU {cpu}")
+        row = dict(first=first, restarted=rest, restarted_cpu=cpu,
+                   restart_s=restart_s)
+        if arch == "graphsage-reddit":
+            full = train(arch, 6, log_every=0)["losses"]
+            gap = max(abs(a - b) for a, b in zip(first + rest, full))
+            if gap > 1e-5 * max(abs(x) for x in full):
+                raise AssertionError(f"{arch}: restarted {first + rest} != "
+                                     f"unbroken {full}")
+            row["unbroken"] = full
+        shutil.rmtree(d)
+        shutil.rmtree(str(d) + "_cpu")
+        res[arch].update(row)
+        log(f"phase 16(d): {arch} restarted at step 3 from its checkpoint: "
+            f"losses " + ", ".join(f"{x:.5f}" for x in rest)
+            + f" == the CPU's restart (max |diff| {diff:.1e})"
+            + (" and == the unbroken run's" if "unbroken" in row else "")
+            + f"; restart and 3 steps {restart_s:.2f} s")
+    return res
 
 
 # --------------------------------------------------------------------- #
@@ -2667,10 +3055,23 @@ def main() -> int:
     # 6. the CSR kernel vs plain at the GNN shapes
     csr_rows, csr_err = csr_vs_plain(gen)
     # 7. the GraphSAGE path (counts set to 0 inside, just before it)
-    sage = graphsage_request(seed)
+    sage, sage_batch = graphsage_request(seed)
     # 8. the other archs' smoke configs, card vs CPU
     archs = smoke_archs(seed)
     torch.cuda.empty_cache()
+    # 16. training: (a) the CSR backward vs plain autograd; (b) SASRec at
+    # full width (no kernel on its path); (c) GraphSAGE at full width on
+    # phase 7's batch (counts set to 0 inside, just before its steps);
+    # (d) the launcher and restarts
+    t = time.perf_counter()
+    csr_bwd = csr_backward_vs_plain(sage_batch, gen)
+    sasrec_train = sasrec_training(seed)
+    torch.cuda.empty_cache()
+    sage_train = graphsage_training(sage_batch, seed)
+    del sage_batch
+    torch.cuda.empty_cache()
+    launcher = train_launcher()
+    log(f"phase 16: {time.perf_counter() - t:.1f} s")
 
     # 9. the flash-attention kernel vs plain, and its times at the layer
     # shape
@@ -2719,7 +3120,9 @@ def main() -> int:
         sharded_checkpoint=sharded_ckpt, sharded_kill_bar=kill_bar,
         summarize_stream=driver, rebuild_kernel_vs_plain=rebuild_a,
         rebuild_full_size=rebuild_b,
-        rebuild_live_summarizer=rebuild_d),
+        rebuild_live_summarizer=rebuild_d, csr_backward=csr_bwd,
+        sasrec_training=sasrec_train, graphsage_training=sage_train,
+        train_launcher=launcher),
         indent=1))
 
     entry = dict(name="ht_probe", route="cuda",
@@ -2742,11 +3145,20 @@ def main() -> int:
                      source="src/repro_torch/csrc/csr_segment.cu",
                      replaces="src/repro/kernels/csr_segment.py:34",
                      launches=sage["launches"],
-                     max_abs_err=max(csr_err, k["max_abs_err"]),
+                     max_abs_err=max(csr_err, k["max_abs_err"],
+                                     csr_bwd["max_abs_err"]),
                      ms=k["ms"], call_ms=k["call_ms"],
                      plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
                      bound_by="bytes", library_ms=k["library_ms"],
-                     shape="graphsage request, layer 1, F=128, sum")
+                     shape="graphsage request, layer 1, F=128, sum",
+                     train_launches=sage_train["launches"],
+                     forward_launches_per_train_step=sage_train[
+                         "forward_launches_per_step"],
+                     backward_launches_per_train_step=sage_train[
+                         "backward_launches_per_step"],
+                     backward={key: csr_bwd[key] for key in (
+                         "ms", "call_ms", "plain_ms", "bound_ms",
+                         "library_ms", "transpose_ms", "max_abs_err")})
     attn_entry = dict(name="flash_attention", route="cuda",
                       source="src/repro_torch/csrc/flash_attention.cu",
                       replaces="src/repro/kernels/flash_attention.py:25",

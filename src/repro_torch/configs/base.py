@@ -1,6 +1,33 @@
-"""The GNN and LM input shapes of ``repro/configs/base.py`` (no arch
-registry)."""
+"""Arch registry and input shapes (port of ``repro/configs/base.py``).
+
+An :class:`ArchSpec` binds an arch's full and smoke configurations;
+``configs/__init__.py`` imports every ported config, which registers
+itself in :data:`REGISTRY`.  The dry-run's shape cells (``ShapeCell`` and
+the ``*_cells`` builders) are not ported yet: ``cells`` stays ``()``.
+"""
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str                    # lm | gnn | recsys | mosso
+    source: str                    # public-literature citation
+    make_config: Callable[[], Any]
+    make_smoke_config: Callable[[], Any]
+    cells: Tuple[Any, ...] = ()
+    technique_applicable: str = ""
+
+
+REGISTRY: Dict[str, ArchSpec] = {}
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    REGISTRY[spec.arch_id] = spec
+    return spec
 
 
 def _pad512(x: int) -> int:
@@ -28,4 +55,13 @@ LM_SHAPES = dict(
     prefill_32k=dict(seq=32768, batch=32, kind="prefill"),
     decode_32k=dict(seq=32768, batch=128, kind="decode"),
     long_500k=dict(seq=524288, batch=1, kind="decode"),
+)
+
+
+# the recsys cells: sequences per batch, and candidates per request
+RECSYS_SHAPES = dict(
+    train_batch=dict(batch=65536, kind="train"),
+    serve_p99=dict(batch=512, kind="serve", n_cand=4096),
+    serve_bulk=dict(batch=262144, kind="serve", n_cand=4096),
+    retrieval_cand=dict(batch=1, kind="serve", n_cand=1_000_000),
 )

@@ -1,4 +1,5 @@
 """egnn [gnn]: 4L d_hidden=64 E(n)-equivariant.  [arXiv:2102.09844]"""
+from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.gnn import GNNConfig
 
 ARCH_ID = "egnn"
@@ -12,3 +13,9 @@ def full_config() -> GNNConfig:
 def smoke_config() -> GNNConfig:
     return GNNConfig(name=ARCH_ID + "-smoke", arch="egnn", n_layers=2,
                      d_hidden=16, d_in=8, n_classes=4)
+
+
+SPEC = register(ArchSpec(
+    arch_id=ARCH_ID, family="gnn", source="arXiv:2102.09844",
+    make_config=full_config, make_smoke_config=smoke_config,
+    technique_applicable="marginal (molecular graphs, see dimenet note)"))

@@ -2,6 +2,7 @@
 MoE 40e top-8.  [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]"""
 import torch
 
+from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "granite-moe-3b-a800m"
@@ -20,3 +21,10 @@ def smoke_config() -> TransformerConfig:
         n_kv_heads=2, d_head=8, d_ff=32, vocab=211, attn="gqa",
         n_experts=5, top_k=2, max_seq=128, remat=False,
         param_dtype=torch.float32, compute_dtype=torch.float32)
+
+
+SPEC = register(ArchSpec(
+    arch_id=ARCH_ID, family="lm",
+    source="hf:ibm-granite/granite-3.0-1b-a400m-base",
+    make_config=full_config, make_smoke_config=smoke_config,
+    technique_applicable="no (dense LM; exercises MoE/EP substrate)"))

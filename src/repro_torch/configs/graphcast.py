@@ -1,5 +1,6 @@
 """graphcast [gnn]: 16L d_hidden=512 agg=sum n_vars=227,
 encoder-processor-decoder mesh GNN.  [arXiv:2212.12794]"""
+from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.gnn import GNNConfig
 
 ARCH_ID = "graphcast"
@@ -14,3 +15,10 @@ def full_config() -> GNNConfig:
 def smoke_config() -> GNNConfig:
     return GNNConfig(name=ARCH_ID + "-smoke", arch="graphcast", n_layers=2,
                      d_hidden=32, d_in=16, n_classes=8)
+
+
+SPEC = register(ArchSpec(
+    arch_id=ARCH_ID, family="gnn", source="arXiv:2212.12794",
+    make_config=full_config, make_smoke_config=smoke_config,
+    technique_applicable=("partial: summarize-once for the static bipartite "
+                          "grid<->mesh graphs; processor mesh gains little")))

@@ -5,6 +5,7 @@ Its full configuration (about 405 B parameters) does not fit one 80 GB
 card; the port runs its smoke configuration."""
 import torch
 
+from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "llama3-405b"
@@ -23,3 +24,9 @@ def smoke_config() -> TransformerConfig:
         n_kv_heads=2, d_head=8, d_ff=160, vocab=211, attn="gqa",
         max_seq=128, remat=False,
         param_dtype=torch.float32, compute_dtype=torch.float32)
+
+
+SPEC = register(ArchSpec(
+    arch_id=ARCH_ID, family="lm", source="arXiv:2407.21783",
+    make_config=full_config, make_smoke_config=smoke_config,
+    technique_applicable="no (dense LM; the FSDP/TP stress test)"))

@@ -2,6 +2,7 @@
 MoE 64e top-6.  [hf:moonshotai/Moonlight-16B-A3B; hf]"""
 import torch
 
+from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "moonshot-v1-16b-a3b"
@@ -20,3 +21,9 @@ def smoke_config() -> TransformerConfig:
         n_kv_heads=4, d_head=16, d_ff=32, vocab=211, attn="gqa",
         n_experts=8, top_k=2, max_seq=128, remat=False,
         param_dtype=torch.float32, compute_dtype=torch.float32)
+
+
+SPEC = register(ArchSpec(
+    arch_id=ARCH_ID, family="lm", source="hf:moonshotai/Moonlight-16B-A3B",
+    make_config=full_config, make_smoke_config=smoke_config,
+    technique_applicable="no (dense LM; exercises MoE/EP substrate)"))

@@ -1,6 +1,7 @@
 """The paper's own workload: batched incremental summarization of a fully
 dynamic graph stream (MoSSo, KDD 2020), as in ``repro/configs/
 mosso_stream.py``."""
+from repro_torch.configs.base import ArchSpec, register
 from repro_torch.core.engine.state import EngineConfig
 
 ARCH_ID = "mosso-stream"
@@ -15,3 +16,9 @@ def full_config() -> EngineConfig:
 def smoke_config() -> EngineConfig:
     return EngineConfig(n_cap=512, m_cap=4096, d_cap=32, sn_cap=24,
                         c=8, batch=16, escape=0.3)
+
+
+SPEC = register(ArchSpec(
+    arch_id=ARCH_ID, family="mosso", source="KDD 2020 (this paper)",
+    make_config=full_config, make_smoke_config=smoke_config,
+    technique_applicable="this IS the technique"))

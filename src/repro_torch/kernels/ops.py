@@ -9,9 +9,11 @@ wrapper launches it and nowhere else: ``ht_probe.launches`` (with
 ``ht_probe.by_batch`` by each job's ``(mode, lanes)``; :func:`ht_probe`
 and :func:`ht_probe_many` share the three), ``ht_rebuild.launches``,
 ``segment_reduce.launches``
-(incremented by :func:`segment_reduce_csr`, the one place that launches
-the CSR kernel) and ``attention.launches`` (with ``attention.by_variant``
-by :func:`~repro_torch.kernels.flash_attention.kernel_variant`), so a run
+(incremented by :func:`segment_reduce_csr`, forward and backward, the one
+place that launches the CSR kernel; ``segment_reduce.backward_launches``
+counts the backward's share) and ``attention.launches`` (with
+``attention.by_variant`` by
+:func:`~repro_torch.kernels.flash_attention.kernel_variant`), so a run
 can show that its path went through them and which kernel ran.
 
 The graph ops (port of ``repro/kernels/ops.py``) all reduce through the
@@ -22,7 +24,7 @@ CSR segment-reduce kernel: :func:`segment_reduce`, :func:`spmm`,
 from __future__ import annotations
 
 from collections import Counter
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -106,16 +108,50 @@ ht_rebuild.launches = 0
 # --------------------------------------------------------------------- #
 
 
-class Csr(NamedTuple):
+class Csr:
     """An edge list laid out by destination row: ``senders`` (int32, in
     row order) and ``row_off`` (int32[n_out + 1]); row ``r``'s edges are
-    ``senders[row_off[r]:row_off[r + 1]]``."""
-    senders: torch.Tensor
-    row_off: torch.Tensor
+    ``senders[row_off[r]:row_off[r + 1]]``.  Unpacks as ``(senders,
+    row_off)``.  Keeps the transposed layouts that the segment sum's
+    backward builds, so the layers that share a layout build each once."""
+
+    def __init__(self, senders: torch.Tensor, row_off: torch.Tensor):
+        self.senders = senders
+        self.row_off = row_off
+        self._transposed = {}
+
+    def __iter__(self):
+        return iter((self.senders, self.row_off))
 
     def degree(self) -> torch.Tensor:
         """Edges per row (int32[n_out])."""
         return self.row_off[1:] - self.row_off[:-1]
+
+    def transposed(self, n_src: int) -> "Csr":
+        """The same edges laid out by sender (rows ``[0, n_src)``), each
+        carrying its destination row as the row to gather: ``out[s] =
+        sum of g[r] over the edges r <- s`` is the segment sum's
+        gradient.  Edges outside ``row_off[0]:row_off[-1]`` (receivers
+        that ``build_csr`` dropped) drop out here too.  No host sync."""
+        t = self._transposed.get(n_src)
+        if t is None:
+            e, n_out = self.senders.numel(), self.row_off.numel() - 1
+            dev = self.senders.device
+            off = self.row_off.to(torch.int64)
+            # every edge slot's row: -1 before row_off[0], n_out after
+            # row_off[-1]; those edges get sender -1, which sorts first
+            # and drops out of the rows
+            reps = torch.diff(off, prepend=off.new_zeros(1),
+                              append=off.new_full((1,), e))
+            rows = torch.repeat_interleave(
+                torch.arange(-1, n_out + 1, device=dev), reps,
+                output_size=e)
+            live = (rows >= 0) & (rows < n_out)
+            by_sender = torch.where(live, self.senders.to(torch.int64), -1)
+            order, row_off = build_csr(by_sender, n_src)
+            t = Csr(rows[order].to(torch.int32).contiguous(), row_off)
+            self._transposed[n_src] = t
+        return t
 
 
 def csr_layout(senders: torch.Tensor, receivers: torch.Tensor, n_out: int,
@@ -127,17 +163,57 @@ def csr_layout(senders: torch.Tensor, receivers: torch.Tensor, n_out: int,
                row_off)
 
 
-def segment_reduce_csr(layout: Csr, x: torch.Tensor,
-                       reduce: str = "sum") -> torch.Tensor:
-    """``out[r] = reduce over row r's edges of x[sender]`` (float32
-    ``x[N, F]``); rows with no edge get 0, ±inf inputs pass min/max."""
-    x = x.contiguous()
+def _segment_reduce(layout: Csr, x: torch.Tensor, reduce: str,
+                    backward: bool = False) -> torch.Tensor:
+    """The kernel on a CUDA tensor (counted), the plain version on a CPU
+    one."""
     if _route(x, "segment_reduce"):
         out = csr_segment_cuda(layout.senders, layout.row_off, x, reduce)
         if out.numel():
             segment_reduce.launches += 1
+            segment_reduce.backward_launches += backward
         return out
     return csr_segment_plain(layout.senders, layout.row_off, x, reduce)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """The segment sum with its gradient: ``grad_x`` is the segment sum
+    of ``grad_out`` over the transposed layout, through the same kernel
+    (or plain version), so the CPU runs the backward the card runs."""
+
+    @staticmethod
+    def forward(ctx, layout: Csr, x: torch.Tensor) -> torch.Tensor:
+        ctx.layout, ctx.n_src = layout, x.shape[0]
+        return _segment_reduce(layout, x, "sum")
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        if grad_out.shape[0] == 0:      # no row, so no edge to carry back
+            return None, grad_out.new_zeros((ctx.n_src, grad_out.shape[1]))
+        t = ctx.layout.transposed(ctx.n_src)
+        return None, _segment_reduce(t, grad_out.contiguous(), "sum",
+                                     backward=True)
+
+
+def segment_reduce_csr(layout: Csr, x: torch.Tensor,
+                       reduce: str = "sum") -> torch.Tensor:
+    """``out[r] = reduce over row r's edges of x[sender]`` (float32
+    ``x[N, F]``); rows with no edge get 0, ±inf inputs pass min/max.
+
+    Where grad mode is on and ``x`` requires grad, ``sum`` records its
+    backward (:class:`_SegmentSum`); ``min``/``max`` raise
+    ``NotImplementedError``: no path differentiates them (ROADMAP queue
+    3)."""
+    x = x.contiguous()
+    if torch.is_grad_enabled() and x.requires_grad:
+        if reduce != "sum":
+            raise NotImplementedError(
+                f"segment_reduce_csr({reduce!r}) has no backward: only sum "
+                f"is differentiated (ROADMAP queue 3)")
+        return _SegmentSum.apply(layout, x)
+    return _segment_reduce(layout, x, reduce)
 
 
 def segment_reduce(senders: torch.Tensor, receivers: torch.Tensor,
@@ -150,6 +226,7 @@ def segment_reduce(senders: torch.Tensor, receivers: torch.Tensor,
 
 
 segment_reduce.launches = 0
+segment_reduce.backward_launches = 0
 
 
 def spmm(senders: torch.Tensor, receivers: torch.Tensor,
@@ -226,10 +303,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensor runs its plain version.  The kernel route raises
     ``ValueError`` for causal ``Tq != Tk``, ``v``'s width different from
     q's, and a head width the kernel is not built for
-    (``flash_attention.check_args``).
+    (``flash_attention.check_args``), and ``NotImplementedError`` on
+    every device where grad mode is on and ``q``, ``k`` or ``v`` requires
+    grad: the kernel has no backward, as JAX's ``pallas_call`` has none
+    (ROADMAP queue 3, fault 3).  The reference route stays
+    differentiable.
     """
     if bias is not None or q.shape[2] % 128 or k.shape[2] % 128:
         return ref.flash_attention_ref(q, k, v, causal, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "the flash-attention kernel route has no backward (fault 3 of "
+            "ROADMAP queue 3: the TPU kernel's pallas_call has none "
+            "either); train at a length that is not a multiple of 128, "
+            "which takes the reference")
     if _route(q, "attention"):
         out = flash_attention_cuda(q, k, v, causal=causal)
         attention.launches += 1
@@ -249,5 +336,6 @@ def reset_counts() -> None:
     ht_probe.by_batch = Counter()
     ht_rebuild.launches = 0
     segment_reduce.launches = 0
+    segment_reduce.backward_launches = 0
     attention.launches = 0
     attention.by_variant = Counter()

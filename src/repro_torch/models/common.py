@@ -71,6 +71,19 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (torch.nn.functional.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in float32 (a stable logsumexp); with ``mask``, the
+    mean over the positions it marks."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)
+
+
 def param_count(params) -> int:
     """Elements over every tensor of a nested dict/list of parameters."""
     if isinstance(params, torch.Tensor):
@@ -86,6 +99,22 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict/list, in :func:`tree_map`'s order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with its tensors replaced, in
+    :func:`tree_leaves`'s order, by ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def params_to(params, device):

@@ -6,8 +6,9 @@ so on the card message passing runs the CSR kernel; the matrix products
 stay ``torch.matmul``.  (The JAX package's docstring says its message
 passing is routed through its kernel layer, but its ``_agg`` calls
 ``jax.ops.segment_sum``; the port does what that docstring says, which is
-the same function.)  Forward only: the loss and backward wait for the
-training slice.
+the same function.)  :func:`gnn_loss` trains through them: the segment
+sum's backward is the same kernel over the transposed layout
+(``kernels/ops.py::segment_reduce_csr``).
 
 Parameters are nested dicts and lists of tensors, laid out as the JAX
 package's, so :func:`params_from_numpy` carries JAX-initialised weights
@@ -308,3 +309,12 @@ def init_gnn(cfg: GNNConfig, seed: int = 0, device="cuda") -> Params:
 def gnn_forward(params: Params, g: GraphBatch,
                 cfg: GNNConfig) -> torch.Tensor:
     return GNN_FORWARDS[cfg.arch](params, g, cfg)
+
+
+def gnn_loss(params: Params, g: GraphBatch, cfg: GNNConfig) -> torch.Tensor:
+    """Mean NLL of the labels over the nodes ``node_mask`` marks."""
+    logits = gnn_forward(params, g, cfg).to(torch.float32)
+    nll = -torch.log_softmax(logits, dim=-1)[
+        torch.arange(logits.shape[0], device=logits.device), g.labels.long()]
+    m = g.node_mask.to(torch.float32)
+    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1)

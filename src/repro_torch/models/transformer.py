@@ -6,8 +6,10 @@ length is a multiple of 128 runs the flash-attention kernel on the card
 (its plain version on the CPU); a decode step passes a bias with one
 query row, which sends it to ``kernels/ref.py`` on every device, as in
 the JAX package.  The projections, the FFN and the MoE expert products
-stay ``torch.matmul``.  Inference only: the loss and backward wait for
-the training slice.
+stay ``torch.matmul``.  :func:`loss_fn` trains through the same layers;
+the attention kernel has no backward (nor has the TPU kernel), so a
+training call must take the reference route (``train.py`` trains at
+T = 64), and the kernel route raises under autograd.
 
 Parameters are nested dicts of tensors laid out as the JAX package's,
 layer leaves stacked on a leading ``[L]`` axis, so ``params_from_numpy``
@@ -29,7 +31,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.common import (  # noqa: F401 (re-exported)
-    apply_rope, dense_init, params_from_numpy, params_to, rms_norm, swiglu)
+    apply_rope, cross_entropy, dense_init, params_from_numpy, params_to,
+    rms_norm, swiglu)
 
 Params = Dict[str, Any]
 
@@ -238,11 +241,11 @@ def _mask_pad_vocab(logits: torch.Tensor,
     return logits.masked_fill(pad, -1e30)
 
 
-@torch.no_grad()
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+def forward_logits(params: Params, tokens: torch.Tensor,
+                   cfg: TransformerConfig) -> torch.Tensor:
     """tokens ``[B, T]`` -> logits ``[B, T, V_padded]``, layer by layer
-    over the stacked parameters."""
+    over the stacked parameters, recording gradients where grad mode is
+    on (:func:`loss_fn`'s forward)."""
     _check_gqa(cfg)
     h = params["embed"][tokens].to(cfg.compute_dtype)
     pos = torch.arange(tokens.shape[1], device=tokens.device).expand(
@@ -252,6 +255,19 @@ def forward(params: Params, tokens: torch.Tensor,
     h = rms_norm(h, params["ln_f"])
     logits = h @ params["lm_head"].to(cfg.compute_dtype)
     return _mask_pad_vocab(logits, cfg)
+
+
+@torch.no_grad()
+def forward(params: Params, tokens: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """The serving forward: :func:`forward_logits` with no gradient."""
+    return forward_logits(params, tokens, cfg)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Mean next-token NLL of ``labels`` ``[B, T]``."""
+    return cross_entropy(forward_logits(params, tokens, cfg), labels)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,

@@ -148,6 +148,42 @@ def test_kernel_route_raises_where_the_tpu_kernel_is_wrong():
         ops.attention(q, k, v)
 
 
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_kernel_route_raises_under_autograd(needs_grad):
+    """The kernel has no backward (nor has the TPU kernel's pallas_call):
+    with grad mode on and an input that requires grad, the kernel route
+    raises on the CPU as on a card; under no_grad it runs."""
+    qkv = dict(zip("qkv", (torch.from_numpy(a)
+                           for a in _qkv(1, 4, 2, 128, 128, 8, 13))))
+    qkv[needs_grad].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="fault 3"):
+        ops.attention(qkv["q"], qkv["k"], qkv["v"])
+    with torch.no_grad():
+        ops.attention(qkv["q"], qkv["k"], qkv["v"])
+
+
+def test_reference_route_stays_differentiable():
+    """A bias, or T not a multiple of 128, takes the reference, whose
+    gradient is torch's own: held to JAX's gradient of its reference."""
+    import jax
+    for t, bias in ((100, None), (128, np.zeros((1, 1, 1, 128),
+                                                np.float32))):
+        q, k, v = _qkv(1, 4, 2, t, t, 8, 14)
+        w = np.random.default_rng(15).normal(size=q.shape).astype(
+            np.float32)
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                      for a in (q, k, v))
+        tb = None if bias is None else torch.from_numpy(bias)
+        torch.sum(ops.attention(tq, tk, tv, bias=tb)
+                  * torch.from_numpy(w)).backward()
+        jb = None if bias is None else jnp.asarray(bias)
+        want = jax.grad(lambda a, b, c: jnp.sum(jref.flash_attention_ref(
+            a, b, c, True, jb) * w), argnums=(0, 1, 2))(q, k, v)
+        for got, exp in zip((tq.grad, tk.grad, tv.grad), want):
+            np.testing.assert_allclose(got.numpy(), np.asarray(exp),
+                                       rtol=1e-5, atol=1e-5)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 128, 128, 8, 12))
     with pytest.raises(ValueError, match="needs CUDA tensors"):

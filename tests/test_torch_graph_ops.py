@@ -104,6 +104,83 @@ def test_segment_reduce_drops_masked_and_out_of_range_edges():
     _check(got, want, "sum")
 
 
+def _dense_adjacency(s, r, n_out, n_src, keep):
+    """``A[r, s]`` counts the kept edges r <- s (numpy, float64)."""
+    a = np.zeros((n_out, n_src))
+    np.add.at(a, (r[keep], s[keep]), 1.0)
+    return a
+
+
+@pytest.mark.parametrize("form", ["nodes", "edge ids"])
+def test_segment_sum_backward_matches_dense(form):
+    """The segment sum's gradient is ``A^T g`` for the kept edges: the
+    transposed layout's segment sum, with masked edges, receivers out of
+    range (both dropped) and empty rows on both sides.  ``edge ids`` is
+    ``_agg``'s form: the senders are the edges themselves."""
+    n, e, f = 50, 160, 7
+    s, r, x = _graph(n, e, f, 21)
+    r[::9] = -3                                       # out of range, low
+    r[4::11] = n + 2                                  # out of range, high
+    r[r == 5] = 6                                     # an empty row
+    mask = np.random.default_rng(21).random(e) < 0.7
+    if form == "edge ids":
+        s = np.arange(e, dtype=np.int32)
+        x = np.random.default_rng(22).normal(size=(e, f)).astype(np.float32)
+    keep = mask & (r >= 0) & (r < n)
+    g = np.random.default_rng(23).normal(size=(n, f)).astype(np.float32)
+    layout = ops.csr_layout(torch.from_numpy(s), torch.from_numpy(r), n,
+                            torch.from_numpy(mask))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out = ops.segment_reduce_csr(layout, tx, "sum")
+    a = _dense_adjacency(s, r, n, x.shape[0], keep)
+    np.testing.assert_allclose(out.detach().numpy(), a @ x, rtol=1e-5,
+                               atol=1e-5)
+    ops.reset_counts()
+    torch.sum(out * torch.from_numpy(g)).backward()
+    np.testing.assert_allclose(tx.grad.numpy(), a.T @ g, rtol=1e-5,
+                               atol=1e-5)
+    assert not tx.grad[np.flatnonzero(~np.isin(np.arange(x.shape[0]),
+                                               s[keep]))].any()
+    assert ops.segment_reduce.launches == 0           # the plain version
+    # the transposed layout is built once per layout and kept
+    assert layout.transposed(x.shape[0]) is layout.transposed(x.shape[0])
+
+
+def test_segment_sum_backward_with_no_rows():
+    """A layout with no rows keeps none of its edges: a zero gradient."""
+    s, r, x = _graph(10, 40, 3, 27)
+    layout = ops.csr_layout(*map(torch.from_numpy, (s, r)), 0)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out = ops.segment_reduce_csr(layout, tx, "sum")
+    assert out.shape == (0, 3)
+    torch.sum(out).backward()
+    assert tx.grad.shape == tx.shape and not tx.grad.any()
+
+
+def test_segment_sum_backward_skips_inputs_needing_no_grad():
+    s, r, x = _graph(30, 90, 4, 24)
+    layout = ops.csr_layout(*map(torch.from_numpy, (s, r)), 30)
+    w = torch.ones(4, requires_grad=True)
+    out = ops.segment_reduce_csr(layout, torch.from_numpy(x), "sum")
+    assert not out.requires_grad                       # no backward node
+    torch.sum(out * w).backward()
+    np.testing.assert_allclose(w.grad.numpy(), out.detach().sum(0).numpy())
+    assert layout._transposed == {}                    # never built
+
+
+@pytest.mark.parametrize("reduce", ["min", "max"])
+def test_min_max_refuse_autograd(reduce):
+    s, r, x = _graph(20, 60, 3, 25)
+    layout = ops.csr_layout(*map(torch.from_numpy, (s, r)), 20)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.segment_reduce_csr(layout, tx, reduce)
+    with torch.no_grad():
+        _check(ops.segment_reduce_csr(layout, tx, reduce),
+               jref.segment_reduce_ref(*map(jnp.array, (s, r, x)), 20,
+                                       reduce), reduce)
+
+
 @pytest.mark.parametrize("rows,dim,bags", [(200, 16, 32), (1000, 64, 100)])
 @pytest.mark.parametrize("mode", ["sum", "mean"])
 def test_embedding_bag_matches_jax_ref(rows, dim, bags, mode):
@@ -236,3 +313,26 @@ def test_cuda_kernel_matches_plain_on_the_card():
         want = csr_segment.csr_segment_plain(*layout, tx, reduce)
         torch.cuda.synchronize()
         _check(got.cpu(), want.cpu(), reduce)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_matches_plain_autograd_on_the_card():
+    """The segment sum's backward through the kernel against torch's own
+    autograd of the plain version, on the card (skipped elsewhere):
+    within 1e-5, with masked edges and empty rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s, r, x = _graph(300, 2000, 130, 26)
+    r[r < 20] = 20                                    # empty rows
+    mask = torch.from_numpy(np.random.default_rng(26).random(2000) < 0.8)
+    layout = ops.csr_layout(torch.from_numpy(s).cuda(),
+                            torch.from_numpy(r).cuda(), 300, mask.cuda())
+    g = torch.randn(300, 130, device="cuda")
+    grads = []
+    for fn in (lambda t: ops.segment_reduce_csr(layout, t, "sum"),
+               lambda t: csr_segment.csr_segment_plain(*layout, t, "sum")):
+        tx = torch.from_numpy(x).cuda().requires_grad_(True)
+        torch.sum(fn(tx) * g).backward()
+        grads.append(tx.grad)
+    torch.cuda.synchronize()
+    _check(grads[0].cpu(), grads[1].cpu(), "sum")

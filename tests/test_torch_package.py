@@ -38,7 +38,9 @@ def test_port_imports_nothing_of_jax_or_repro():
                  "launch.summarize_stream", "core.reference",
                  "core.reference.algorithms", "core.reference.weights",
                  "testing", "testing.proptest", "launch.quickstart",
-                 "kernels.ht_rebuild"):
+                 "kernels.ht_rebuild", "configs.sasrec", "models.sasrec",
+                 "optim", "optim.adamw", "train", "train.step",
+                 "launch.train"):
         assert f"repro_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
