@@ -103,11 +103,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the run well inside its limit on hosts that ran phases 1-12 in 467-499
    s).  Run A is uninterrupted with ``save()`` every 2 chunks and at the
    end (``tools/recovery_check.py`` also times each chunk beside the same
-   chunk unjournaled); run B is killed at chunk boundary 3, after the last
-   dispatch (``ft.inject.drive``), and a fresh summarizer ``recover()``s
-   (epoch 2 + 1 journaled chunk): every leaf bitwise, ``stats()`` (less
-   ``stream_retries``) and degree / has_edge / neighbors reads equal
-   A's; then A's newest checkpoint is corrupted and ``recover()`` must
+   chunk unjournaled); its directory is copied at chunk boundary 3,
+   before the last save, which is what a kill there leaves on disk
+   (``ft.inject.drive`` with ``kill_at_chunk=3``, as the CPU tests and
+   phase 14(b) kill, without processing the three chunks again), and a
+   fresh summarizer ``recover()``s that copy (epoch 2 + 1 journaled
+   chunk): every leaf bitwise, ``stats()`` (less ``stream_retries``) and
+   degree / has_edge / neighbors reads equal A's; then A's newest
+   checkpoint is corrupted and ``recover()`` must
    fall back one epoch and land bitwise.  Seconds per ``save()`` by phase
    (host copy, ``np.savez``, fsync, sha256), bytes on disk, ms per journal
    append, seconds per ``restore()`` and ``recover()``, us per change
@@ -165,7 +168,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    granite-moe-3b-a800m, graphsage-reddit and sasrec (4 steps, the three
    at once), and each trained to step 3 with a checkpoint and restarted
    to step 6: equal to the same restart on the CPU (1e-4), the GNN's
-   equal to an unbroken run (1e-5).
+   equal to an unbroken run (1e-5);
+17. MLA, after phase 10: (a) the flash-attention kernel at ``d_v != d_q``
+   against its plain version: at minicpm3-4b's smoke pair (D, Dv) =
+   (32, 24), one KV head, causal and not, in float32 and bf16, at its
+   layer's widths (288, 256) with B = 2, H = 40, Hkv = 1 and T = 512,
+   causal and not, in bf16, and at its full layer (T = 4096, causal,
+   contiguous as the transformer hands it over) in bf16 (the ``mla``
+   variant) and float32 (SIMT); float32 within rtol = atol = 2e-3, bf16
+   within rtol = atol = 3e-2 and a largest per-row relative error
+   ``||got - want|| / ||want||`` of 1e-2; the bf16 layer's device time,
+   the call from Python, the plain version and
+   ``scaled_dot_product_attention`` (k and v copied out to 40 heads, under
+   ``EFFICIENT_ATTENTION``: no fused backend takes the GQA call at
+   ``d_v != d_q``) beside the operation bound; (b) minicpm3-4b's full widths
+   with 2 of its 62 layers in float32, B = 1, T = 512, card vs CPU
+   (1e-3) and decode vs forward (2e-3); (c) one prefill request at its
+   ``full_config()`` (62 layers, bf16, 4.26 B parameters drawn on the
+   card), B = 2, T = 4096: finite logits, 62 kernel launches, all of the
+   ``mla`` variant (by the wrapper's count and by the profiled kernel
+   names), ms cold and warm, device time by kind, peak memory; (d)
+   ``serve(minicpm3-4b, full=True)``, batch 4, prompt 16, 32 tokens, ms
+   per token beside the weight-read bound, and a profiled decode step;
+   (e) its smoke config at T = 256, card (kernel) vs CPU (plain), 1e-4.
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -224,6 +249,22 @@ STRIDED_SHAPES = ((2, 4, 2, 256, 64, True), (1, 8, 8, 128, 128, True),
                   (1, 4, 1, 1024, 128, True))
 LAYER_SHAPE = (2, 48, 8, 4096, 128, True)   # internlm2-20b, B=2 T=4096
 GRANITE_LAYER = (2, 24, 8, 4096, 64, True)  # granite-moe-3b-a800m
+# minicpm3-4b's MLA layer (B, H, Hkv, T, D, Dv): one KV head over the
+# latent, q and k kv_lora + rope_dim wide, v kv_lora; then the (B, H, Hkv,
+# T, causal) of the comparisons at its smoke pair (32, 24)
+MLA_LAYER = (2, 40, 1, 4096, 288, 256)
+MLA_SMOKE_SHAPES = ((2, 4, 1, 256, True), (2, 4, 1, 256, False),
+                    (1, 4, 1, 128, True))
+# (B, H, Hkv, T, causal) at the layer's widths and a short T, where the
+# outputs average over few keys and stay large
+MLA_SHORT_SHAPES = ((2, 40, 1, 512, True), (2, 40, 1, 512, False))
+# the MLA comparisons' tolerances (rtol, atol, largest per-row relative
+# error ||got - want|| / ||want||): float32, and bf16, where the row error
+# carries the check (the kernel's p is rounded to bf16 before p v, so an
+# early row whose output cancels misses an elementwise 2e-3)
+MLA_F32_TOL = (2e-3, 2e-3, None)
+MLA_BF16_TOL = (3e-2, 3e-2, 1e-2)
+MLA_SDPA_BACKEND = "EFFICIENT_ATTENTION"   # phase 17(a)'s SDPA yardstick
 PREFILL = (2, 4096)               # (B, T) of the prefill request
 SERVE = (4, 16, 32)               # batch, prompt, tokens of the serve run
 TRAIN_STEPS = 4                   # phase 16: AdamW steps of each training run
@@ -1170,9 +1211,10 @@ def batched_recovery(stream, phase3_step_s, seed: int,
     end, as the recovering driver does; with ``twin``, each chunk is also
     fed to a summarizer without a checkpoint directory, in alternating
     order, and both are timed (the two must end bitwise equal; it adds
-    ``RECOVERY_CHUNKS`` chunks to the phase).  Run B: killed at
-    chunk boundary 3 by ``ft.inject.drive`` (checkpoint every 2 chunks);
-    a fresh summarizer ``recover()``s (epoch 2 + 1 journaled chunk) and
+    ``RECOVERY_CHUNKS`` chunks to the phase).  Run B: run A's directory
+    as a kill at chunk boundary 3 leaves it (copied after the third
+    chunk, before its save: epoch 2 and chunk 3 journaled); a fresh
+    summarizer ``recover()``s it (epoch 2 + 1 journaled chunk) and
     finishes the stream: every leaf, ``stats()`` less ``stream_retries``
     and the reads must equal A's.  Then A's newest checkpoint is
     corrupted and a fresh ``recover()`` must fall back one epoch and
@@ -1223,6 +1265,10 @@ def batched_recovery(stream, phase3_step_s, seed: int,
                 summ.process(prefix[off:off + b])
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t)
+            if i + 1 == RECOVERY_CHUNKS:
+                # run B's directory: what a kill at this boundary leaves
+                # (epoch 2 saved, this chunk journaled, no save after it)
+                shutil.copytree(dir_a, dir_b)
             if (i + 1) % 2 == 0 or i + 1 == RECOVERY_CHUNKS:
                 checkpointer.save_seconds.clear()
                 t = time.perf_counter()
@@ -1245,16 +1291,7 @@ def batched_recovery(stream, phase3_step_s, seed: int,
         torch.cuda.empty_cache()
         n_appends = len(appends)
 
-        # run B: killed at boundary 3, recovered by a fresh summarizer
-        crashed = BatchedSummarizer(cfg, device="cuda",
-                                    checkpoint_dir=dir_b)
-        try:
-            inject.drive(crashed, prefix, ckpt_every=2, kill_at_chunk=3)
-            raise AssertionError("the kill point was never reached")
-        except inject.SimulatedCrash:
-            pass
-        del crashed
-        torch.cuda.empty_cache()
+        # run B: the kill's directory, recovered by a fresh summarizer
         restored = BatchedSummarizer(cfg, device="cuda",
                                      checkpoint_dir=dir_b)
         t = time.perf_counter()
@@ -1284,8 +1321,8 @@ def batched_recovery(stream, phase3_step_s, seed: int,
             raise AssertionError("run B's reads differ from run A's")
         del view, rec
         torch.cuda.empty_cache()
-        log(f"batched recovery: killed at chunk boundary 3, recover() "
-            f"restored epoch {info['epoch']} and replayed "
+        log(f"batched recovery: run A's directory at chunk boundary 3 (a "
+            f"kill's), recover() restored epoch {info['epoch']} and replayed "
             f"{info['replayed_chunks']} chunk; continued, every leaf, "
             f"stats() and {len(labels)} degree / {len(pairs)} has_edge / "
             f"{len(labels)} neighbors reads equal run A's, bitwise")
@@ -2267,33 +2304,68 @@ def train_launcher() -> dict:
 # --------------------------------------------------------------------- #
 
 
-def attn_inputs(b, h, hkv, t, d, dtype, gen, strided: bool = False):
-    """q, k, v drawn on the card; ``strided`` lays them out as the
-    transformer hands them over: ``[B, T, heads, D]`` memory viewed as
-    ``[B, heads, T, D]``."""
+def attn_inputs(b, h, hkv, t, d, dtype, gen, strided: bool = False,
+                dv=None):
+    """q, k, v drawn on the card (v ``dv`` wide, default ``d``);
+    ``strided`` lays them out as the GQA transformer hands them over:
+    ``[B, T, heads, D]`` memory viewed as ``[B, heads, T, D]``."""
     import torch
 
-    def draw(heads):
-        shape = (b, t, heads, d) if strided else (b, heads, t, d)
+    def draw(heads, width):
+        shape = (b, t, heads, width) if strided else (b, heads, t, width)
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         return x.transpose(1, 2) if strided else x
-    return draw(h), draw(hkv), draw(hkv)
+    return draw(h, d), draw(hkv, d), draw(hkv, dv or d)
 
 
-def attn_bound_ms(q, k, causal: bool) -> float:
-    """Least time for one attention call: the larger of its useful flops
-    (2 D for q.k and 2 D for p.v per (query, key) pair it keeps; causal
-    keeps T (T + 1) / 2 pairs per head) at the card's peak for the dtype
-    (bf16 tensor cores, or float32 outside them) and its bytes (q, k, v
-    read once, o written once) at the device memory rate."""
-    import torch
+def attn_flops(q, v, causal: bool) -> int:
+    """Useful flops of one attention call: 2 D for q.k and 2 Dv for p.v
+    per (query, key) pair it keeps; causal keeps T (T + 1) / 2 pairs per
+    head."""
     b, h, tq, d = q.shape
-    tk = k.shape[2]
+    tk, dv = v.shape[2], v.shape[3]
     pairs = tq * (tq + 1) // 2 if causal else tq * tk
-    flops = 4 * d * b * h * pairs
+    return 2 * (d + dv) * b * h * pairs
+
+
+def attn_bound_ms(q, k, v, causal: bool) -> float:
+    """Least time for one attention call: the larger of its useful flops
+    (:func:`attn_flops`) at the card's peak for the dtype (bf16 tensor
+    cores, or float32 outside them) and its bytes (q, k, v read once, o
+    written once) at the device memory rate."""
+    import torch
+    b, h, tq, _ = q.shape
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    return max(1e3 * flops / rate, 1e3 * nbytes / HBM_BYTES_PER_S)
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                 + b * h * tq * v.shape[3])
+    return max(1e3 * attn_flops(q, v, causal) / rate,
+               1e3 * nbytes / HBM_BYTES_PER_S)
+
+
+def mla_library_call(q, k, v):
+    """``scaled_dot_product_attention`` on an MLA call (one KV head,
+    ``d_v != d_q``, causal) with k and v copied out to q's heads, under
+    ``MLA_SDPA_BACKEND`` alone: none of the fused backends takes the GQA
+    call at ``d_v != d_q`` on the H100, and a refusal of this one fails
+    the phase rather than timing another backend."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    h = q.shape[1]
+    ke = k.expand(-1, h, -1, -1).contiguous()
+    ve = v.expand(-1, h, -1, -1).contiguous()
+    backend = getattr(SDPBackend, MLA_SDPA_BACKEND)
+
+    def call():
+        with sdpa_kernel([backend]):
+            return F.scaled_dot_product_attention(q, ke, ve, is_causal=True)
+    return call
+
+
+def row_rel_err(got, want) -> float:
+    """The largest ``||got - want|| / ||want||`` over output rows (the
+    last axis)."""
+    num = (got - want).norm(dim=-1)
+    return float((num / want.norm(dim=-1).clamp_min(1e-30)).max())
 
 
 def attention_vs_plain(gen) -> tuple:
@@ -2341,8 +2413,8 @@ def attention_vs_plain(gen) -> tuple:
             row["library_ms"] = cuda_ms(
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True), 10)
-            row["bound_ms"] = attn_bound_ms(q, k, True)
-            flops = 4 * d * b * h * (t * (t + 1) // 2)
+            row["bound_ms"] = attn_bound_ms(q, k, v, True)
+            flops = attn_flops(q, v, True)
             row["tflops"] = flops / row["ms"] / 1e9
             row["kernel_over_library"] = row["ms"] / row["library_ms"]
             arch = "internlm2-20b" if shape == LAYER_SHAPE else \
@@ -2362,14 +2434,127 @@ def attention_vs_plain(gen) -> tuple:
     return rows, max_err, layers
 
 
-def lm_card_vs_cpu(seed: int) -> dict:
-    """Phase 10(a): internlm2-20b's full widths, 2 layers, float32."""
+def mla_attention_vs_plain(gen) -> dict:
+    """Phase 17(a): the kernel at MLA's ``d_v != d_q`` against its plain
+    version: at the smoke pair (32, 24) in float32 and bf16, at the
+    layer's widths (288, 256) and a short T (``MLA_SHORT_SHAPES``) in
+    bf16, then at minicpm3-4b's layer (``MLA_LAYER``, causal, contiguous
+    as the transformer hands it over) in bf16 (the ``mla`` variant, timed
+    beside the call from Python, the plain version, ``mla_library_call``
+    and the operation bound) and float32 (SIMT; its launch timed).  Each
+    is held elementwise and, in bf16, row by row (``MLA_BF16_TOL``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain,
+                                                     kernel_variant)
+    bf16, f32 = (torch.bfloat16, MLA_BF16_TOL), (torch.float32, MLA_F32_TOL)
+    cases = [(*dt, *shape[:4], 32, 24, shape[4]) for dt in (f32, bf16)
+             for shape in MLA_SMOKE_SHAPES]
+    cases += [(*bf16, *shape[:4], *MLA_LAYER[4:], shape[4])
+              for shape in MLA_SHORT_SHAPES]
+    cases += [(*bf16, *MLA_LAYER, True), (*f32, *MLA_LAYER, True)]
+    rows, max_err, layer = [], 0.0, None
+    for dtype, (rtol, atol, row_tol), b, h, hkv, t, d, dv, causal in cases:
+        q, k, v = attn_inputs(b, h, hkv, t, d, dtype, gen, dv=dv)
+        got = flash_attention_cuda(q, k, v, causal=causal).float()
+        want = flash_attention_plain(q, k, v, causal=causal).float()
+        torch.cuda.synchronize()
+        what = f"flash_attention {dtype} {(b, h, hkv, t, d, dv, causal)}"
+        err = close(got, want, "sum", rtol, atol, what)
+        row_err = row_rel_err(got, want)
+        if row_tol is not None and not row_err <= row_tol:
+            raise AssertionError(f"{what}: a row's relative error "
+                                 f"{row_err:.3e} exceeds {row_tol}")
+        # where an elementwise rtol 2e-2, atol 2e-3 would not hold
+        tight = (got - want).abs() > 2e-3 + 2e-2 * want.abs()
+        rows_at = tight.any(dim=-1).nonzero()[:, -1]
+        max_err = max(max_err, err)
+        variant = kernel_variant(dtype, d, dv)
+        row = dict(dtype=str(dtype), b=b, h=h, hkv=hkv, t=t, d=d, dv=dv,
+                   causal=causal, variant=variant, rtol=rtol, atol=atol,
+                   row_tol=row_tol, max_abs_err=err, max_row_rel_err=row_err,
+                   max_abs_want=float(want.abs().max()),
+                   beyond_2e_2_2e_3=int(tight.sum()),
+                   rows_beyond=sorted(set(rows_at.tolist())))
+        rows.append(row)
+        log(f"phase 17(a): flash_attention {variant:4s} {str(dtype)[6:]:8s}"
+            f" B={b} H={h} Hkv={hkv} T={t} (D, Dv)=({d}, {dv}) causal="
+            f"{causal}: kernel == plain (max |err| {err:.2e}, rtol {rtol} "
+            f"atol {atol}; largest row error {row_err:.2e} of the row, tol "
+            f"{row_tol}; max |out| {row['max_abs_want']:.2f}; "
+            f"{row['beyond_2e_2_2e_3']} entries beyond rtol 2e-2 atol 2e-3,"
+            f" in query rows {row['rows_beyond'][:8]})")
+        del got, want
+        if (b, h, hkv, t, d, dv) != MLA_LAYER:
+            continue
+
+        def launch():
+            return flash_attention_cuda(q, k, v, causal=True)
+        if dtype == torch.float32:
+            row["call_ms"] = cuda_ms(launch, 2)
+            log(f"phase 17(a): at minicpm3-4b's layer shape, float32 "
+                f"({variant}): call {row['call_ms']:.3f} ms")
+            continue
+        row["ms"] = graph_ms(launch, 3, 3)
+        row["call_ms"] = cuda_ms(launch, 5)
+        row["plain_ms"] = cuda_ms(
+            lambda: flash_attention_plain(q, k, v, causal=True), 2)
+        row["library_ms"] = cuda_ms(mla_library_call(q, k, v), 5)
+        row["library_call"] = (f"k, v expanded to {h} heads, "
+                               f"{MLA_SDPA_BACKEND}")
+        row["bound_ms"] = attn_bound_ms(q, k, v, True)
+        flops = attn_flops(q, v, True)
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["kernel_over_library"] = row["ms"] / row["library_ms"]
+        layer = row
+        log(f"phase 17(a): flash_attention at minicpm3-4b's layer shape, "
+            f"bf16 ({variant}): kernel {row['ms']:.3f} ms "
+            f"({row['tflops']:.1f} TFLOP/s; call {row['call_ms']:.3f} ms), "
+            f"plain {row['plain_ms']:.3f} ms, scaled_dot_product_attention "
+            f"({row['library_call']}) {row['library_ms']:.3f} ms (kernel / "
+            f"SDPA {row['kernel_over_library']:.2f}), bound "
+            f"{row['bound_ms']:.3f} ms (operations, {flops / 1e9:.1f} GFLOP "
+            f"at the bf16 peak)")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return dict(rows=rows, max_abs_err=max_err, layer=layer)
+
+
+def mla_serving(seed: int, gen) -> dict:
+    """Phase 17: (a) the kernel at ``d_v != d_q`` vs plain, timed at
+    minicpm3-4b's layer; (b) its full widths, 2 layers, card vs CPU; (c)
+    one full-config prefill request (counts set to 0 inside, just before
+    it); (d) the serve loop at full config, and a profiled decode step;
+    (e) its smoke config card vs CPU."""
+    import torch
+    from repro_torch.configs import minicpm3_4b
+    t = time.perf_counter()
+    out = dict(attention=mla_attention_vs_plain(gen))
+    out["card_vs_cpu"] = lm_card_vs_cpu(seed, minicpm3_4b, "phase 17(b)")
+    torch.cuda.empty_cache()
+    out["prefill"] = lm_prefill_request(seed, minicpm3_4b, "mla",
+                                        "phase 17(c)")
+    out["serve"] = lm_serve(seed, out["prefill"]["params"], minicpm3_4b,
+                            "phase 17(d)")
+    out["serve"]["profile"] = lm_decode_profile(
+        seed, out["serve"]["ms_per_token"], minicpm3_4b, "phase 17(d)")
+    out["smoke"] = lm_smoke_archs(seed, (minicpm3_4b,), "phase 17(e)")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 17: {out['seconds']:.1f} s")
+    return out
+
+
+def lm_card_vs_cpu(seed: int, mod=None, tag: str = "lm (a)") -> dict:
+    """Phase 10(a): internlm2-20b's full widths (or ``mod``'s: phase
+    17(b), minicpm3-4b), 2 layers, float32."""
     import dataclasses
     import torch
     from repro_torch.configs import internlm2_20b
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tfm
-    cfg = dataclasses.replace(internlm2_20b.full_config(), n_layers=2,
+    mod = mod or internlm2_20b
+    cfg = dataclasses.replace(mod.full_config(), n_layers=2,
                               param_dtype=torch.float32,
                               compute_dtype=torch.float32)
     params = tfm.init_transformer(cfg, seed, device="cuda")
@@ -2399,7 +2584,7 @@ def lm_card_vs_cpu(seed: int) -> dict:
     dec_s = time.perf_counter() - t
     if dec_err >= 2e-3:
         raise AssertionError(f"decode diverged from forward: {dec_err}")
-    log(f"lm (a): internlm2-20b widths, 2 layers, f32, B=1 T=512: logits on "
+    log(f"{tag}: {mod.ARCH_ID} widths, 2 layers, f32, B=1 T=512: logits on "
         f"the card == the CPU's (max |err| {err:.2e}, rtol=atol=1e-3; CPU "
         f"forward {cpu_s:.1f} s; {launches} kernel launches); 512 "
         f"teacher-forced decode steps == forward (max |err| {dec_err:.2e} "
@@ -2409,14 +2594,18 @@ def lm_card_vs_cpu(seed: int) -> dict:
                 decode_ms_per_step=1e3 * dec_s / 512)
 
 
-def lm_prefill_request(seed: int) -> dict:
-    """Phase 10(b): one prefill request at internlm2-20b's full config."""
+def lm_prefill_request(seed: int, mod=None, variant: str = "wgmma",
+                       tag: str = "lm (b)") -> dict:
+    """Phase 10(b): one prefill request at internlm2-20b's full config (or
+    ``mod``'s: phase 17(c), minicpm3-4b), every attention launch of the
+    kernel ``variant``."""
     import torch
     from repro_torch.configs import internlm2_20b
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tfm
     from repro_torch.models.common import param_count
-    cfg = internlm2_20b.full_config()
+    mod = mod or internlm2_20b
+    cfg = mod.full_config()
     b, t = PREFILL
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -2428,7 +2617,7 @@ def lm_prefill_request(seed: int) -> dict:
     param_bytes = torch.cuda.memory_allocated() - base
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     toks = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
-    log(f"lm (b): internlm2-20b full_config: {n_params / 1e9:.3f} B "
+    log(f"{tag}: {mod.ARCH_ID} full_config: {n_params / 1e9:.3f} B "
         f"parameters ({param_bytes / 1e9:.2f} GB on the card) drawn in "
         f"{init_s:.1f} s; prompt B={b} T={t}")
     torch.cuda.reset_peak_memory_stats()
@@ -2441,10 +2630,10 @@ def lm_prefill_request(seed: int) -> dict:
     launches = ops.attention.launches
     peak = torch.cuda.max_memory_allocated()
     by_variant = dict(ops.attention.by_variant)
-    if launches != cfg.n_layers or by_variant != {"wgmma": cfg.n_layers}:
+    if launches != cfg.n_layers or by_variant != {variant: cfg.n_layers}:
         raise AssertionError(f"the prefill forward launched the attention "
                              f"kernel {launches} times ({by_variant}), not "
-                             f"{cfg.n_layers} of the wgmma variant")
+                             f"{cfg.n_layers} of the {variant} variant")
     if tuple(logits.shape) != (b, t, cfg.vocab_padded) or not bool(
             torch.isfinite(logits[..., :cfg.vocab]).all()):
         raise AssertionError(f"logits {tuple(logits.shape)} not finite")
@@ -2460,13 +2649,18 @@ def lm_prefill_request(seed: int) -> dict:
         lambda: tfm.forward(params, toks, cfg),
         {"attention kernel": ("flash_attention",), "matmul": MATMUL_WORDS})
     names = [key for _, _, key in breakdown["top"]["attention kernel"]]
-    if not names or not all("flash_attention_wgmma_kernel" in n
+    if not names or not all(f"flash_attention_{variant}_kernel" in n
                             for n in names):
         raise AssertionError(f"profiled attention kernels: {names}")
-    # projections, FFN and head: 2 flops per weight per token
-    mm_flops = 2 * b * t * (n_params - cfg.vocab_padded * cfg.d_model
-                            - 2 * cfg.n_layers * cfg.d_model - cfg.d_model)
-    attn_flops = cfg.n_layers * 4 * cfg.d_head * b * cfg.n_heads * (
+    # projections (MLA's absorbed k_b and v_b too), FFN and head: 2 flops
+    # per matrix weight per token
+    mm_flops = 2 * b * t * (params["lm_head"].numel() + sum(
+        w.numel() for w in params["layers"].values() if w.dim() >= 3))
+    if cfg.attn == "mla":   # one KV head over [c_kv, k_rope], v = c_kv
+        d_qk, d_v = cfg.kv_lora + cfg.rope_dim, cfg.kv_lora
+    else:
+        d_qk = d_v = cfg.d_head
+    attn_flops = cfg.n_layers * 2 * (d_qk + d_v) * b * cfg.n_heads * (
         t * (t + 1) // 2)
     us = breakdown["device_us"]
     res = dict(batch=b, seq=t, params=n_params, param_bytes=param_bytes,
@@ -2475,12 +2669,12 @@ def lm_prefill_request(seed: int) -> dict:
                peak_bytes=peak, matmul_flops=mm_flops,
                attention_flops=attn_flops, breakdown=breakdown,
                tokens_per_s=b * t / (warm_ms / 1e3))
-    log(f"lm (b): prefill forward cold {cold_ms:.1f} ms, warm "
+    log(f"{tag}: prefill forward cold {cold_ms:.1f} ms, warm "
         f"{warm_ms:.1f} ms ({res['tokens_per_s']:.0f} tokens/s); "
         f"{launches} attention-kernel launches per forward "
         f"({by_variant}); peak device "
         f"memory {peak / 1e9:.2f} GB")
-    log("lm (b): forward device time (torch.profiler): " + ", ".join(
+    log(f"{tag}: forward device time (torch.profiler): " + ", ".join(
         f"{k} {v / 1e3:.1f} ms" for k, v in us.items())
         + f" ({breakdown['device_kernels']} device kernels); matmuls "
         f"{mm_flops / 1e12:.1f} TFLOP = "
@@ -2496,18 +2690,21 @@ def lm_prefill_request(seed: int) -> dict:
     return res
 
 
-def lm_serve(seed: int, n_params: int) -> dict:
-    """Phase 10(c): the serve loop at internlm2-20b's full config
-    (``n_params``: its parameter count, for the weight-read bound)."""
+def lm_serve(seed: int, n_params: int, mod=None,
+             tag: str = "lm (c)") -> dict:
+    """Phase 10(c): the serve loop at internlm2-20b's full config (or
+    ``mod``'s: phase 17(d), minicpm3-4b; ``n_params``: its parameter
+    count, for the weight-read bound)."""
     import torch
     from repro_torch.configs import internlm2_20b
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
-    cfg = internlm2_20b.full_config()
+    mod = mod or internlm2_20b
+    cfg = mod.full_config()
     batch, prompt_len, n_tok = SERVE
     ops.reset_counts()
     t0 = time.perf_counter()
-    out = serve(internlm2_20b.ARCH_ID, batch, prompt_len, n_tok, seed,
+    out = serve(mod.ARCH_ID, batch, prompt_len, n_tok, seed,
                 device="cuda", full=True)
     total_s = time.perf_counter() - t0
     toks = out["tokens"]
@@ -2523,7 +2720,7 @@ def lm_serve(seed: int, n_params: int) -> dict:
                prefill_s=out["prefill_s"], decode_s=out["decode_s"],
                ms_per_token=out["ms_per_token"], bound_ms=bound_ms,
                total_s=total_s, attention_launches=ops.attention.launches)
-    log(f"lm (c): serve(internlm2-20b, full=True) batch {batch}, prompt "
+    log(f"{tag}: serve({mod.ARCH_ID}, full=True) batch {batch}, prompt "
         f"{prompt_len}, {n_tok} tokens: {out['ms_per_token']:.2f} ms/token "
         f"decode (weight-read bound {bound_ms:.2f} ms), teacher-forced "
         f"prefill {1e3 * out['prefill_s'] / prompt_len:.2f} ms/token; "
@@ -2533,17 +2730,20 @@ def lm_serve(seed: int, n_params: int) -> dict:
     return res
 
 
-def lm_decode_profile(seed: int, ms_per_token: float) -> dict:
-    """Where a full-config decode step's time goes: ``torch.profiler``
-    over the serve loop (batch 4, 4 prompt tokens teacher-forced, 4
-    generated: 8 steps) on weights drawn anew.  The device busy share is
-    the profiled device time per step over the unprofiled ms per token of
-    phase 10(c) (the profiler slows the host)."""
+def lm_decode_profile(seed: int, ms_per_token: float, mod=None,
+                      tag: str = "lm (c)") -> dict:
+    """Where a full-config decode step's time goes (internlm2-20b's, or
+    ``mod``'s): ``torch.profiler`` over the serve loop (batch 4, 4 prompt
+    tokens teacher-forced, 4 generated: 8 steps) on weights drawn anew.
+    The device busy share is the profiled device time per step over the
+    unprofiled ms per token of phase 10(c) or 17(d) (the profiler slows
+    the host)."""
     import torch
     from repro_torch.configs import internlm2_20b
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as tfm
-    cfg = internlm2_20b.full_config()
+    mod = mod or internlm2_20b
+    cfg = mod.full_config()
     params = tfm.init_transformer(cfg, seed, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab, (SERVE[0], 4), generator=gen,
@@ -2558,7 +2758,7 @@ def lm_decode_profile(seed: int, ms_per_token: float) -> dict:
                / steps,
                kernels_per_step=kernels / steps,
                device_busy_share=device_us / 1e3 / steps / ms_per_token)
-    log(f"lm (c): decode step under torch.profiler: device "
+    log(f"{tag}: decode step under torch.profiler: device "
         f"{res['device_ms_per_step']:.2f} ms/step, {kernels / steps:.0f} "
         f"device kernels/step; device busy "
         f"{100 * res['device_busy_share']:.1f}% of the unprofiled "
@@ -2569,16 +2769,17 @@ def lm_decode_profile(seed: int, ms_per_token: float) -> dict:
     return res
 
 
-def lm_smoke_archs(seed: int) -> dict:
-    """Phase 10(d): the four LM smoke configs, card vs CPU, T = 256."""
+def lm_smoke_archs(seed: int, mods=None, tag: str = "lm (d)") -> dict:
+    """Phase 10(d): the four GQA smoke configs (or ``mods``: phase 17(e),
+    minicpm3-4b's), card vs CPU, T = 256."""
     import torch
     from repro_torch.configs import (granite_moe_3b_a800m, internlm2_20b,
                                      llama3_405b, moonshot_v1_16b_a3b)
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tfm
     out = {}
-    for mod in (internlm2_20b, llama3_405b, granite_moe_3b_a800m,
-                moonshot_v1_16b_a3b):
+    for mod in mods or (internlm2_20b, llama3_405b, granite_moe_3b_a800m,
+                        moonshot_v1_16b_a3b):
         cfg = mod.smoke_config()
         params = tfm.init_transformer(cfg, seed, device="cpu")
         toks = torch.randint(0, cfg.vocab, (2, 256),
@@ -2595,7 +2796,7 @@ def lm_smoke_archs(seed: int) -> dict:
                     f"{cfg.name} card vs CPU")
         out[cfg.name] = dict(launches=launches, max_abs_err=err,
                              d_head=cfg.d_head)
-        log(f"lm (d): {cfg.name} (D={cfg.d_head}) forward on the card == "
+        log(f"{tag}: {cfg.name} (D={cfg.d_head}) forward on the card == "
             f"the CPU's at B=2 T=256 (max |err| {err:.2e}; {launches} kernel"
             f" launches)")
     return out
@@ -3087,6 +3288,9 @@ def main() -> int:
     lm_c["profile"] = lm_decode_profile(seed, lm_c["ms_per_token"])
     lm_d = lm_smoke_archs(seed)
     torch.cuda.empty_cache()
+    # 17. MLA serving at minicpm3-4b's widths (counts set to 0 inside,
+    # just before its prefill)
+    mla = mla_serving(seed, gen)
 
     # 11. the sharded summarizer at full width over the phase-3 stream
     # (counts set to 0 inside, just before it); 12. the router's paths,
@@ -3122,7 +3326,7 @@ def main() -> int:
         rebuild_full_size=rebuild_b,
         rebuild_live_summarizer=rebuild_d, csr_backward=csr_bwd,
         sasrec_training=sasrec_train, graphsage_training=sage_train,
-        train_launcher=launcher),
+        train_launcher=launcher, mla=mla),
         indent=1))
 
     entry = dict(name="ht_probe", route="cuda",
@@ -3159,10 +3363,13 @@ def main() -> int:
                      backward={key: csr_bwd[key] for key in (
                          "ms", "call_ms", "plain_ms", "bound_ms",
                          "library_ms", "transpose_ms", "max_abs_err")})
+    mla_layer = mla["attention"]["layer"]
     attn_entry = dict(name="flash_attention", route="cuda",
                       source="src/repro_torch/csrc/flash_attention.cu",
                       replaces="src/repro/kernels/flash_attention.py:25",
-                      launches=lm_b["launches"], max_abs_err=attn_err,
+                      launches=lm_b["launches"],
+                      max_abs_err=max(attn_err,
+                                      mla["attention"]["max_abs_err"]),
                       ms=layer["ms"], call_ms=layer["call_ms"],
                       plain_ms=layer["plain_ms"], bound_ms=layer["bound_ms"],
                       bound_by="operations", library_ms=layer["library_ms"],
@@ -3172,7 +3379,17 @@ def main() -> int:
                       granite_layer={key: layers["granite-moe-3b-a800m"][key]
                                      for key in ("ms", "library_ms",
                                                  "bound_ms", "plain_ms",
-                                                 "max_abs_err")})
+                                                 "max_abs_err")},
+                      mla_layer=dict(
+                          {key: mla_layer[key] for key in (
+                              "variant", "ms", "call_ms", "plain_ms",
+                              "bound_ms", "library_ms", "library_call",
+                              "max_abs_err", "max_row_rel_err")},
+                          bound_by="operations",
+                          launches=mla["prefill"]["launches"],
+                          by_variant=mla["prefill"]["by_variant"],
+                          shape="minicpm3-4b layer: B=2 H=40 Hkv=1 T=4096 "
+                                "D=288 Dv=256 bf16 causal"))
     adj = rebuild_d["adj"]
     rebuild_entry = dict(name="ht_rebuild", route="cuda",
                          source="src/repro_torch/csrc/ht_rebuild.cu",

@@ -1,9 +1,10 @@
 // Flash attention for Hopper (sm_90a): the LM forward's attention.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
-// _attn_kernel (wrapper flash_attention).  For q[B, H, Tq, D] and
-// k, v[B, Hkv, Tk, D] (H a multiple of Hkv) it computes, per query row,
-//   o = softmax((q / sqrt(D)) k^T) v
+// _attn_kernel (wrapper flash_attention).  For q[B, H, Tq, D],
+// k[B, Hkv, Tk, D] and v[B, Hkv, Tk, Dv] (H a multiple of Hkv) it
+// computes, per query row,
+//   o = softmax((q / sqrt(D)) k^T) v          (o is Dv wide)
 // with the online softmax: the scale 1/sqrt(D) is applied in float32 (to
 // q in the SIMT kernel, to the scores in the tensor-core ones), the running
 // max m, the denominator l and the accumulator stay in float32, masked
@@ -18,8 +19,13 @@
 // query row (2 T D in q k^T, 2 T D in p v; half of that causal) against
 // 2 D bytes of q and o per row, far above the card's ~295 flop/byte ridge
 // at any prefill length, so the bound is the tensor cores' rate (989
-// TFLOP/s dense bf16).  Three kernels, chosen by (dtype, D) in
-// launch_bf16 / launch_f32 (the wrapper's kernel_variant names the same):
+// TFLOP/s dense bf16).  Four kernels, chosen by (dtype, D, Dv) in
+// launch_bf16 / launch_f32 (the wrapper's kernel_variant names the same).
+// Dv equals D except at MLA's two pairs, (288, 256) at minicpm3-4b's full
+// width and (32, 24) at its smoke width, where v is the kv_lora-wide
+// latent and q, k carry the rope part beside it; the TPU kernel cannot run
+// those (its reshape of v takes q's width), the reference computes them
+// with the scale 1/sqrt(D), and so do these kernels.
 //
 // - flash_attention_wgmma_kernel, bfloat16 at D = 64 and 128 (every
 //   ported LM's full configuration): Hopper's own path.  TMA loads into
@@ -32,9 +38,14 @@
 // - flash_attention_mma_kernel, bfloat16 at D = 16 and 32: mma.sync on the
 //   tensor cores, copies synchronous with the products; bound by the copies
 //   and the older instruction's rate.
-// - flash_attention_kernel, float32 at every width and bfloat16 at D = 8:
-//   float32 FMAs on the SIMT units (67 TFLOP/s peak), which keeps float32
-//   exact enough to hold the card to the CPU.
+// - flash_attention_mla_kernel, bfloat16 at (D, Dv) = (288, 256): mma.sync
+//   as the kernel above, with a row group's 256 output columns split over
+//   two warps (a warp's 16 rows x 256 float32 columns would not fit in
+//   registers beside the scores) and p shared between them through shared
+//   memory; not yet given Hopper's own path.
+// - flash_attention_kernel, float32 at every width and pair, and bfloat16
+//   at D = 8 and at (32, 24): float32 FMAs on the SIMT units (67 TFLOP/s
+//   peak), which keeps float32 exact enough to hold the card to the CPU.
 //
 // Every kernel loops over the key tiles of its block, so no state crosses
 // blocks and the TPU kernel's sequential grid is not needed; causal query
@@ -51,13 +62,13 @@
 // flash_attention_kernel: 256 threads, 32-key tiles.  The scaled query
 // tile, the key and value tiles (converted to float32) and the tile of
 // probabilities live in shared memory (76,800 bytes at D = 128, two blocks
-// per SM).  Thread (ty, tx) of a 16 x 16 grid owns query rows 4 ty ..
+// per SM; 154,624 at (288, 256), one).  Thread (ty, tx) of a 16 x 16 grid owns query rows 4 ty ..
 // 4 ty + 3: it computes their scores for keys tx and tx + 16 from 16-byte
 // shared loads (the query rows are broadcast across the half-warp; rows
 // are padded to D + 4 floats so the key rows spread over the banks),
 // reduces the row max and sum over its half-warp with shuffles, writes its
-// probabilities to shared memory, and accumulates D / 16 output columns of
-// its four rows.
+// probabilities to shared memory, and accumulates Dv / 16 (rounded up)
+// output columns of its four rows.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,14 +85,16 @@ constexpr int kKeys = kBK / 16;        // keys per thread per tile
 constexpr float kNegInf = -1e30f;      // the TPU kernel's mask value
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int D>
+template <int D, int DV>
 struct Smem {
-  static constexpr int kStride = D + 4;        // floats per q/k/v row
+  static constexpr int kStride = D + 4;        // floats per q/k row
+  static constexpr int kVStride = DV + 4;      // floats per v row
   static constexpr int kPStride = kBK + 4;     // floats per probability row
   static constexpr int kQ = kBQ * kStride;
   static constexpr int kK = kBK * kStride;
+  static constexpr int kV = kBK * kVStride;
   static constexpr int kP = kBQ * kPStride;
-  static constexpr int kBytes = sizeof(float) * (kQ + 2 * kK + kP);
+  static constexpr int kBytes = sizeof(float) * (kQ + kK + kV + kP);
 };
 
 // 16 bytes of T from global memory as float32 values times `scale`
@@ -121,15 +134,15 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-// rows [row0, row0 + rows) of one head into shared memory as float32 (rows
-// at or past n_valid become 0)
-template <typename T, int D>
+// rows [row0, row0 + rows) of one head, W values wide, into shared memory
+// as float32 rows of STRIDE floats (rows at or past n_valid become 0)
+template <typename T, int W, int STRIDE>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int64_t row_stride, int row0,
                                           int rows, int n_valid,
                                           float scale) {
   constexpr int N = Vec<T>::N;
-  constexpr int kChunks = D / N;
+  constexpr int kChunks = W / N;
   for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
     const int r = c / kChunks;
     const int col = (c % kChunks) * N;
@@ -141,7 +154,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 #pragma unroll
       for (int i = 0; i < N; ++i) vals[i] = 0.0f;
     }
-    float* d = dst + r * Smem<D>::kStride + col;
+    float* d = dst + r * STRIDE + col;
 #pragma unroll
     for (int i = 0; i < N; i += 4)
       *reinterpret_cast<float4*>(d + i) =
@@ -150,10 +163,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 }
 
 // the output columns a thread owns: groups of four at D >= 64 (16-byte
-// shared loads), else one column every 16 (threads past D hold none)
+// shared loads; D a multiple of 64), else one column every 16 (threads
+// past D hold none)
 template <int D>
 struct Cols {
-  static constexpr int kN = D >= 16 ? D / 16 : 1;
+  static constexpr int kN = D >= 64 ? D / 16 : (D + 15) / 16;
   __device__ __forceinline__ static int col(int tx, int c) {
     if constexpr (D >= 64) return 4 * (tx + 16 * (c / 4)) + (c % 4);
     return tx + 16 * c;
@@ -184,7 +198,7 @@ __device__ __forceinline__ float component(const float4& v, int e) {
   return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int h,
@@ -192,13 +206,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int64_t qst, int64_t ksb, int64_t ksh, int64_t kst,
                        int64_t vsb, int64_t vsh, int64_t vst, int causal,
                        float sm_scale) {
-  using S = Smem<D>;
-  using C = Cols<D>;
+  using S = Smem<D, DV>;
+  using C = Cols<DV>;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
   float* ks = qs + S::kQ;
   float* vs = ks + S::kK;
-  float* ps = vs + S::kK;
+  float* ps = vs + S::kV;
 
   const int n_qt = (tq + kBQ - 1) / kBQ;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBQ;
@@ -211,7 +225,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qp = q + ib * qsb + ih * qsh;
   const T* kp = k + ib * ksb + ikv * ksh;
   const T* vp = v + ib * vsb + ikv * vsh;
-  load_tile<T, D>(qs, qp, qst, q0, kBQ, tq, sm_scale);
+  load_tile<T, D, S::kStride>(qs, qp, qst, q0, kBQ, tq, sm_scale);
 
   float acc[kRows][C::kN];
   float m[kRows], l[kRows];
@@ -229,8 +243,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<T, D>(ks, kp, kst, k0, kBK, tk, 1.0f);
-    load_tile<T, D>(vs, vp, vst, k0, kBK, tk, 1.0f);
+    load_tile<T, D, S::kStride>(ks, kp, kst, k0, kBK, tk, 1.0f);
+    load_tile<T, DV, S::kVStride>(vs, vp, vst, k0, kBK, tk, 1.0f);
     __syncthreads();
 
     float s[kRows][kKeys];
@@ -306,7 +320,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float vv[C::kN];
-        C::load(vs + (kk + e) * S::kStride, tx, vv);
+        C::load(vs + (kk + e) * S::kVStride, tx, vv);
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
           const float p = component(pv[i], e);
@@ -323,30 +337,30 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + ty * kRows + i;
     if (qpos >= tq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((static_cast<int64_t>(ib) * h + ih) * tq + qpos) * D;
+    T* orow = o + ((static_cast<int64_t>(ib) * h + ih) * tq + qpos) * DV;
 #pragma unroll
     for (int c = 0; c < C::kN; ++c) {
       const int col = C::col(tx, c);
-      if (col < D) orow[col] = Vec<T>::store(acc[i][c] / denom);
+      if (col < DV) orow[col] = Vec<T>::store(acc[i][c] / denom);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int hkv, int tq, int tk, const long long* st, int causal,
            float sm_scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel<T, D, DV>;
   static bool configured = false;   // once per instantiation (one device)
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Smem<D>::kBytes);
+        Smem<D, DV>::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((tq + kBQ - 1) / kBQ, h, b);
-  kernel<<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+  kernel<<<grid, kThreads, Smem<D, DV>::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), h, h / hkv, tq, tk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
@@ -354,10 +368,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_f32(int d, const void* q, const void* k, const void* v,
+int launch_f32(int d, int dv, const void* q, const void* k, const void* v,
                void* o, int b, int h, int hkv, int tq, int tk,
                const long long* st, int causal, float sm_scale,
                cudaStream_t stream) {
+  if (d == 32 && dv == 24)
+    return launch<float, 32, 24>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
+                                 sm_scale, stream);
+  if (d == 288 && dv == 256)
+    return launch<float, 288, 256>(q, k, v, o, b, h, hkv, tq, tk, st,
+                                   causal, sm_scale, stream);
+  if (d != dv) return cudaErrorInvalidValue;
   switch (d) {
     case 8:
       return launch<float, 8>(q, k, v, o, b, h, hkv, tq, tk, st, causal,
@@ -432,23 +453,33 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// rows [row0, row0 + rows) of one head into shared memory as they are
-// (bf16, 16 bytes a thread; rows at or past n_valid become 0)
-template <int D>
-__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst,
+// rows [row0, row0 + rows) of one head, W values wide, into shared memory
+// as they are (bf16 rows of STRIDE values, 16 bytes a thread of THREADS;
+// rows at or past n_valid become 0)
+template <int W, int STRIDE, int THREADS>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           int64_t row_stride, int row0,
                                           int rows, int n_valid) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < rows * kChunks; c += kMmaThreads) {
+  constexpr int kChunks = W / 8;
+  for (int c = threadIdx.x; c < rows * kChunks; c += THREADS) {
     const int r = c / kChunks;
     const int col = (c % kChunks) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_valid)
       v = __ldg(reinterpret_cast<const uint4*>(
           src + static_cast<int64_t>(row0 + r) * row_stride + col));
-    *reinterpret_cast<uint4*>(dst + r * MmaSmem<D>::kStride + col) = v;
+    *reinterpret_cast<uint4*>(dst + r * STRIDE + col) = v;
   }
+}
+
+template <int D>
+__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t row_stride, int row0,
+                                          int rows, int n_valid) {
+  copy_rows<D, MmaSmem<D>::kStride, kMmaThreads>(dst, src, row_stride, row0,
+                                                 rows, n_valid);
 }
 
 // The same function as flash_attention_kernel for bf16, with q k^T and
@@ -633,6 +664,257 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
   }
   const dim3 grid((tq + kMmaBQ - 1) / kMmaBQ, h, b);
   kernel<<<grid, kMmaThreads, MmaSmem<D>::kBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      h, h / hkv, tq, tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], causal, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------
+// bfloat16 at (D, Dv) = (288, 256): MLA's call (kv_lora + rope wide q and
+// k, the kv_lora-wide latent as v), mma.sync with the output split over
+// warp pairs
+// ---------------------------------------------------------------------
+
+constexpr int kMlaD = 288;                 // q and k: kv_lora + rope_dim
+constexpr int kMlaDv = 256;                // v and o: kv_lora
+constexpr int kMlaBQ = 64;                 // query rows per block
+constexpr int kMlaBK = 32;                 // keys per tile
+constexpr int kMlaThreads = 256;           // 8 warps: 4 row groups x 2 halves
+
+struct MlaSmem {
+  static constexpr int kQStride = kMlaD + 8;     // bf16 per q / k row
+  static constexpr int kVStride = kMlaDv + 8;    // bf16 per v row
+  static constexpr int kPStride = kMlaBK + 8;    // bf16 per p row
+  static constexpr int kQ = kMlaBQ * kQStride;
+  static constexpr int kK = kMlaBK * kQStride;
+  static constexpr int kV = kMlaBK * kVStride;
+  static constexpr int kP = kMlaBQ * kPStride;
+  // + two float halves per query row: the row maxima, then the row sums
+  static constexpr int kBytes = 2 * (kQ + kK + kV + kP) + 4 * 2 * kMlaBQ;
+};
+
+// The same function as flash_attention_mma_kernel at MLA's widths, where
+// one warp cannot hold its rows' output: 16 rows x 256 float32 columns
+// would be 128 registers a thread before the scores.  Block: one (batch,
+// head, 64-row query tile), 8 warps.  Warp w owns query rows 16 (w % 4) ..
+// + 15 and half w / 4: the keys 16 half .. + 15 of each 32-key tile for
+// q k^T, and the output columns 128 half .. + 127 for p v, so every warp
+// holds 64 accumulator registers and no product is computed twice.  Per
+// tile: each warp computes its 16 x 16 scores (18 k-steps of 16 over
+// D = 288, q's and k's fragments read from shared memory), scales them by
+// 1/sqrt(D) in float32 and masks them; the two warps of a row group swap
+// their partial row maxima through shared memory, so both take the same
+// running max m; each writes its p, rounded to bf16, to a 64 x 32 tile
+// in shared memory and keeps its own partial row sums l; after a barrier
+// each warp reads the A operand of p v for all 32 keys of its rows from
+// that tile and v's fragments with ldmatrix.trans.  The two halves' row
+// sums are added at the end.  Shared memory: q, k and v tiles in bf16
+// (rows padded by 8 values, so 8 rows of 16 bytes hit distinct banks), p,
+// and the row exchange: 79,360 bytes, two blocks per SM.  Copies are
+// synchronous; the other block on the SM runs while one waits.  Not yet
+// tuned for Hopper: no TMA, no wgmma, each block reads every key tile
+// up to its diagonal from L2.
+__global__ void __launch_bounds__(kMlaThreads, 2)
+flash_attention_mla_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ o, int h, int group,
+                           int tq, int tk, int64_t qsb, int64_t qsh,
+                           int64_t qst, int64_t ksb, int64_t ksh,
+                           int64_t kst, int64_t vsb, int64_t vsh,
+                           int64_t vst, int causal, float sm_scale) {
+  using S = MlaSmem;
+  constexpr int kSteps = kMlaD / 16;       // 16-wide steps of q k^T
+  constexpr int kNT = kMlaBK / 2 / 8;      // 8-key score tiles of a warp
+  constexpr int kDT = kMlaDv / 2 / 8;      // 8-column output tiles of a warp
+  extern __shared__ uint4 smem16[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem16);
+  __nv_bfloat16* ks = qs + S::kQ;
+  __nv_bfloat16* vs = ks + S::kK;
+  __nv_bfloat16* ps = vs + S::kV;
+  float* red = reinterpret_cast<float*>(ps + S::kP);   // [2][kMlaBQ]
+
+  const int n_qt = (tq + kMlaBQ - 1) / kMlaBQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kMlaBQ;
+  const int ih = blockIdx.y;
+  const int ib = blockIdx.z;
+  const int ikv = ih / group;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;                // row (and key) within 8
+  const int gc = (lane & 3) * 2;           // column pair within 8
+  const int half = warp >> 2;              // key half, output column half
+  const int row = 16 * (warp & 3) + gr;    // this thread's rows: row, row + 8
+  const int mine = half * kMlaBQ + row;    // its slots in red (+ 8)
+  const int other = (half ^ 1) * kMlaBQ + row;
+
+  const __nv_bfloat16* kp = k + ib * ksb + ikv * ksh;
+  const __nv_bfloat16* vp = v + ib * vsb + ikv * vsh;
+  copy_rows<kMlaD, S::kQStride, kMlaThreads>(qs, q + ib * qsb + ih * qsh,
+                                             qst, q0, kMlaBQ, tq);
+  const __nv_bfloat16* qr = qs + row * S::kQStride + gc;
+
+  // row halves: index 0 is row `row`, index 1 row `row + 8`
+  float acc[kDT][4];
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int t = 0; t < kDT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
+  const int qpos0 = q0 + row;
+
+  const int kv_end = causal ? min(tk, q0 + kMlaBQ) : tk;
+  const int n_kt = (kv_end + kMlaBK - 1) / kMlaBK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kMlaBK;
+    __syncthreads();   // every warp is done with the previous tile
+    copy_rows<kMlaD, S::kQStride, kMlaThreads>(ks, kp, kst, k0, kMlaBK, tk);
+    copy_rows<kMlaDv, S::kVStride, kMlaThreads>(vs, vp, vst, k0, kMlaBK,
+                                                tk);
+    __syncthreads();
+
+    // S = q k^T over this warp's 16 keys
+    float s[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+    const __nv_bfloat16* kr = ks + (16 * half + gr) * S::kQStride + gc;
+#pragma unroll 6
+    for (int st = 0; st < kSteps; ++st) {
+      const uint32_t a[4] = {lds32(qr + 16 * st),
+                             lds32(qr + 8 * S::kQStride + 16 * st),
+                             lds32(qr + 16 * st + 8),
+                             lds32(qr + 8 * S::kQStride + 16 * st + 8)};
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const __nv_bfloat16* kn = kr + 8 * n * S::kQStride + 16 * st;
+        mma16816(s[n], a, lds32(kn), lds32(kn + 8));
+      }
+    }
+
+    // scale, mask, and this warp's partial row maxima
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const int kpos = k0 + 16 * half + 8 * n + gc + (e & 1);
+        float x = s[n][e] * sm_scale;
+        if (kpos >= tk || (causal && kpos > qpos0 + 8 * hf)) x = kNegInf;
+        s[n][e] = x;
+        mx[hf] = fmaxf(mx[hf], x);
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFull, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFull, mx[hf], 2));
+    }
+    if ((lane & 3) == 0) {
+      red[mine] = mx[0];
+      red[mine + 8] = mx[1];
+    }
+    __syncthreads();
+
+    // the row max over both halves, then p, l and the rescaled acc
+    float scale[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float m_new = fmaxf(m[hf], fmaxf(mx[hf], red[other + 8 * hf]));
+      scale[hf] = expf(m[hf] - m_new);
+      m[hf] = m_new;
+      l[hf] *= scale[hf];
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int t = 0; t < kDT; ++t) {
+      acc[t][0] *= scale[0];
+      acc[t][1] *= scale[0];
+      acc[t][2] *= scale[1];
+      acc[t][3] *= scale[1];
+    }
+    // p in bf16 to shared memory: rows row, row + 8; keys 16 half + 8 n + gc
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<uint32_t*>(
+            ps + (row + 8 * hf) * S::kPStride + 16 * half + 8 * n + gc) =
+            pack_bf16(s[n][2 * hf], s[n][2 * hf + 1]);
+    __syncthreads();
+
+    // acc += p v over the tile's 32 keys, this warp's 128 columns
+#pragma unroll
+    for (int j = 0; j < kMlaBK / 16; ++j) {
+      const __nv_bfloat16* pr = ps + row * S::kPStride + 16 * j + gc;
+      const uint32_t pa[4] = {lds32(pr), lds32(pr + 8 * S::kPStride),
+                              lds32(pr + 8), lds32(pr + 8 * S::kPStride + 8)};
+      const __nv_bfloat16* vr = vs + (16 * j + (lane & 15)) * S::kVStride +
+                                128 * half + 8 * (lane >> 4);
+#pragma unroll
+      for (int t = 0; t < kDT; t += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vr + 8 * t);
+        mma16816(acc[t], pa, b[0], b[1]);
+        mma16816(acc[t + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+
+  // the row sums: over the quad, then over the two halves (every read of
+  // the maxima in red came before the loop's last barrier)
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(kFull, l[hf], 1);
+    l[hf] += __shfl_xor_sync(kFull, l[hf], 2);
+  }
+  if ((lane & 3) == 0) {
+    red[mine] = l[0];
+    red[mine + 8] = l[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qpos = qpos0 + 8 * hf;
+    if (qpos >= tq) continue;
+    const float denom = fmaxf(l[hf] + red[other + 8 * hf], 1e-30f);
+    __nv_bfloat16* orow = o +
+        ((static_cast<int64_t>(ib) * h + ih) * tq + qpos) * kMlaDv +
+        128 * half + gc;
+#pragma unroll
+    for (int t = 0; t < kDT; ++t)
+      *reinterpret_cast<uint32_t*>(orow + 8 * t) =
+          pack_bf16(acc[t][2 * hf] / denom, acc[t][2 * hf + 1] / denom);
+  }
+}
+
+int launch_mla(const void* q, const void* k, const void* v, void* o, int b,
+               int h, int hkv, int tq, int tk, const long long* st,
+               int causal, float sm_scale, cudaStream_t stream) {
+  auto kernel = flash_attention_mla_kernel;
+  static bool configured = false;   // once per process (one device)
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MlaSmem::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((tq + kMlaBQ - 1) / kMlaBQ, h, b);
+  kernel<<<grid, kMlaThreads, MlaSmem::kBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -932,10 +1214,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bf16(int d, const void* q, const void* k, const void* v,
-                void* o, int b, int h, int hkv, int tq, int tk,
-                const long long* st, int causal, float sm_scale,
+int launch_bf16(int d, int dv, const void* q, const void* k,
+                const void* v, void* o, int b, int h, int hkv, int tq,
+                int tk, const long long* st, int causal, float sm_scale,
                 cudaStream_t stream) {
+  if (d == 32 && dv == 24)
+    return launch<__nv_bfloat16, 32, 24>(q, k, v, o, b, h, hkv, tq, tk, st,
+                                         causal, sm_scale, stream);
+  if (d == kMlaD && dv == kMlaDv)
+    return launch_mla(q, k, v, o, b, h, hkv, tq, tk, st, causal, sm_scale,
+                      stream);
+  if (d != dv) return cudaErrorInvalidValue;
   switch (d) {
     case 8:   // below one 16-wide step of the tensor-core product
       return launch<__nv_bfloat16, 8>(q, k, v, o, b, h, hkv, tq, tk, st,
@@ -960,27 +1249,27 @@ int launch_bf16(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Launches on `stream` without synchronising; returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unbuilt head width, an unknown dtype, a
+// (cudaErrorInvalidValue for an unbuilt (d, dv) pair, an unknown dtype, a
 // head count that is not a multiple of the KV heads, or a grid too large;
 // 0 when there is nothing to launch).  dtype 0 is float32, 1 bfloat16.
-// Strides are in elements: (batch, head, row) of q, then of k, then of v;
-// o is contiguous [B, H, Tq, D].
+// d is q's and k's width, dv v's.  Strides are in elements: (batch, head,
+// row) of q, then of k, then of v; o is contiguous [B, H, Tq, dv].
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int b,
-    int h, int hkv, int tq, int tk, int d, long long qsb, long long qsh,
-    long long qst, long long ksb, long long ksh, long long kst,
-    long long vsb, long long vsh, long long vst, int causal, float sm_scale,
-    void* stream) {
+    int h, int hkv, int tq, int tk, int d, int dv, long long qsb,
+    long long qsh, long long qst, long long ksb, long long ksh,
+    long long kst, long long vsb, long long vsh, long long vst, int causal,
+    float sm_scale, void* stream) {
   if (b <= 0 || h <= 0 || tq <= 0) return 0;
   if (hkv <= 0 || h % hkv || tk <= 0 || b > 65535 || h > 65535)
     return cudaErrorInvalidValue;
   const long long st[9] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(d, q, k, v, o, b, h, hkv, tq, tk, st, causal,
+    return launch_f32(d, dv, q, k, v, o, b, h, hkv, tq, tk, st, causal,
                       sm_scale, s);
   if (dtype == 1)
-    return launch_bf16(d, q, k, v, o, b, h, hkv, tq, tk, st, causal,
+    return launch_bf16(d, dv, q, k, v, o, b, h, hkv, tq, tk, st, causal,
                        sm_scale, s);
   return cudaErrorInvalidValue;
 }

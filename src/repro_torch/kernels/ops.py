@@ -291,8 +291,8 @@ def minhash_signature(senders: torch.Tensor, receivers: torch.Tensor,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Multi-head attention with GQA: ``q[B, H, Tq, D]``, ``k, v[B, Hkv,
-    Tk, D]`` -> ``[B, H, Tq, D]`` in q's dtype.
+    """Multi-head attention with GQA: ``q[B, H, Tq, D]``, ``k[B, Hkv,
+    Tk, D]``, ``v[B, Hkv, Tk, Dv]`` -> ``[B, H, Tq, Dv]`` in q's dtype.
 
     The JAX package's routing rule (``repro/kernels/ops.py::attention``):
     a call with a bias, or with ``Tq`` or ``Tk`` not a multiple of 128,
@@ -300,9 +300,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference's own dispatch, which its decode step (``Tq = 1``, a bias)
     takes on a TPU too, not a fallback.  Every other call takes the kernel
     route: a CUDA tensor launches the flash-attention kernel or raises, a
-    CPU tensor runs its plain version.  The kernel route raises
-    ``ValueError`` for causal ``Tq != Tk``, ``v``'s width different from
-    q's, and a head width the kernel is not built for
+    CPU tensor runs its plain version.  The kernel route takes ``Dv !=
+    D`` at MLA's pairs ``(288, 256)`` and ``(32, 24)`` and computes there
+    what the reference computes (the TPU kernel crashes on them: ROADMAP
+    queue 3, fault 1).  It raises ``ValueError`` for causal ``Tq != Tk``
+    and a ``(D, Dv)`` pair the kernel is not built for
     (``flash_attention.check_args``), and ``NotImplementedError`` on
     every device where grad mode is on and ``q``, ``k`` or ``v`` requires
     grad: the kernel has no backward, as JAX's ``pallas_call`` has none
@@ -320,7 +322,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _route(q, "attention"):
         out = flash_attention_cuda(q, k, v, causal=causal)
         attention.launches += 1
-        attention.by_variant[kernel_variant(q.dtype, q.shape[-1])] += 1
+        attention.by_variant[kernel_variant(q.dtype, q.shape[-1],
+                                            v.shape[-1])] += 1
         return out
     return flash_attention_plain(q, k, v, causal=causal)
 

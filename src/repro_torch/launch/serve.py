@@ -5,11 +5,12 @@ Prefills a prompt batch by teacher forcing through ``decode_step``, then
 decodes ``gen_tokens`` tokens per request, as the JAX module does.  The
 weights and the prompt are drawn from ``torch.Generator``s seeded with
 ``seed`` and ``seed + 1`` on the device.  ``full=True`` runs the arch's
-full configuration (internlm2-20b's is about 19.9 B parameters, 39.7 GB
-in bfloat16), else its smoke configuration.
+full configuration (minicpm3-4b's, the default arch, is 4.26 B parameters,
+8.52 GB in bfloat16; internlm2-20b's about 19.9 B, 39.7 GB), else its
+smoke configuration.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-        --arch internlm2-20b --tokens 4
+        --arch minicpm3-4b --tokens 4
     PYTHONPATH=src python -m repro_torch.launch.serve --full   # on a card
 """
 from __future__ import annotations
@@ -20,11 +21,12 @@ import time
 import torch
 
 from repro_torch.configs import (granite_moe_3b_a800m, internlm2_20b,
-                                 llama3_405b, moonshot_v1_16b_a3b)
+                                 llama3_405b, minicpm3_4b,
+                                 moonshot_v1_16b_a3b)
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 
-ARCHS = {m.ARCH_ID: m for m in (internlm2_20b, llama3_405b,
+ARCHS = {m.ARCH_ID: m for m in (minicpm3_4b, internlm2_20b, llama3_405b,
                                 granite_moe_3b_a800m, moonshot_v1_16b_a3b)}
 
 
@@ -82,7 +84,7 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 16,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default=internlm2_20b.ARCH_ID,
+    ap.add_argument("--arch", default=minicpm3_4b.ARCH_ID,
                     choices=sorted(ARCHS))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -94,7 +96,8 @@ def main() -> None:
     args = ap.parse_args()
     out = serve(args.arch, args.batch, args.prompt_len, args.tokens,
                 args.seed, args.device, args.full)
-    print(f"generated {tuple(out['tokens'].shape)} tokens on "
+    print(f"{args.arch} ({'full' if args.full else 'smoke'}): generated "
+          f"{tuple(out['tokens'].shape)} tokens on "
           f"device={args.device}; prefill {out['prefill_s']:.2f}s, "
           f"{out['ms_per_token']:.1f} ms/token decode")
 

@@ -1,5 +1,6 @@
 """LM transformer family (port of ``repro/models/transformer.py``): the
-dense GQA and MoE decoder stacks, forward and KV-cache decode.
+dense and MoE decoder stacks with GQA or MLA attention, forward and
+KV-cache decode.
 
 Attention goes through ``kernels/ops.py::attention``, so a forward whose
 length is a multiple of 128 runs the flash-attention kernel on the card
@@ -16,9 +17,17 @@ layer leaves stacked on a leading ``[L]`` axis, so ``params_from_numpy``
 (``models/common.py``) carries JAX-initialised weights across.  The
 JAX stack's sharding constraints (``annotate.constrain``) and remat are
 for a mesh and for training; on one GPU at inference both are no-ops and
-are left out.  MLA (``attn="mla"``) is not ported: the TPU kernel cannot
-run its ``d_v != d_q`` call (ROADMAP queue 3), so it waits for a decision
-on that kernel.
+are left out.
+
+MLA (``attn="mla"``, MiniCPM3/DeepSeek-V2 style) caches the compressed
+latent ``c_kv`` and the shared rope key, not per-head keys and values,
+and attends matrix-absorbed: ``W_kb`` is folded into the query, so every
+head attends with one KV head over ``[c_kv, k_rope]`` (``kv_lora +
+rope_dim`` wide) and takes ``c_kv`` itself as its value (``kv_lora``
+wide), then the context expands through ``W_vb``.  That is an attention
+call with ``d_v != d_q``, which the kernel route takes at minicpm3-4b's
+widths (``kernels/flash_attention.py``); the TPU kernel crashes on it
+(ROADMAP queue 3, fault 1).
 """
 from __future__ import annotations
 
@@ -81,13 +90,13 @@ class TransformerConfig:
         return (self.vocab + m - 1) // m * m
 
 
-def _check_gqa(cfg: TransformerConfig) -> None:
-    if cfg.attn == "mla":
-        raise NotImplementedError(
-            "MLA attention is not ported: the TPU kernel cannot run its "
-            "d_v != d_q call (ROADMAP.md, queue 3)")
-    if cfg.attn != "gqa":
+def _check_attn(cfg: TransformerConfig) -> None:
+    if cfg.attn not in ("gqa", "mla"):
         raise ValueError(f"attn must be 'gqa' or 'mla': {cfg.attn!r}")
+
+
+def _vdim(cfg: TransformerConfig) -> int:
+    return cfg.v_head_dim if cfg.attn == "mla" else cfg.d_head
 
 
 # --------------------------------------------------------------------------- #
@@ -96,14 +105,24 @@ def _check_gqa(cfg: TransformerConfig) -> None:
 
 
 def _layer_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
-    """Each layer leaf's shape and dtype, in the order they are drawn."""
-    d, dt, hd = cfg.d_model, cfg.param_dtype, cfg.d_head
-    shapes = {
-        "q_proj": ((d, cfg.n_heads * hd), dt),
-        "k_proj": ((d, cfg.n_kv_heads * hd), dt),
-        "v_proj": ((d, cfg.n_kv_heads * hd), dt),
-        "o_proj": ((cfg.n_heads * hd, d), dt),
-    }
+    """Each drawn layer leaf's shape and dtype, in the order they are
+    drawn (the norm weights, all ones, are added beside them)."""
+    d, dt, hd, nh = cfg.d_model, cfg.param_dtype, cfg.d_head, cfg.n_heads
+    if cfg.attn == "gqa":
+        shapes = {
+            "q_proj": ((d, nh * hd), dt),
+            "k_proj": ((d, cfg.n_kv_heads * hd), dt),
+            "v_proj": ((d, cfg.n_kv_heads * hd), dt),
+        }
+    else:
+        qd = cfg.nope_dim + cfg.rope_dim
+        shapes = ({"q_a": ((d, cfg.q_lora), dt),
+                   "q_b": ((cfg.q_lora, nh * qd), dt)} if cfg.q_lora
+                  else {"q_proj": ((d, nh * qd), dt)})
+        shapes["kv_a"] = ((d, cfg.kv_lora + cfg.rope_dim), dt)
+        shapes["k_b"] = ((cfg.kv_lora, nh * cfg.nope_dim), dt)
+        shapes["v_b"] = ((cfg.kv_lora, nh * cfg.v_head_dim), dt)
+    shapes["o_proj"] = ((nh * _vdim(cfg), d), dt)
     if cfg.moe:
         e = cfg.n_experts
         shapes["router"] = ((d, e), torch.float32)
@@ -117,6 +136,16 @@ def _layer_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
     return shapes
 
 
+def _norm_shapes(cfg: TransformerConfig) -> Dict[str, int]:
+    """Each layer's RMSNorm weights (ones) and their widths."""
+    norms = {"ln_attn": cfg.d_model, "ln_ffn": cfg.d_model}
+    if cfg.attn == "mla":
+        if cfg.q_lora:
+            norms["q_a_norm"] = cfg.q_lora
+        norms["kv_a_norm"] = cfg.kv_lora
+    return norms
+
+
 def init_transformer(cfg: TransformerConfig, seed: int = 0,
                      device="cuda") -> Params:
     """Random parameters drawn on ``device`` from one ``torch.Generator``
@@ -124,26 +153,36 @@ def init_transformer(cfg: TransformerConfig, seed: int = 0,
     card, and other numbers than ``jax.random``: carry JAX weights across
     with ``params_from_numpy``).  Each layer's leaves are drawn one
     layer at a time and written into the stacked ``[L, ...]`` tensors, so
-    no float32 copy of the whole stack is ever held."""
-    _check_gqa(cfg)
+    no float32 copy of the whole stack is ever held.  On the ``meta``
+    device nothing is drawn: the tree holds the shapes only (what
+    ``param_count`` needs at a full width that would not fit)."""
+    _check_attn(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    meta = device.type == "meta"
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     d, dt, n = cfg.d_model, cfg.param_dtype, cfg.n_layers
-    embed = dense_init(gen, (cfg.vocab_padded, d), scale=1.0, dtype=dt)
+
+    def draw(shape, scale=None, dtype=dt):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=device)
+        return dense_init(gen, shape, scale=scale, dtype=dtype)
+
+    embed = draw((cfg.vocab_padded, d), scale=1.0)
     shapes = _layer_shapes(cfg)
     layers = {name: torch.empty((n, *shape), dtype=ldt, device=device)
               for name, (shape, ldt) in shapes.items()}
-    for i in range(n):
-        for name, (shape, ldt) in shapes.items():
-            scale = d ** -0.5 if name == "router" else None
-            layers[name][i] = dense_init(gen, shape, scale=scale, dtype=ldt)
-    layers["ln_attn"] = torch.ones((n, d), dtype=dt, device=device)
-    layers["ln_ffn"] = torch.ones((n, d), dtype=dt, device=device)
+    if not meta:
+        for i in range(n):
+            for name, (shape, ldt) in shapes.items():
+                scale = d ** -0.5 if name == "router" else None
+                layers[name][i] = draw(shape, scale, ldt)
+    for name, width in _norm_shapes(cfg).items():
+        layers[name] = torch.ones((n, width), dtype=dt, device=device)
     return {
         "embed": embed,
         "layers": layers,
         "ln_f": torch.ones((d,), dtype=dt, device=device),
-        "lm_head": dense_init(gen, (d, cfg.vocab_padded), dtype=dt),
+        "lm_head": draw((d, cfg.vocab_padded)),
     }
 
 
@@ -166,6 +205,53 @@ def _gqa_qkv(p: Params, cfg: TransformerConfig, h: torch.Tensor,
     q = apply_rope(q.transpose(1, 2), pos[:, None, :])
     k = apply_rope(k.transpose(1, 2), pos[:, None, :])
     return q, k, v.transpose(1, 2)
+
+
+def _mla_q(p: Params, cfg: TransformerConfig, h: torch.Tensor,
+           pos: torch.Tensor):
+    """Per-head ``q_nope [B, H, T, nope]`` and roped ``q_rope [B, H, T,
+    rope]``, through the low-rank ``q_a``/``q_b`` when ``q_lora``."""
+    b, t, _ = h.shape
+    qd = cfg.nope_dim + cfg.rope_dim
+    if cfg.q_lora:
+        qa = rms_norm(h @ p["q_a"], p["q_a_norm"])
+        q = (qa @ p["q_b"]).reshape(b, t, cfg.n_heads, qd)
+    else:
+        q = (h @ p["q_proj"]).reshape(b, t, cfg.n_heads, qd)
+    q = q.transpose(1, 2)
+    q_nope, q_rope = q[..., :cfg.nope_dim], q[..., cfg.nope_dim:]
+    return q_nope, apply_rope(q_rope, pos[:, None, :])
+
+
+def _mla_latent(p: Params, cfg: TransformerConfig, h: torch.Tensor,
+                pos: torch.Tensor):
+    """The compressed latent ``c_kv [B, T, kv_lora]`` and the shared
+    roped key ``k_rope [B, T, rope]``: what the cache holds."""
+    kv = h @ p["kv_a"]
+    c_kv = rms_norm(kv[..., :cfg.kv_lora], p["kv_a_norm"])
+    k_rope = apply_rope(kv[..., None, cfg.kv_lora:].transpose(1, 2),
+                        pos[:, None, :])[:, 0]
+    return c_kv, k_rope
+
+
+def _mla_attend(p: Params, cfg: TransformerConfig, q_nope: torch.Tensor,
+                q_rope: torch.Tensor, c_kv: torch.Tensor,
+                k_rope: torch.Tensor, causal: bool,
+                bias=None) -> torch.Tensor:
+    """Matrix-absorbed MLA attention over the latent (``c_kv``, ``k_rope``
+    of ``[B, S, .]``): ``q_eff = q_nope W_kb`` per head, one KV head
+    ``[c_kv, k_rope]`` of width ``kv_lora + rope_dim``, ``c_kv`` as the
+    value, and the context expanded through ``W_vb`` to ``[B, H, T,
+    v_head_dim]``."""
+    nh = q_nope.shape[1]
+    w_kb = p["k_b"].reshape(cfg.kv_lora, nh, cfg.nope_dim)
+    q_eff = torch.einsum("bhtd,lhd->bhtl", q_nope, w_kb)     # [B,H,T,l]
+    q_full = torch.cat([q_eff, q_rope], dim=-1)
+    k_full = torch.cat([c_kv, k_rope], dim=-1)[:, None].to(q_full.dtype)
+    ctx = ops.attention(q_full, k_full, c_kv[:, None].to(q_full.dtype),
+                        causal=causal, bias=bias)             # [B,H,T,l]
+    w_vb = p["v_b"].reshape(cfg.kv_lora, nh, cfg.v_head_dim)
+    return torch.einsum("bhtl,lhv->bhtv", ctx, w_vb)
 
 
 def _dense_ffn(p: Params, h: torch.Tensor) -> torch.Tensor:
@@ -225,8 +311,13 @@ def _layer_fn(cfg: TransformerConfig, h: torch.Tensor, pos: torch.Tensor,
               p: Params) -> torch.Tensor:
     x = rms_norm(h, p["ln_attn"])
     b, t, _ = h.shape
-    q, k, v = _gqa_qkv(p, cfg, x, pos)
-    ctx = ops.attention(q, k, v, causal=True)
+    if cfg.attn == "gqa":
+        q, k, v = _gqa_qkv(p, cfg, x, pos)
+        ctx = ops.attention(q, k, v, causal=True)
+    else:
+        q_nope, q_rope = _mla_q(p, cfg, x, pos)
+        c_kv, k_rope = _mla_latent(p, cfg, x, pos)
+        ctx = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, causal=True)
     ctx = ctx.transpose(1, 2).reshape(b, t, -1)
     h = h + ctx @ p["o_proj"]
     x = rms_norm(h, p["ln_ffn"])
@@ -246,7 +337,7 @@ def forward_logits(params: Params, tokens: torch.Tensor,
     """tokens ``[B, T]`` -> logits ``[B, T, V_padded]``, layer by layer
     over the stacked parameters, recording gradients where grad mode is
     on (:func:`loss_fn`'s forward)."""
-    _check_gqa(cfg)
+    _check_attn(cfg)
     h = params["embed"][tokens].to(cfg.compute_dtype)
     pos = torch.arange(tokens.shape[1], device=tokens.device).expand(
         tokens.shape)
@@ -272,10 +363,19 @@ def loss_fn(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                device="cuda") -> Params:
-    """An empty KV cache: ``k``, ``v`` of ``[L, B, Hkv, max_len, D]`` in
-    the compute dtype and ``len``, the host int of positions filled."""
-    _check_gqa(cfg)
+    """An empty KV cache in the compute dtype and ``len``, the host int
+    of positions filled: GQA's ``k``, ``v`` of ``[L, B, Hkv, max_len,
+    D]``; MLA's latent ``c_kv [L, B, max_len, kv_lora]`` and ``k_rope [L,
+    B, max_len, rope_dim]``."""
+    _check_attn(cfg)
     device = resolve_device(device)
+    if cfg.attn == "mla":
+        lead = (cfg.n_layers, batch, max_len)
+        return {"c_kv": torch.zeros((*lead, cfg.kv_lora),
+                                    dtype=cfg.compute_dtype, device=device),
+                "k_rope": torch.zeros((*lead, cfg.rope_dim),
+                                      dtype=cfg.compute_dtype, device=device),
+                "len": 0}
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
@@ -288,17 +388,19 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     """One-token decode: tokens ``[B]`` -> logits ``[B, V_padded]`` and
     the cache.
 
-    The cache is written IN PLACE: this step's keys and values go into
-    ``cache["k"]``/``cache["v"]`` at position ``cache["len"]`` (a host
-    int, so no sync), and ``len`` is incremented; the dict returned is
-    ``cache`` itself.  Keep a ``.clone()`` of a cache you still need.
-    (The JAX step returns a new cache.)  Attention covers the positions
-    up to ``len`` through a bias, so it runs ``kernels/ref.py``.
+    The cache is written IN PLACE: this step's keys and values (MLA: its
+    latent and rope key) go into the cache at position ``cache["len"]``
+    (a host int, so no sync), and ``len`` is incremented; the dict
+    returned is ``cache`` itself.  Keep a ``.clone()`` of a cache you
+    still need.  (The JAX step returns a new cache.)  Attention covers
+    the positions up to ``len`` through a bias, so it runs
+    ``kernels/ref.py``.
     """
-    _check_gqa(cfg)
+    _check_attn(cfg)
     b = tokens.shape[0]
     t_now = cache["len"]
-    max_len = cache["k"].shape[3]
+    max_len = (cache["c_kv"].shape[2] if cfg.attn == "mla"
+               else cache["k"].shape[3])
     if t_now >= max_len:
         raise ValueError(f"the cache is full: {t_now} of {max_len}")
     h = params["embed"][tokens][:, None].to(cfg.compute_dtype)   # [B,1,D]
@@ -308,11 +410,19 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         x = rms_norm(h, p["ln_attn"])
-        q, k1, v1 = _gqa_qkv(p, cfg, x, pos)
-        cache["k"][i, :, :, t_now] = k1[:, :, 0]
-        cache["v"][i, :, :, t_now] = v1[:, :, 0]
-        ctx = ops.attention(q, cache["k"][i], cache["v"][i], causal=False,
-                            bias=bias)
+        if cfg.attn == "gqa":
+            q, k1, v1 = _gqa_qkv(p, cfg, x, pos)
+            cache["k"][i, :, :, t_now] = k1[:, :, 0]
+            cache["v"][i, :, :, t_now] = v1[:, :, 0]
+            ctx = ops.attention(q, cache["k"][i], cache["v"][i],
+                                causal=False, bias=bias)
+        else:
+            q_nope, q_rope = _mla_q(p, cfg, x, pos)
+            c1, r1 = _mla_latent(p, cfg, x, pos)
+            cache["c_kv"][i, :, t_now] = c1[:, 0]
+            cache["k_rope"][i, :, t_now] = r1[:, 0]
+            ctx = _mla_attend(p, cfg, q_nope, q_rope, cache["c_kv"][i],
+                              cache["k_rope"][i], causal=False, bias=bias)
         ctx = ctx.transpose(1, 2).reshape(b, 1, -1)
         h = h + ctx @ p["o_proj"]
         x = rms_norm(h, p["ln_ffn"])

@@ -5,7 +5,10 @@ Inputs are drawn with numpy from a seed and handed to both packages.  The
 plain version is held to the Pallas kernel in interpret mode (the same
 128 x 128 blocks in the same order, float32: rtol = atol = 1e-5; bf16
 inputs 3e-2, as ``tests/test_kernels.py`` holds the kernel), and the
-port's ``ref.flash_attention_ref`` to JAX's (1e-5).
+port's ``ref.flash_attention_ref`` to JAX's (1e-5).  At MLA's ``d_v !=
+d_q`` the Pallas kernel crashes (pinned below), so the plain version is
+held there to JAX's ``ref.flash_attention_ref``, the function the JAX
+package's MLA computes off a TPU (float32 1e-5, bf16 3e-2).
 """
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    DTYPES, HEAD_DIMS, _kernel_view, flash_attention_cuda,
+    DTYPES, HEAD_DIMS, MLA_WIDTHS, _kernel_view, flash_attention_cuda,
     flash_attention_plain, kernel_variant, tma_ok)
 
 # the sweep of tests/test_kernels.py::test_flash_attention_sweep
@@ -69,6 +72,46 @@ def test_plain_matches_pallas_kernel_at_smoke_head_widths(d):
     got = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [128, 256])
+def test_plain_matches_jax_ref_at_mla_widths(t, causal, dtype, tol):
+    """minicpm3-4b's smoke pair (32, 24): one KV head, v narrower than q;
+    the output is v's width and the scale 1/sqrt(d_q)."""
+    q, k, v = _qkv(2, 4, 1, t, t, 32, seed=t + causal, dv=24)
+    cast = ((jnp.asarray, torch.from_numpy) if dtype == "float32"
+            else (_jax_bf16, _torch_bf16))
+    want = jref.flash_attention_ref(*(cast[0](a) for a in (q, k, v)),
+                                    causal)
+    got = flash_attention_plain(*(cast[1](a) for a in (q, k, v)),
+                                causal=causal)
+    assert got.dtype == cast[1](q).dtype and got.shape == (2, 4, t, 24)
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def test_plain_matches_jax_ref_at_minicpm3_full_widths():
+    q, k, v = _qkv(1, 4, 1, 128, 128, 288, seed=20, dv=256)
+    want = jref.flash_attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                    True)
+    got = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert got.shape == (1, 4, 128, 256)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_pallas_kernel_crashes_at_mla_widths():
+    """Fault 1 (ROADMAP queue 3): the TPU kernel reshapes v with q's
+    width, so JAX's kernel route cannot run MLA's call; the port's kernel
+    takes it and computes what the reference computes."""
+    q, k, v = _qkv(1, 4, 1, 128, 128, 32, seed=21, dv=24)
+    with pytest.raises(TypeError, match="reshape"):
+        jops.attention(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
+                       use_pallas=True, interpret=True)
 
 
 def _decode_bias(s, t_now):
@@ -139,10 +182,14 @@ def test_kernel_route_raises_where_the_tpu_kernel_is_wrong():
     with pytest.raises(ValueError, match="Tq=128 != Tk=256"):
         ops.attention(q, k, v, causal=True)
     ops.attention(q, k, v, causal=False)     # not causal: fine
+    # MLA's d_v != d_q: the route answers as the reference does
     q, k, v = (torch.from_numpy(a)
                for a in _qkv(1, 4, 1, 128, 128, 32, 10, dv=24))
-    with pytest.raises(ValueError, match="v's width"):
-        ops.attention(q, k, v)
+    np.testing.assert_allclose(ops.attention(q, k, v).numpy(),
+                               ref.flash_attention_ref(q, k, v).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match=r"widths \(d_q 32, d_v 16\)"):
+        ops.attention(q, k, v[..., :16])
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 1, 128, 128, 24, 11))
     with pytest.raises(ValueError, match="head width 24"):
         ops.attention(q, k, v)
@@ -203,6 +250,15 @@ def test_kernel_variant_by_dtype_and_width(dtype, d):
     assert kernel_variant(dtype, d) == VARIANTS.get((dtype, d), "simt")
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,dv", MLA_WIDTHS)
+def test_kernel_variant_at_mla_widths(dtype, d, dv):
+    """bf16 at minicpm3-4b's full pair runs the MLA tensor-core kernel;
+    float32, and bf16 at the smoke pair, the SIMT kernel."""
+    want = "mla" if (dtype, d, dv) == (torch.bfloat16, 288, 256) else "simt"
+    assert kernel_variant(dtype, d, dv) == want
+
+
 def _strided(b, h, t, d, dtype):
     """The transformer's layout: ``[B, T, heads, D]`` memory viewed as
     ``[B, heads, T, D]``."""
@@ -250,7 +306,12 @@ def test_kernel_matches_plain_on_the_card(dtype, tol):
                (2, 8, 2, 512, 128, False, True),
                (2, 6, 2, 768, 64, True, True),
                (1, 4, 1, 384, 64, False, True)]
+    # MLA's pairs (d, dv), one KV head
+    shapes += [(1, 4, 1, 256, (288, 256), True, False),
+               (2, 3, 1, 384, (288, 256), False, False),
+               (2, 4, 1, 256, (32, 24), True, False)]
     for b, h, hkv, t, d, causal, strided in shapes:
+        d, dv = d if isinstance(d, tuple) else (d, d)
         rng = np.random.default_rng(b * t + h + d)
         if strided:
             q, k, v = (torch.from_numpy(rng.normal(size=(b, t, n, d)).astype(
@@ -258,7 +319,8 @@ def test_kernel_matches_plain_on_the_card(dtype, tol):
                 for n in (h, hkv, hkv))
         else:
             q, k, v = (torch.from_numpy(a).to("cuda", dt)
-                       for a in _qkv(b, h, hkv, t, t, d, seed=b * t + h))
+                       for a in _qkv(b, h, hkv, t, t, d, seed=b * t + h,
+                                     dv=dv))
         got = flash_attention_cuda(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()

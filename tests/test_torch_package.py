@@ -40,7 +40,7 @@ def test_port_imports_nothing_of_jax_or_repro():
                  "testing", "testing.proptest", "launch.quickstart",
                  "kernels.ht_rebuild", "configs.sasrec", "models.sasrec",
                  "optim", "optim.adamw", "train", "train.step",
-                 "launch.train"):
+                 "launch.train", "configs.minicpm3_4b"):
         assert f"repro_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"

@@ -164,6 +164,65 @@ def test_port_checkpoint_restored_by_jax(tmp_path, jax_ref):
     assert_same(rec, jax_ref, "the port's directory, continued by JAX")
 
 
+def dir_contents(root) -> dict:
+    """Every file under ``root`` by relative path: an ``arrays.npz`` by
+    its arrays (the zip's own timestamps aside), any other file by its
+    bytes."""
+    import pathlib
+    out = {}
+    for path in sorted(pathlib.Path(root).rglob("*")):
+        if not path.is_file():
+            continue
+        rel = str(path.relative_to(root))
+        if path.name == "arrays.npz":
+            with np.load(path) as z:
+                out[rel] = {k: z[k] for k in z.files}
+        else:
+            out[rel] = path.read_bytes()
+    return out
+
+
+def test_copy_at_a_boundary_is_what_a_kill_there_leaves(tmp_path):
+    """``chip_smoke.py``'s phase 13 recovers a copy of an uninterrupted
+    run's directory, taken after chunk 3 and before that run's save at
+    the boundary, in place of a run killed there: the copy and the kill's
+    directory hold the same files, recover to the same info and leaves,
+    and continue to the same end."""
+    import shutil
+    stream = make_stream()
+    b = CFG["batch"]
+    run, kill = str(tmp_path / "run"), str(tmp_path / "kill")
+    copy = str(tmp_path / "copy")
+    live = port(run)
+    for i in range(3):
+        live.process(stream[i * b:(i + 1) * b])
+        if i + 1 == 2:
+            live.save()
+    shutil.copytree(run, copy)
+    live.save()                          # the run goes on past the copy
+    with pytest.raises(inject.SimulatedCrash):
+        inject.drive(port(kill), stream, ckpt_every=2, kill_at_chunk=3)
+    got, want = dir_contents(copy), dir_contents(kill)
+    assert sorted(got) == sorted(want)
+    for rel, value in want.items():
+        if isinstance(value, dict):
+            assert sorted(got[rel]) == sorted(value), rel
+            for key, arr in value.items():
+                assert got[rel][key].dtype == arr.dtype, (rel, key)
+                np.testing.assert_array_equal(got[rel][key], arr,
+                                              err_msg=f"{rel} {key}")
+        else:
+            assert got[rel] == value, rel
+    recs = [port(d) for d in (copy, kill)]
+    infos = [r.recover() for r in recs]
+    assert infos[0] == infos[1]
+    assert (infos[0]["epoch"], infos[0]["replayed_chunks"]) == (2, 1)
+    assert_same(recs[0], recs[1], "copy vs kill, recovered")
+    for r in recs:
+        inject.drive(r, stream, start=r.stream_cursor)
+    assert_same(recs[0], recs[1], "copy vs kill, continued")
+
+
 # --------------------------------------------------------------------------- #
 # manifest pins, query fence, retry driver
 # --------------------------------------------------------------------------- #

@@ -52,7 +52,7 @@ from repro_torch.train import step as tstep  # noqa: E402
 SRC = Path(__file__).resolve().parent.parent / "src"
 GNN_ARCHS = [("graphsage_reddit", False), ("egnn", True), ("dimenet", True),
              ("graphcast", False)]
-LM_ARCHS = ["internlm2_20b", "granite_moe_3b_a800m"]
+LM_ARCHS = ["internlm2_20b", "granite_moe_3b_a800m", "minicpm3_4b"]
 OPT = dict(lr=1e-3, warmup_steps=10, total_steps=1000)
 
 
@@ -126,7 +126,7 @@ def _family(name):
 
 
 def test_registry_holds_every_ported_arch():
-    assert set(TREG) == set(JREG) - {"minicpm3-4b"}
+    assert set(TREG) == set(JREG)
     for arch, spec in TREG.items():
         jspec = JREG[arch]
         assert (spec.family, spec.source, spec.technique_applicable) == (
@@ -274,6 +274,37 @@ def test_train_step_matches_jax(family):
         if i == 0:
             _close_trees(tp, jp, 1e-6, 1e-6)
     assert int(to.step) == 3
+
+
+def test_mla_train_step_matches_jax():
+    """One AdamW step of minicpm3-4b's smoke config at T = 64 (the
+    reference route, as the trainer's): the loss and every gradient
+    (1e-4), then the parameters (1e-6)."""
+    jcfg, tcfg = _configs("minicpm3_4b")
+    tokens, labels = next(jsyn.lm_batches(jcfg.vocab, 4, 64, seed=6))
+    jp = jtfm.init_transformer(jcfg, jax.random.key(6))
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, t, l: jtfm.loss_fn(p, t, l, jcfg)))(
+        jp, jnp.asarray(tokens), jnp.asarray(labels))
+    tloss, tgrads = tstep.value_and_grad(
+        lambda p, t, l: ttfm.loss_fn(p, t, l, tcfg), _carry(jp),
+        torch.from_numpy(tokens), torch.from_numpy(labels))
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-4)
+    _close_trees(tgrads, jgrads, 1e-4, 1e-4)
+    assert {"q_a", "q_a_norm", "kv_a", "kv_a_norm", "k_b",
+            "v_b"} <= set(tgrads["layers"])
+    jcfg_o, tcfg_o = jadam.AdamWConfig(**OPT), tadam.AdamWConfig(**OPT)
+    jo = jadam.init(jp, jcfg_o)
+    to = tadam.opt_state_from_numpy(jax.tree.map(np.asarray, jo), "cpu")
+    jp1, _, jm = jax.jit(jstep.make_train_step(
+        lambda p, t, l: jtfm.loss_fn(p, t, l, jcfg), jcfg_o))(
+        jp, jo, jnp.asarray(tokens), jnp.asarray(labels))
+    tp1, _, tm = tstep.make_train_step(
+        lambda p, t, l: ttfm.loss_fn(p, t, l, tcfg), tcfg_o)(
+        _carry(jp), to, torch.from_numpy(tokens), torch.from_numpy(labels))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-4)
+    _close_trees(tp1, jp1, 1e-6, 1e-6)
 
 
 @pytest.mark.parametrize("family", ["lm", "recsys"])

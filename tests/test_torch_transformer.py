@@ -1,14 +1,16 @@
-"""PyTorch port: the GQA/MoE transformer, its decode step and the serve
-loop, against the JAX package.
+"""PyTorch port: the GQA/MLA/MoE transformer, its decode step and the
+serve loop, against the JAX package.
 
 Parameters are initialised by JAX and carried across with
 ``params_from_numpy``; tokens are drawn with numpy from a seed.  The JAX
 forward runs ``ref.flash_attention_ref`` (no TPU here); the port's runs
 the kernel's plain version at T = 128 and 256 and the reference at
-T = 12.  Tolerances: float32 rtol = atol = 1e-4 (matmuls and softmax sums
-in another order, online vs one-pass softmax); bfloat16 3e-2 (the two
-frameworks round bf16 at other places); decode vs forward 2e-3, the bar
-of ``tests/test_models.py::test_decode_matches_forward``.
+T = 12 and 64 (MLA's kernel route at ``d_v != d_q`` too: minicpm3-4b's
+smoke pair is (32, 24)).  Tolerances: float32 rtol = atol = 1e-4
+(matmuls and softmax sums in another order, online vs one-pass
+softmax); bfloat16 3e-2 (the two frameworks round bf16 at other
+places); decode vs forward 2e-3, the bar of
+``tests/test_models.py::test_decode_matches_forward``.
 """
 import dataclasses
 import functools
@@ -30,11 +32,15 @@ from repro.models import transformer as jtfm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
-from repro_torch.models.common import param_count  # noqa: E402
+from repro_torch.models.common import (  # noqa: E402
+    param_count, tree_leaves)
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 ARCHS = ["internlm2_20b", "llama3_405b", "granite_moe_3b_a800m",
-         "moonshot_v1_16b_a3b"]
+         "moonshot_v1_16b_a3b", "minicpm3_4b"]
+# MLA at minicpm3-4b's smoke widths: (q_lora, n_experts), full-rank and
+# low-rank q, dense and MoE (tests/test_models.py runs ("mla", 8))
+MLA_VARIANTS = [(0, 0), (8, 0), (0, 8), (8, 8)]
 DTYPES = ("param_dtype", "compute_dtype")
 
 
@@ -204,18 +210,110 @@ def test_serve_loop_matches_jax_tokens():
                                   np.asarray(jnp.stack(toks, axis=1)))
 
 
-def test_mla_is_not_ported():
-    cfg = ttfm.TransformerConfig(attn="mla", param_dtype=torch.float32,
-                                 compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.init_transformer(cfg, 0, device="cpu")
+@pytest.mark.parametrize("t", [64, 128])
+@pytest.mark.parametrize("q_lora,n_experts", MLA_VARIANTS)
+def test_mla_forward_matches_jax(q_lora, n_experts, t):
+    """T = 128 takes the kernel route (the plain version here) at the
+    (32, 24) pair, T = 64 the reference."""
+    jcfg, tcfg = _configs("minicpm3_4b", q_lora=q_lora,
+                          n_experts=n_experts)
+    jparams, tparams = _params(jcfg)
+    assert ("q_a" in tparams["layers"]) == bool(q_lora)
+    assert param_count(tparams) == sum(
+        int(a.size) for a in jax.tree.leaves(jparams))
+    toks = _tokens(jcfg, 2, t)
+    want = np.asarray(jtfm.forward(jparams, jnp.asarray(toks), jcfg))
+    got = ttfm.forward(tparams, torch.from_numpy(toks), tcfg)
+    assert got.shape == (2, t, tcfg.vocab_padded)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
-def test_serve_cli_runs_on_the_cpu():
+@pytest.mark.parametrize("q_lora,n_experts", MLA_VARIANTS)
+def test_mla_decode_step_matches_jax(q_lora, n_experts):
+    """Teacher-forced over 8 tokens: logits and the latent cache."""
+    jcfg, tcfg = _configs("minicpm3_4b", q_lora=q_lora,
+                          n_experts=n_experts)
+    jparams, tparams = _params(jcfg)
+    toks = _tokens(jcfg, 2, 8)
+    jcache = jtfm.init_cache(jcfg, 2, 12)
+    tcache = ttfm.init_cache(tcfg, 2, 12, device="cpu")
+    step = jax.jit(lambda p, c, x: jtfm.decode_step(p, c, x, jcfg))
+    for i in range(8):
+        want, jcache = step(jparams, jcache, jnp.asarray(toks[:, i]))
+        got, tcache = ttfm.decode_step(tparams, tcache,
+                                       torch.from_numpy(toks[:, i]), tcfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4, err_msg=f"step {i}")
+    assert tcache["len"] == int(jcache["len"]) == 8
+    for name in ("c_kv", "k_rope"):
+        np.testing.assert_allclose(tcache[name].numpy(),
+                                   np.asarray(jcache[name]), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("module", ["minicpm3_4b", "internlm2_20b"])
+def test_init_cache_shapes_match_jax(module):
+    """MLA caches the latent (``c_kv``, ``k_rope``), GQA per-head k, v."""
+    jcfg, tcfg = _configs(module)
+    jcache = jtfm.init_cache(jcfg, 3, 20)
+    tcache = ttfm.init_cache(tcfg, 3, 20, device="cpu")
+    assert set(tcache) == set(jcache)
+    for name, arr in jcache.items():
+        if name == "len":
+            assert tcache["len"] == int(arr) == 0
+            continue
+        assert tuple(tcache[name].shape) == arr.shape, name
+        assert tcache[name].dtype == tcfg.compute_dtype
+        assert not bool(tcache[name].any())
+
+
+def test_mla_serve_loop_matches_jax_tokens():
+    jcfg, tcfg = _configs("minicpm3_4b")
+    jparams, tparams = _params(jcfg, seed=5)
+    prompt = _tokens(jcfg, 3, 6, seed=6)
+    out = tserve.generate(tparams, tcfg, torch.from_numpy(prompt), 10)
+    cache = jtfm.init_cache(jcfg, 3, 16)
+    step = jax.jit(lambda p, c, x: jtfm.decode_step(p, c, x, jcfg))
+    for t in range(6):
+        logits, cache = step(jparams, cache, jnp.asarray(prompt[:, t]))
+    toks = []
+    tok = jnp.argmax(logits, axis=-1)
+    for _ in range(10):
+        toks.append(tok)
+        logits, cache = step(jparams, cache, tok)
+        tok = jnp.argmax(logits, axis=-1)
+    np.testing.assert_array_equal(out["tokens"].numpy(),
+                                  np.asarray(jnp.stack(toks, axis=1)))
+
+
+@pytest.mark.parametrize("module", ["minicpm3_4b", "internlm2_20b"])
+def test_param_count_at_full_width_matches_jax(module):
+    """On the meta device, so nothing is drawn: against the JAX package's
+    ``eval_shape`` of its initialiser (minicpm3-4b: 4,262,025,728)."""
+    jcfg = importlib.import_module(f"repro.configs.{module}").full_config()
+    tcfg = importlib.import_module(
+        f"repro_torch.configs.{module}").full_config()
+    shapes = jax.eval_shape(lambda k: jtfm.init_transformer(jcfg, k),
+                            jax.random.key(0))
+    meta = ttfm.init_transformer(tcfg, device="meta")
+    assert all(t.device.type == "meta" for t in tree_leaves(meta))
+    want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    assert param_count(meta) == want
+    if module == "minicpm3_4b":
+        assert want == 4_262_025_728
+
+
+@pytest.mark.parametrize("arch", ["internlm2-20b", None])
+def test_serve_cli_runs_on_the_cpu(arch):
+    """With ``--arch``, and without: the default arch, minicpm3-4b, as in
+    the JAX package's CLI."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
-         "--arch", "internlm2-20b", "--tokens", "4"], env=env,
-        capture_output=True, text=True, timeout=300)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+           "cpu", "--tokens", "4"]
+    if arch:
+        cmd += ["--arch", arch]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "generated (4, 4) tokens on device=cpu" in proc.stdout
+    assert proc.stdout.startswith(f"{arch or 'minicpm3-4b'} (smoke): "
+                                  f"generated (4, 4) tokens on device=cpu")

@@ -7,12 +7,15 @@ Builds ``src/repro_torch/csrc/flash_attention.cu`` (printing ``nvcc``'s
 register and spill lines), then holds every kernel variant to its plain
 torch version at small shapes: the ``wgmma`` kernel (bf16, D = 64 and 128;
 contiguous and the transformer's strided layout, causal and not, GQA), the
-``mma.sync`` kernel (bf16, D = 16 and 32) and the SIMT kernel (float32,
-bf16 at D = 8), within 3e-2 in bf16 and 2e-3 in float32.  A failing
+``mma.sync`` kernel (bf16, D = 16 and 32), the MLA kernel (bf16,
+``(D, Dv) = (288, 256)``) and the SIMT kernel (float32, bf16 at D = 8 and
+at ``(32, 24)``), within 3e-2 in bf16 and 2e-3 in float32.  A failing
 ``wgmma`` shape is probed further: with q = 0 (uniform p: only the p v
 product and the epilogue count) and with v = 1 (only the normalisation
-counts).  ``--time`` adds the kernel's device time at internlm2-20b's and
-granite-moe-3b-a800m's layer shapes beside ``scaled_dot_product_attention``.
+counts).  ``--time`` adds the kernel's device time at internlm2-20b's,
+granite-moe-3b-a800m's and minicpm3-4b's layer shapes beside
+``scaled_dot_product_attention`` (at minicpm3-4b's, through
+``chip_smoke.mla_library_call``).
 
 It takes a minute, so it is the first thing to run on the card after an
 edit of the kernel, under ``timeout`` (a broken pipeline traps after a few
@@ -28,26 +31,35 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# (dtype, B, H, Hkv, T, D, causal, strided); the first two give the
-# producer more key tiles than ring stages, so a stuck pipeline traps
+# (dtype, B, H, Hkv, T, D, Dv, causal, strided); the first two give the
+# producer more key tiles than ring stages, so a stuck pipeline traps; the
+# last six are MLA's pairs (one KV head, v narrower than q)
 SHAPES = (
-    ("bfloat16", 1, 2, 1, 512, 64, True, False),
-    ("bfloat16", 1, 2, 1, 512, 128, True, False),
-    ("bfloat16", 2, 4, 2, 256, 64, True, False),
-    ("bfloat16", 1, 8, 8, 128, 128, True, False),
-    ("bfloat16", 2, 4, 1, 384, 64, False, False),
-    ("bfloat16", 2, 8, 2, 512, 128, False, True),
-    ("bfloat16", 1, 4, 1, 1024, 128, True, True),
-    ("bfloat16", 2, 6, 2, 768, 64, True, True),
-    ("bfloat16", 2, 4, 4, 256, 16, True, False),
-    ("bfloat16", 2, 4, 2, 256, 32, True, True),
-    ("bfloat16", 2, 8, 2, 256, 8, True, False),
-    ("float32", 2, 4, 2, 256, 64, True, True),
-    ("float32", 1, 8, 8, 128, 128, False, False),
+    ("bfloat16", 1, 2, 1, 512, 64, 64, True, False),
+    ("bfloat16", 1, 2, 1, 512, 128, 128, True, False),
+    ("bfloat16", 2, 4, 2, 256, 64, 64, True, False),
+    ("bfloat16", 1, 8, 8, 128, 128, 128, True, False),
+    ("bfloat16", 2, 4, 1, 384, 64, 64, False, False),
+    ("bfloat16", 2, 8, 2, 512, 128, 128, False, True),
+    ("bfloat16", 1, 4, 1, 1024, 128, 128, True, True),
+    ("bfloat16", 2, 6, 2, 768, 64, 64, True, True),
+    ("bfloat16", 2, 4, 4, 256, 16, 16, True, False),
+    ("bfloat16", 2, 4, 2, 256, 32, 32, True, True),
+    ("bfloat16", 2, 8, 2, 256, 8, 8, True, False),
+    ("float32", 2, 4, 2, 256, 64, 64, True, True),
+    ("float32", 1, 8, 8, 128, 128, 128, False, False),
+    ("bfloat16", 1, 4, 1, 256, 288, 256, True, False),
+    ("bfloat16", 2, 3, 1, 384, 288, 256, False, False),
+    ("bfloat16", 1, 2, 1, 128, 288, 256, True, False),
+    ("float32", 1, 2, 1, 256, 288, 256, True, False),
+    ("bfloat16", 2, 4, 1, 256, 32, 24, True, False),
+    ("float32", 2, 4, 1, 256, 32, 24, False, False),
 )
-# (name, B, H, Hkv, T, D) of the timed layer shapes, bf16, causal, strided
-LAYERS = (("internlm2-20b", 2, 48, 8, 4096, 128),
-          ("granite-moe-3b-a800m", 2, 24, 8, 4096, 64))
+# (name, B, H, Hkv, T, D, Dv, strided) of the timed layer shapes, bf16,
+# causal, in the layout the transformer hands over
+LAYERS = (("internlm2-20b", 2, 48, 8, 4096, 128, 128, True),
+          ("granite-moe-3b-a800m", 2, 24, 8, 4096, 64, 64, True),
+          ("minicpm3-4b", 2, 40, 1, 4096, 288, 256, False))
 
 
 def err(got, want) -> float:
@@ -83,7 +95,8 @@ def main() -> int:
         print("attention_check: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    from chip_smoke import attn_inputs, graph_ms
+    from chip_smoke import (MLA_SDPA_BACKEND, attn_inputs, graph_ms,
+                             mla_library_call)
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (SOURCE,
                                                      flash_attention_cuda,
@@ -96,39 +109,46 @@ def main() -> int:
         print(f"  nvcc: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     failed = 0
-    for name, b, h, hkv, t, d, causal, strided in SHAPES:
+    for name, b, h, hkv, t, d, dv, causal, strided in SHAPES:
         dtype = getattr(torch, name)
         tol = 3e-2 if dtype == torch.bfloat16 else 2e-3
-        q, k, v = attn_inputs(b, h, hkv, t, d, dtype, gen, strided)
+        q, k, v = attn_inputs(b, h, hkv, t, d, dtype, gen, strided, dv)
         got = flash_attention_cuda(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         e = err(got, want)
         ok = e <= tol and bool(torch.isfinite(got).all())
         failed += not ok
-        print(f"{'ok  ' if ok else 'FAIL'} {kernel_variant(dtype, d):5s} "
-              f"{name:8s} B={b} H={h} Hkv={hkv} T={t} D={d} causal={causal}"
-              f" strided={strided}: max |err| {e:.3e} (tol {tol})",
+        variant = kernel_variant(dtype, d, dv)
+        print(f"{'ok  ' if ok else 'FAIL'} {variant:5s} {name:8s} B={b} "
+              f"H={h} Hkv={hkv} T={t} D={d} Dv={dv} causal={causal} "
+              f"strided={strided}: max |err| {e:.3e} (tol {tol})",
               flush=True)
-        if not ok and kernel_variant(dtype, d) == "wgmma":
+        if not ok and variant in ("wgmma", "mla"):
             print(f"     {probe(q, k, v, causal)}", flush=True)
     if failed:
         print(f"attention_check: {failed} shapes failed", file=sys.stderr)
         return 1
     if "--time" in sys.argv[1:]:
         import torch.nn.functional as F
-        for name, b, h, hkv, t, d in LAYERS:
-            q, k, v = attn_inputs(b, h, hkv, t, d, torch.bfloat16, gen, True)
+        for name, b, h, hkv, t, d, dv, strided in LAYERS:
+            q, k, v = attn_inputs(b, h, hkv, t, d, torch.bfloat16, gen,
+                                  strided, dv)
             e = err(flash_attention_cuda(q, k, v),
                     flash_attention_plain(q, k, v))
             ms = graph_ms(lambda: flash_attention_cuda(q, k, v), 3, 3)
-            sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 3, 3)
-            flops = 4 * d * b * h * (t * (t + 1) // 2)
-            print(f"{name} layer B={b} H={h} Hkv={hkv} T={t} D={d}: kernel "
-                  f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA "
-                  f"{sdpa:.3f} ms, ratio {ms / sdpa:.2f}; max |err| {e:.3e}",
-                  flush=True)
+            if dv == d:
+                how = "GQA"
+                sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 3, 3)
+            else:
+                how = f"k, v expanded to {h} heads, {MLA_SDPA_BACKEND}"
+                sdpa = graph_ms(mla_library_call(q, k, v), 3, 3)
+            flops = 2 * (d + dv) * b * h * (t * (t + 1) // 2)
+            print(f"{name} layer B={b} H={h} Hkv={hkv} T={t} D={d} Dv={dv}:"
+                  f" kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                  f"SDPA ({how}) {sdpa:.3f} ms, ratio {ms / sdpa:.2f}; max "
+                  f"|err| {e:.3e}", flush=True)
     print("attention_check: every shape matches its plain version")
     return 0
 
