@@ -79,8 +79,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    moonshot-v1-16b-a3b at T = 256, card (kernel) against CPU (plain),
    rtol = atol = 1e-4;
 11. sharded path: ``ShardedSummarizer(full_config(), device="cuda",
-   n_shards=4)`` (device routing, ``router_chunk`` 1024) over phase 3's
-   stream; the probe kernel's launch count must move, ``phi ==
+   n_shards=4)`` (device routing, ``router_chunk`` 1024) over the first
+   ``SHARDED_CHANGES`` (two router chunks) of phase 3's stream, cut to
+   keep the script inside its time limit; the probe kernel's launch
+   count must move, ``phi ==
    phi_recomputed()``, the merged lossless decode and ``live_edges()``
    must equal the stream's live edge set, and sharded degree / has_edge /
    neighbors reads from a ``query()`` snapshot must agree with it; us per
@@ -175,19 +177,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    layer's widths (288, 256) with B = 2, H = 40, Hkv = 1 and T = 512,
    causal and not, in bf16, and at its full layer (T = 4096, causal,
    contiguous as the transformer hands it over) in bf16 (the ``mla``
-   variant) and float32 (SIMT); float32 within rtol = atol = 2e-3, bf16
-   within rtol = atol = 3e-2 and a largest per-row relative error
-   ``||got - want|| / ||want||`` of 1e-2; the bf16 layer's device time,
-   the call from Python, the plain version and
-   ``scaled_dot_product_attention`` (k and v copied out to 40 heads, under
-   ``EFFICIENT_ATTENTION``: no fused backend takes the GQA call at
-   ``d_v != d_q``) beside the operation bound; (b) minicpm3-4b's full widths
+   variant) and float32 (SIMT), every bf16 (288, 256) shape in both of
+   the ``mla`` kernel's modes (v a view of k's first 256 columns, the
+   transformer's call, read from k's tiles; and v a tensor of its own),
+   with the kernel's registers and spills from ``nvcc``; float32 within
+   rtol = atol = 2e-3, bf16 within rtol = atol = 3e-2 and a largest
+   per-row relative error ``||got - want|| / ||want||`` of 1e-2; the bf16
+   layer's device time in both modes, the call from Python, the plain
+   version and ``scaled_dot_product_attention`` (k and v copied out to 40
+   heads, under ``EFFICIENT_ATTENTION``: no fused backend takes the GQA
+   call at ``d_v != d_q``) beside the operation bound, the shared mode
+   below SDPA's time or the phase fails; (b) minicpm3-4b's full widths
    with 2 of its 62 layers in float32, B = 1, T = 512, card vs CPU
    (1e-3) and decode vs forward (2e-3); (c) one prefill request at its
    ``full_config()`` (62 layers, bf16, 4.26 B parameters drawn on the
    card), B = 2, T = 4096: finite logits, 62 kernel launches, all of the
    ``mla`` variant (by the wrapper's count and by the profiled kernel
-   names), ms cold and warm, device time by kind, peak memory; (d)
+   names), ms cold and warm, device time by kind (the attention beside 62
+   x the kernel's time at the layer), peak memory; (d)
    ``serve(minicpm3-4b, full=True)``, batch 4, prompt 16, 32 tokens, ms
    per token beside the weight-read bound, and a profiled decode step;
    (e) its smoke config at T = 256, card (kernel) vs CPU (plain), 1e-4.
@@ -221,6 +228,7 @@ TINY_CAPS = (8, 16, 32)
 STACKED = (4, 1 << 20, 16384)     # replicas, cap, lanes of the stacked form
 NODES = 600                       # BA nodes of the main path's stream
 SHARDS = 4                        # replicas of the sharded path (phase 11)
+SHARDED_CHANGES = 1280            # phase 11: the first changes of the stream
 RECOVERY_CHUNKS = 3               # phase 13: chunks of phase 3's stream
 REBUILD_TINY_CAPS = (8, 16, 32)   # phase 15(a): tables with wrapped runs
 REBUILD_CAPS = (1 << 16, 1 << 20)  # phase 15(a): at 53% and 70%
@@ -871,7 +879,8 @@ def cuda_vs_cpu(seed: int, compact: bool = False) -> int:
 
 def sharded_path(nodes: int, deg: int, seed: int) -> dict:
     """Drive ``ShardedSummarizer(full_config(), n_shards=SHARDS)`` on the
-    card (device routing, default geometry) over the phase-3 stream, check
+    card (device routing, default geometry) over the first
+    ``SHARDED_CHANGES`` changes of the phase-3 stream (returned), check
     phi, the lossless decode and sharded reads against the live edge set,
     and log the per-change counts, the largest lanes per probe job and
     peak memory with and without a query snapshot."""
@@ -886,12 +895,13 @@ def sharded_path(nodes: int, deg: int, seed: int) -> dict:
 
     cfg = full_config()
     stream = edges_to_fully_dynamic_stream(
-        barabasi_albert_edges(nodes, deg, seed), delete_prob=0.1, seed=seed)
+        barabasi_albert_edges(nodes, deg, seed), delete_prob=0.1,
+        seed=seed)[:SHARDED_CHANGES]
     log(f"sharded path: full_config x {SHARDS} shards on one card "
         f"(n_cap={cfg.n_cap} m_cap={cfg.m_cap} per shard, batch="
         f"{cfg.batch}, router_chunk 1024, device routing); the stream is "
-        f"cut to BA n={nodes} m={deg}, fully dynamic, {len(stream)} changes "
-        f"(phase 3's) by the run's time limit, far below the "
+        f"cut to the first {len(stream)} changes of phase 3's (BA n={nodes}"
+        f" m={deg}, fully dynamic) by the run's time limit, far below the "
         f"{SHARDS} x n_cap nodes the replicas hold")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -2332,11 +2342,14 @@ def attn_bound_ms(q, k, v, causal: bool) -> float:
     """Least time for one attention call: the larger of its useful flops
     (:func:`attn_flops`) at the card's peak for the dtype (bf16 tensor
     cores, or float32 outside them) and its bytes (q, k, v read once, o
-    written once) at the device memory rate."""
+    written once; v not again when it is a view of k) at the device
+    memory rate."""
     import torch
+    from repro_torch.kernels.flash_attention import v_shares_k
     b, h, tq, _ = q.shape
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+    v_bytes = 0 if v_shares_k(k, v) else v.numel()
+    nbytes = q.element_size() * (q.numel() + k.numel() + v_bytes
                                  + b * h * tq * v.shape[3])
     return max(1e3 * attn_flops(q, v, causal) / rate,
                1e3 * nbytes / HBM_BYTES_PER_S)
@@ -2359,6 +2372,25 @@ def mla_library_call(q, k, v):
         with sdpa_kernel([backend]):
             return F.scaled_dot_product_attention(q, ke, ve, is_causal=True)
     return call
+
+
+def mla_build_lines(nvcc_out: str) -> list:
+    """The ``mla`` kernel's lines of ``nvcc -Xptxas -v``: registers and
+    spills of each mode (its two instantiations: ``<true>`` v in k's
+    tiles, ``<false>`` v's own), and any warning that names it."""
+    lines, mode = [], None
+    for line in nvcc_out.splitlines():
+        if "flash_attention_mla_kernel" in line and "Compiling" in line:
+            mode = "v in k" if "ILb1E" in line else "v its own"
+        elif "flash_attention_mla_kernel" in line and "Compiling" not in \
+                line and "Function properties" not in line:
+            lines.append(line.strip())
+        elif mode and ("spill" in line or "registers" in line):
+            text = line.strip().replace("ptxas info    : ", "")
+            lines.append(f"{mode}: {text}")
+            if "registers" in line:
+                mode = None
+    return lines
 
 
 def row_rel_err(got, want) -> float:
@@ -2434,106 +2466,140 @@ def attention_vs_plain(gen) -> tuple:
     return rows, max_err, layers
 
 
-def mla_attention_vs_plain(gen) -> dict:
+def mla_attention_vs_plain(gen, nvcc_out: str) -> dict:
     """Phase 17(a): the kernel at MLA's ``d_v != d_q`` against its plain
     version: at the smoke pair (32, 24) in float32 and bf16, at the
     layer's widths (288, 256) and a short T (``MLA_SHORT_SHAPES``) in
     bf16, then at minicpm3-4b's layer (``MLA_LAYER``, causal, contiguous
     as the transformer hands it over) in bf16 (the ``mla`` variant, timed
     beside the call from Python, the plain version, ``mla_library_call``
-    and the operation bound) and float32 (SIMT; its launch timed).  Each
-    is held elementwise and, in bf16, row by row (``MLA_BF16_TOL``)."""
+    and the operation bound) and float32 (SIMT; its launch timed).  Every
+    bf16 (288, 256) shape runs in both of the ``mla`` kernel's modes: v a
+    view of k's first 256 columns (the transformer's call: the latent read
+    once) and v a tensor of its own.  Each is held elementwise and, in
+    bf16, row by row (``MLA_BF16_TOL``); the shared mode at the layer must
+    beat ``mla_library_call`` in the same run.  ``nvcc_out``: the
+    build's output of ``flash_attention.cu`` (empty if it was reused),
+    whose ``mla`` lines are logged."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain,
                                                      kernel_variant)
+    build = mla_build_lines(nvcc_out)
+    for line in build or ["(the build was reused: no nvcc output)"]:
+        log(f"phase 17(a): nvcc, mla kernel: {line}")
     bf16, f32 = (torch.bfloat16, MLA_BF16_TOL), (torch.float32, MLA_F32_TOL)
     cases = [(*dt, *shape[:4], 32, 24, shape[4]) for dt in (f32, bf16)
              for shape in MLA_SMOKE_SHAPES]
     cases += [(*bf16, *shape[:4], *MLA_LAYER[4:], shape[4])
               for shape in MLA_SHORT_SHAPES]
     cases += [(*bf16, *MLA_LAYER, True), (*f32, *MLA_LAYER, True)]
-    rows, max_err, layer = [], 0.0, None
+    rows, max_err, layer = [], 0.0, {}
     for dtype, (rtol, atol, row_tol), b, h, hkv, t, d, dv, causal in cases:
-        q, k, v = attn_inputs(b, h, hkv, t, d, dtype, gen, dv=dv)
-        got = flash_attention_cuda(q, k, v, causal=causal).float()
-        want = flash_attention_plain(q, k, v, causal=causal).float()
-        torch.cuda.synchronize()
-        what = f"flash_attention {dtype} {(b, h, hkv, t, d, dv, causal)}"
-        err = close(got, want, "sum", rtol, atol, what)
-        row_err = row_rel_err(got, want)
-        if row_tol is not None and not row_err <= row_tol:
-            raise AssertionError(f"{what}: a row's relative error "
-                                 f"{row_err:.3e} exceeds {row_tol}")
-        # where an elementwise rtol 2e-2, atol 2e-3 would not hold
-        tight = (got - want).abs() > 2e-3 + 2e-2 * want.abs()
-        rows_at = tight.any(dim=-1).nonzero()[:, -1]
-        max_err = max(max_err, err)
+        q, k, v_own = attn_inputs(b, h, hkv, t, d, dtype, gen, dv=dv)
         variant = kernel_variant(dtype, d, dv)
-        row = dict(dtype=str(dtype), b=b, h=h, hkv=hkv, t=t, d=d, dv=dv,
-                   causal=causal, variant=variant, rtol=rtol, atol=atol,
-                   row_tol=row_tol, max_abs_err=err, max_row_rel_err=row_err,
-                   max_abs_want=float(want.abs().max()),
-                   beyond_2e_2_2e_3=int(tight.sum()),
-                   rows_beyond=sorted(set(rows_at.tolist())))
-        rows.append(row)
-        log(f"phase 17(a): flash_attention {variant:4s} {str(dtype)[6:]:8s}"
-            f" B={b} H={h} Hkv={hkv} T={t} (D, Dv)=({d}, {dv}) causal="
-            f"{causal}: kernel == plain (max |err| {err:.2e}, rtol {rtol} "
-            f"atol {atol}; largest row error {row_err:.2e} of the row, tol "
-            f"{row_tol}; max |out| {row['max_abs_want']:.2f}; "
-            f"{row['beyond_2e_2_2e_3']} entries beyond rtol 2e-2 atol 2e-3,"
-            f" in query rows {row['rows_beyond'][:8]})")
-        del got, want
-        if (b, h, hkv, t, d, dv) != MLA_LAYER:
-            continue
+        modes = (("v in k", k[..., :dv]), ("v its own", v_own)) \
+            if variant == "mla" else (("v its own", v_own),)
+        for mode, v in modes:
+            got = flash_attention_cuda(q, k, v, causal=causal).float()
+            want = flash_attention_plain(q, k, v, causal=causal).float()
+            torch.cuda.synchronize()
+            what = (f"flash_attention {dtype} {(b, h, hkv, t, d, dv, causal)}"
+                    f" {mode}")
+            err = close(got, want, "sum", rtol, atol, what)
+            row_err = row_rel_err(got, want)
+            if row_tol is not None and not row_err <= row_tol:
+                raise AssertionError(f"{what}: a row's relative error "
+                                     f"{row_err:.3e} exceeds {row_tol}")
+            # where an elementwise rtol 2e-2, atol 2e-3 would not hold
+            tight = (got - want).abs() > 2e-3 + 2e-2 * want.abs()
+            rows_at = tight.any(dim=-1).nonzero()[:, -1]
+            max_err = max(max_err, err)
+            row = dict(dtype=str(dtype), b=b, h=h, hkv=hkv, t=t, d=d, dv=dv,
+                       causal=causal, variant=variant, mode=mode, rtol=rtol,
+                       atol=atol, row_tol=row_tol, max_abs_err=err,
+                       max_row_rel_err=row_err,
+                       max_abs_want=float(want.abs().max()),
+                       beyond_2e_2_2e_3=int(tight.sum()),
+                       rows_beyond=sorted(set(rows_at.tolist())))
+            rows.append(row)
+            log(f"phase 17(a): flash_attention {variant:4s} "
+                f"{str(dtype)[6:]:8s} B={b} H={h} Hkv={hkv} T={t} (D, Dv)="
+                f"({d}, {dv}) causal={causal} {mode}: kernel == plain (max "
+                f"|err| {err:.2e}, rtol {rtol} atol {atol}; largest row "
+                f"error {row_err:.2e} of the row, tol {row_tol}; max |out| "
+                f"{row['max_abs_want']:.2f}; {row['beyond_2e_2_2e_3']} "
+                f"entries beyond rtol 2e-2 atol 2e-3, in query rows "
+                f"{row['rows_beyond'][:8]})")
+            del got, want
+            if (b, h, hkv, t, d, dv) != MLA_LAYER:
+                continue
 
-        def launch():
-            return flash_attention_cuda(q, k, v, causal=True)
-        if dtype == torch.float32:
-            row["call_ms"] = cuda_ms(launch, 2)
-            log(f"phase 17(a): at minicpm3-4b's layer shape, float32 "
-                f"({variant}): call {row['call_ms']:.3f} ms")
-            continue
-        row["ms"] = graph_ms(launch, 3, 3)
-        row["call_ms"] = cuda_ms(launch, 5)
-        row["plain_ms"] = cuda_ms(
-            lambda: flash_attention_plain(q, k, v, causal=True), 2)
-        row["library_ms"] = cuda_ms(mla_library_call(q, k, v), 5)
-        row["library_call"] = (f"k, v expanded to {h} heads, "
-                               f"{MLA_SDPA_BACKEND}")
-        row["bound_ms"] = attn_bound_ms(q, k, v, True)
-        flops = attn_flops(q, v, True)
-        row["tflops"] = flops / row["ms"] / 1e9
-        row["kernel_over_library"] = row["ms"] / row["library_ms"]
-        layer = row
-        log(f"phase 17(a): flash_attention at minicpm3-4b's layer shape, "
-            f"bf16 ({variant}): kernel {row['ms']:.3f} ms "
-            f"({row['tflops']:.1f} TFLOP/s; call {row['call_ms']:.3f} ms), "
-            f"plain {row['plain_ms']:.3f} ms, scaled_dot_product_attention "
-            f"({row['library_call']}) {row['library_ms']:.3f} ms (kernel / "
-            f"SDPA {row['kernel_over_library']:.2f}), bound "
-            f"{row['bound_ms']:.3f} ms (operations, {flops / 1e9:.1f} GFLOP "
-            f"at the bf16 peak)")
-        del q, k, v
+            def launch():
+                return flash_attention_cuda(q, k, v, causal=True)
+            if dtype == torch.float32:
+                row["call_ms"] = cuda_ms(launch, 2)
+                log(f"phase 17(a): at minicpm3-4b's layer shape, float32 "
+                    f"({variant}): call {row['call_ms']:.3f} ms")
+                continue
+            row["ms"] = graph_ms(launch, 3, 3)
+            row["call_ms"] = cuda_ms(launch, 5)
+            row["plain_ms"] = cuda_ms(
+                lambda: flash_attention_plain(q, k, v, causal=True), 2)
+            row["library_ms"] = cuda_ms(mla_library_call(q, k, v), 5)
+            row["library_call"] = (f"k, v expanded to {h} heads, "
+                                   f"{MLA_SDPA_BACKEND}")
+            row["bound_ms"] = attn_bound_ms(q, k, v, True)
+            flops = attn_flops(q, v, True)
+            row["tflops"] = flops / row["ms"] / 1e9
+            row["kernel_over_library"] = row["ms"] / row["library_ms"]
+            row["kernel_over_bound"] = row["ms"] / row["bound_ms"]
+            layer[mode] = row
+            log(f"phase 17(a): flash_attention at minicpm3-4b's layer "
+                f"shape, bf16 ({variant}, {mode}): kernel {row['ms']:.3f} "
+                f"ms ({row['tflops']:.1f} TFLOP/s, "
+                f"{row['kernel_over_bound']:.2f}x the bound; call "
+                f"{row['call_ms']:.3f} ms), plain {row['plain_ms']:.3f} ms,"
+                f" scaled_dot_product_attention ({row['library_call']}) "
+                f"{row['library_ms']:.3f} ms (kernel / SDPA "
+                f"{row['kernel_over_library']:.2f}), bound "
+                f"{row['bound_ms']:.3f} ms (operations, {flops / 1e9:.1f} "
+                f"GFLOP at the bf16 peak)")
+        del q, k, v_own, v
     torch.cuda.empty_cache()
-    return dict(rows=rows, max_abs_err=max_err, layer=layer)
+    shared = layer["v in k"]
+    if not shared["ms"] < shared["library_ms"]:
+        raise AssertionError(f"the mla kernel with v in k's tiles takes "
+                             f"{shared['ms']:.3f} ms at minicpm3-4b's layer,"
+                             f" not below scaled_dot_product_attention's "
+                             f"{shared['library_ms']:.3f} ms")
+    return dict(rows=rows, max_abs_err=max_err, layer=shared,
+                separate=layer["v its own"], build=build)
 
 
-def mla_serving(seed: int, gen) -> dict:
+def mla_serving(seed: int, gen, nvcc_out: str) -> dict:
     """Phase 17: (a) the kernel at ``d_v != d_q`` vs plain, timed at
     minicpm3-4b's layer; (b) its full widths, 2 layers, card vs CPU; (c)
     one full-config prefill request (counts set to 0 inside, just before
     it); (d) the serve loop at full config, and a profiled decode step;
-    (e) its smoke config card vs CPU."""
+    (e) its smoke config card vs CPU.  ``nvcc_out``: the build's output
+    of ``flash_attention.cu``, whose ``mla`` lines (a) logs."""
     import torch
     from repro_torch.configs import minicpm3_4b
     t = time.perf_counter()
-    out = dict(attention=mla_attention_vs_plain(gen))
+    out = dict(attention=mla_attention_vs_plain(gen, nvcc_out))
     out["card_vs_cpu"] = lm_card_vs_cpu(seed, minicpm3_4b, "phase 17(b)")
     torch.cuda.empty_cache()
     out["prefill"] = lm_prefill_request(seed, minicpm3_4b, "mla",
                                         "phase 17(c)")
+    pre, kernel_ms = out["prefill"], out["attention"]["layer"]["ms"]
+    attn_ms = pre["breakdown"]["device_us"]["attention kernel"] / 1e3
+    pre["attention_over_launches_x_kernel"] = attn_ms / (
+        pre["launches"] * kernel_ms)
+    log(f"phase 17(c): the prefill's profiled attention {attn_ms:.1f} ms "
+        f"against {pre['launches']} launches x the kernel's {kernel_ms:.3f}"
+        f" ms at the layer (v in k) = {pre['launches'] * kernel_ms:.1f} ms:"
+        f" ratio {pre['attention_over_launches_x_kernel']:.3f}")
     out["serve"] = lm_serve(seed, out["prefill"]["params"], minicpm3_4b,
                             "phase 17(d)")
     out["serve"]["profile"] = lm_decode_profile(
@@ -3290,7 +3356,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 17. MLA serving at minicpm3-4b's widths (counts set to 0 inside,
     # just before its prefill)
-    mla = mla_serving(seed, gen)
+    mla = mla_serving(seed, gen, built[flash_attention.SOURCE][1])
 
     # 11. the sharded summarizer at full width over the phase-3 stream
     # (counts set to 0 inside, just before it); 12. the router's paths,
@@ -3382,14 +3448,20 @@ def main() -> int:
                                                  "max_abs_err")},
                       mla_layer=dict(
                           {key: mla_layer[key] for key in (
-                              "variant", "ms", "call_ms", "plain_ms",
-                              "bound_ms", "library_ms", "library_call",
-                              "max_abs_err", "max_row_rel_err")},
+                              "variant", "mode", "ms", "call_ms",
+                              "plain_ms", "bound_ms", "library_ms",
+                              "library_call", "max_abs_err",
+                              "max_row_rel_err")},
                           bound_by="operations",
+                          separate_ms=mla["attention"]["separate"]["ms"],
+                          build=mla["attention"]["build"],
                           launches=mla["prefill"]["launches"],
                           by_variant=mla["prefill"]["by_variant"],
+                          prefill_attention_over_launches_x_kernel=mla[
+                              "prefill"]["attention_over_launches_x_kernel"],
                           shape="minicpm3-4b layer: B=2 H=40 Hkv=1 T=4096 "
-                                "D=288 Dv=256 bf16 causal"))
+                                "D=288 Dv=256 bf16 causal, v a view of "
+                                "k's first 256 columns"))
     adj = rebuild_d["adj"]
     rebuild_entry = dict(name="ht_rebuild", route="cuda",
                          source="src/repro_torch/csrc/ht_rebuild.cu",

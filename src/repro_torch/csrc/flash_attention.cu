@@ -38,11 +38,14 @@
 // - flash_attention_mma_kernel, bfloat16 at D = 16 and 32: mma.sync on the
 //   tensor cores, copies synchronous with the products; bound by the copies
 //   and the older instruction's rate.
-// - flash_attention_mla_kernel, bfloat16 at (D, Dv) = (288, 256): mma.sync
-//   as the kernel above, with a row group's 256 output columns split over
-//   two warps (a warp's 16 rows x 256 float32 columns would not fit in
-//   registers beside the scores) and p shared between them through shared
-//   memory; not yet given Hopper's own path.
+// - flash_attention_mla_kernel, bfloat16 at (D, Dv) = (288, 256): the
+//   wgmma kernel's TMA ring and products at MLA's widths (two consumer
+//   warpgroups of 64 query rows; one of their threads issues the loads),
+//   with 64-key tiles so that a consumer's 64 x 256 float32 outputs fit in
+//   registers beside its scores.  When v is
+//   k's first 256 columns (the transformer passes the latent that way) it
+//   loads only k's tiles and reads v from them: the latent crosses L2
+//   once, 576 bytes a key instead of 1,088.
 // - flash_attention_kernel, float32 at every width and pair, and bfloat16
 //   at D = 8 and at (32, 24): float32 FMAs on the SIMT units (67 TFLOP/s
 //   peak), which keeps float32 exact enough to hold the card to the CPU.
@@ -674,257 +677,6 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
 
 
 // ---------------------------------------------------------------------
-// bfloat16 at (D, Dv) = (288, 256): MLA's call (kv_lora + rope wide q and
-// k, the kv_lora-wide latent as v), mma.sync with the output split over
-// warp pairs
-// ---------------------------------------------------------------------
-
-constexpr int kMlaD = 288;                 // q and k: kv_lora + rope_dim
-constexpr int kMlaDv = 256;                // v and o: kv_lora
-constexpr int kMlaBQ = 64;                 // query rows per block
-constexpr int kMlaBK = 32;                 // keys per tile
-constexpr int kMlaThreads = 256;           // 8 warps: 4 row groups x 2 halves
-
-struct MlaSmem {
-  static constexpr int kQStride = kMlaD + 8;     // bf16 per q / k row
-  static constexpr int kVStride = kMlaDv + 8;    // bf16 per v row
-  static constexpr int kPStride = kMlaBK + 8;    // bf16 per p row
-  static constexpr int kQ = kMlaBQ * kQStride;
-  static constexpr int kK = kMlaBK * kQStride;
-  static constexpr int kV = kMlaBK * kVStride;
-  static constexpr int kP = kMlaBQ * kPStride;
-  // + two float halves per query row: the row maxima, then the row sums
-  static constexpr int kBytes = 2 * (kQ + kK + kV + kP) + 4 * 2 * kMlaBQ;
-};
-
-// The same function as flash_attention_mma_kernel at MLA's widths, where
-// one warp cannot hold its rows' output: 16 rows x 256 float32 columns
-// would be 128 registers a thread before the scores.  Block: one (batch,
-// head, 64-row query tile), 8 warps.  Warp w owns query rows 16 (w % 4) ..
-// + 15 and half w / 4: the keys 16 half .. + 15 of each 32-key tile for
-// q k^T, and the output columns 128 half .. + 127 for p v, so every warp
-// holds 64 accumulator registers and no product is computed twice.  Per
-// tile: each warp computes its 16 x 16 scores (18 k-steps of 16 over
-// D = 288, q's and k's fragments read from shared memory), scales them by
-// 1/sqrt(D) in float32 and masks them; the two warps of a row group swap
-// their partial row maxima through shared memory, so both take the same
-// running max m; each writes its p, rounded to bf16, to a 64 x 32 tile
-// in shared memory and keeps its own partial row sums l; after a barrier
-// each warp reads the A operand of p v for all 32 keys of its rows from
-// that tile and v's fragments with ldmatrix.trans.  The two halves' row
-// sums are added at the end.  Shared memory: q, k and v tiles in bf16
-// (rows padded by 8 values, so 8 rows of 16 bytes hit distinct banks), p,
-// and the row exchange: 79,360 bytes, two blocks per SM.  Copies are
-// synchronous; the other block on the SM runs while one waits.  Not yet
-// tuned for Hopper: no TMA, no wgmma, each block reads every key tile
-// up to its diagonal from L2.
-__global__ void __launch_bounds__(kMlaThreads, 2)
-flash_attention_mla_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, int h, int group,
-                           int tq, int tk, int64_t qsb, int64_t qsh,
-                           int64_t qst, int64_t ksb, int64_t ksh,
-                           int64_t kst, int64_t vsb, int64_t vsh,
-                           int64_t vst, int causal, float sm_scale) {
-  using S = MlaSmem;
-  constexpr int kSteps = kMlaD / 16;       // 16-wide steps of q k^T
-  constexpr int kNT = kMlaBK / 2 / 8;      // 8-key score tiles of a warp
-  constexpr int kDT = kMlaDv / 2 / 8;      // 8-column output tiles of a warp
-  extern __shared__ uint4 smem16[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem16);
-  __nv_bfloat16* ks = qs + S::kQ;
-  __nv_bfloat16* vs = ks + S::kK;
-  __nv_bfloat16* ps = vs + S::kV;
-  float* red = reinterpret_cast<float*>(ps + S::kP);   // [2][kMlaBQ]
-
-  const int n_qt = (tq + kMlaBQ - 1) / kMlaBQ;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kMlaBQ;
-  const int ih = blockIdx.y;
-  const int ib = blockIdx.z;
-  const int ikv = ih / group;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gr = lane >> 2;                // row (and key) within 8
-  const int gc = (lane & 3) * 2;           // column pair within 8
-  const int half = warp >> 2;              // key half, output column half
-  const int row = 16 * (warp & 3) + gr;    // this thread's rows: row, row + 8
-  const int mine = half * kMlaBQ + row;    // its slots in red (+ 8)
-  const int other = (half ^ 1) * kMlaBQ + row;
-
-  const __nv_bfloat16* kp = k + ib * ksb + ikv * ksh;
-  const __nv_bfloat16* vp = v + ib * vsb + ikv * vsh;
-  copy_rows<kMlaD, S::kQStride, kMlaThreads>(qs, q + ib * qsb + ih * qsh,
-                                             qst, q0, kMlaBQ, tq);
-  const __nv_bfloat16* qr = qs + row * S::kQStride + gc;
-
-  // row halves: index 0 is row `row`, index 1 row `row + 8`
-  float acc[kDT][4];
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int t = 0; t < kDT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
-  const int qpos0 = q0 + row;
-
-  const int kv_end = causal ? min(tk, q0 + kMlaBQ) : tk;
-  const int n_kt = (kv_end + kMlaBK - 1) / kMlaBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kMlaBK;
-    __syncthreads();   // every warp is done with the previous tile
-    copy_rows<kMlaD, S::kQStride, kMlaThreads>(ks, kp, kst, k0, kMlaBK, tk);
-    copy_rows<kMlaDv, S::kVStride, kMlaThreads>(vs, vp, vst, k0, kMlaBK,
-                                                tk);
-    __syncthreads();
-
-    // S = q k^T over this warp's 16 keys
-    float s[kNT][4];
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-    const __nv_bfloat16* kr = ks + (16 * half + gr) * S::kQStride + gc;
-#pragma unroll 6
-    for (int st = 0; st < kSteps; ++st) {
-      const uint32_t a[4] = {lds32(qr + 16 * st),
-                             lds32(qr + 8 * S::kQStride + 16 * st),
-                             lds32(qr + 16 * st + 8),
-                             lds32(qr + 8 * S::kQStride + 16 * st + 8)};
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const __nv_bfloat16* kn = kr + 8 * n * S::kQStride + 16 * st;
-        mma16816(s[n], a, lds32(kn), lds32(kn + 8));
-      }
-    }
-
-    // scale, mask, and this warp's partial row maxima
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hf = e >> 1;
-        const int kpos = k0 + 16 * half + 8 * n + gc + (e & 1);
-        float x = s[n][e] * sm_scale;
-        if (kpos >= tk || (causal && kpos > qpos0 + 8 * hf)) x = kNegInf;
-        s[n][e] = x;
-        mx[hf] = fmaxf(mx[hf], x);
-      }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFull, mx[hf], 1));
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFull, mx[hf], 2));
-    }
-    if ((lane & 3) == 0) {
-      red[mine] = mx[0];
-      red[mine + 8] = mx[1];
-    }
-    __syncthreads();
-
-    // the row max over both halves, then p, l and the rescaled acc
-    float scale[2];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const float m_new = fmaxf(m[hf], fmaxf(mx[hf], red[other + 8 * hf]));
-      scale[hf] = expf(m[hf] - m_new);
-      m[hf] = m_new;
-      l[hf] *= scale[hf];
-    }
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
-#pragma unroll
-    for (int t = 0; t < kDT; ++t) {
-      acc[t][0] *= scale[0];
-      acc[t][1] *= scale[0];
-      acc[t][2] *= scale[1];
-      acc[t][3] *= scale[1];
-    }
-    // p in bf16 to shared memory: rows row, row + 8; keys 16 half + 8 n + gc
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        *reinterpret_cast<uint32_t*>(
-            ps + (row + 8 * hf) * S::kPStride + 16 * half + 8 * n + gc) =
-            pack_bf16(s[n][2 * hf], s[n][2 * hf + 1]);
-    __syncthreads();
-
-    // acc += p v over the tile's 32 keys, this warp's 128 columns
-#pragma unroll
-    for (int j = 0; j < kMlaBK / 16; ++j) {
-      const __nv_bfloat16* pr = ps + row * S::kPStride + 16 * j + gc;
-      const uint32_t pa[4] = {lds32(pr), lds32(pr + 8 * S::kPStride),
-                              lds32(pr + 8), lds32(pr + 8 * S::kPStride + 8)};
-      const __nv_bfloat16* vr = vs + (16 * j + (lane & 15)) * S::kVStride +
-                                128 * half + 8 * (lane >> 4);
-#pragma unroll
-      for (int t = 0; t < kDT; t += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vr + 8 * t);
-        mma16816(acc[t], pa, b[0], b[1]);
-        mma16816(acc[t + 1], pa, b[2], b[3]);
-      }
-    }
-  }
-
-  // the row sums: over the quad, then over the two halves (every read of
-  // the maxima in red came before the loop's last barrier)
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    l[hf] += __shfl_xor_sync(kFull, l[hf], 1);
-    l[hf] += __shfl_xor_sync(kFull, l[hf], 2);
-  }
-  if ((lane & 3) == 0) {
-    red[mine] = l[0];
-    red[mine + 8] = l[1];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int qpos = qpos0 + 8 * hf;
-    if (qpos >= tq) continue;
-    const float denom = fmaxf(l[hf] + red[other + 8 * hf], 1e-30f);
-    __nv_bfloat16* orow = o +
-        ((static_cast<int64_t>(ib) * h + ih) * tq + qpos) * kMlaDv +
-        128 * half + gc;
-#pragma unroll
-    for (int t = 0; t < kDT; ++t)
-      *reinterpret_cast<uint32_t*>(orow + 8 * t) =
-          pack_bf16(acc[t][2 * hf] / denom, acc[t][2 * hf + 1] / denom);
-  }
-}
-
-int launch_mla(const void* q, const void* k, const void* v, void* o, int b,
-               int h, int hkv, int tq, int tk, const long long* st,
-               int causal, float sm_scale, cudaStream_t stream) {
-  auto kernel = flash_attention_mla_kernel;
-  static bool configured = false;   // once per process (one device)
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MlaSmem::kBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const dim3 grid((tq + kMlaBQ - 1) / kMlaBQ, h, b);
-  kernel<<<grid, kMlaThreads, MlaSmem::kBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      h, h / hkv, tq, tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], causal, sm_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
-// ---------------------------------------------------------------------
 // bfloat16 at D = 64 and 128: wgmma, TMA and warp specialisation
 // ---------------------------------------------------------------------
 
@@ -955,29 +707,32 @@ struct WgSmem {
   static constexpr int kBytes = kBar + 8 * kBars + 1024;   // + alignment
 };
 
-// One online-softmax step of a consumer over its 64 rows x 128 keys of
-// scores s (the wgmma accumulator: s[4 j + e] is row row0 + 8 (e / 2) of
-// the block's tile, key 8 j + gc + e % 2 of the key tile): mask (only on
-// the diagonal tile: key > row), update the row max m, turn s into
-// p = 2^((s - m) log2(e) / sqrt(D)) with the scale folded into one float32
-// multiply-add, update this thread's partial row sums l and rescale acc.
-// Row maxima are reduced over the quad of threads that holds a row; the
-// sums only at the end.
-template <bool kMask, int N>
-__device__ __forceinline__ void softmax_step(float (&s)[64], float (&acc)[N],
-                                             float (&m)[2], float (&l)[2],
-                                             float scale_log2, int row0,
-                                             int gc) {
+// One online-softmax step of a consumer over its 64 rows x 2 NS keys of
+// scores s (the wgmma accumulator: s[4 j + e] is row row0 + 8 (e / 2),
+// key 8 j + gc + e % 2 of the key tile, the row counted from the key
+// tile's first position; NS = 64 for the GQA kernel's 128-key tiles, 32
+// for the MLA kernel's 64-key tiles): mask (only on the diagonal tile:
+// key > row), update the row max m, turn s into p = 2^((s - m) log2(e) /
+// sqrt(D)) with the scale folded into one float32 multiply-add, update
+// this thread's partial row sums l, and return in `scale` the factors
+// that take the accumulator to the new max.  Row maxima are reduced over
+// the quad of threads that holds a row; the sums only at the end.
+template <bool kMask, int NS>
+__device__ __forceinline__ void softmax_scores(float (&s)[NS], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&scale)[2],
+                                               float scale_log2, int row0,
+                                               int gc) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     if constexpr (kMask) {
       const int key = 8 * (i / 4) + gc + (i & 1);
       if (key > row0 + 8 * ((i >> 1) & 1)) s[i] = kNegInf;
     }
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   }
-  float scale[2], mc[2];
+  float mc[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFull, mx[hf], 1));
@@ -988,13 +743,30 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&acc)[N],
     l[hf] *= scale[hf];
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const float p = ex2(fmaf(s[i], scale_log2, -mc[(i >> 1) & 1]));
     s[i] = p;
     l[(i >> 1) & 1] += p;
   }
+}
+
+// acc (the wgmma accumulator of the same rows) times its row's factor
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N],
+                                        const float (&scale)[2]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] *= scale[(i >> 1) & 1];
+}
+
+// softmax_scores, then the accumulator rescaled at once
+template <bool kMask, int NS, int N>
+__device__ __forceinline__ void softmax_step(float (&s)[NS], float (&acc)[N],
+                                             float (&m)[2], float (&l)[2],
+                                             float scale_log2, int row0,
+                                             int gc) {
+  float scale[2];
+  softmax_scores<kMask>(s, m, l, scale, scale_log2, row0, gc);
+  rescale(acc, scale);
 }
 
 // The same function as flash_attention_mma_kernel on Hopper's own path.
@@ -1214,16 +986,352 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------
+// bfloat16 at (D, Dv) = (288, 256): MLA's call (kv_lora + rope wide q and
+// k, the kv_lora-wide latent as v), wgmma, TMA, the latent read once
+// ---------------------------------------------------------------------
+
+constexpr int kMlaD = 288;                 // q and k: kv_lora + rope_dim
+constexpr int kMlaDv = 256;                // v and o: kv_lora
+constexpr int kMlaBK = 64;                 // keys per tile
+constexpr int kMlaBoxes = 5;               // 64-column boxes of q and k
+constexpr int kMlaVBoxes = kMlaDv / kBoxCols;     // of v: 4
+constexpr int kMlaSteps = kMlaD / 16;      // k-steps of q k^T with data: 18
+constexpr int kMlaQBox = kWgBQ * 128;      // a box of 128 query rows: 16 KB
+constexpr int kMlaKBox = kMlaBK * 128;     // a box of 64 key rows: 8 KB
+constexpr int kMlaThreads = 256;           // 2 consumer warpgroups
+
+// kShared: v is k's first 256 columns, read from the k tile (three stages
+// of k alone); else v has its own tiles (two stages of k and v)
+template <bool kShared>
+struct MlaSmem {
+  static constexpr int kStages = kShared ? 3 : 2;
+  static constexpr int kQ = kMlaBoxes * kMlaQBox;              // 81,920
+  static constexpr int kK = kMlaBoxes * kMlaKBox;              // 40,960
+  static constexpr int kV = kShared ? 0 : kMlaVBoxes * kMlaKBox;   // 32,768
+  static constexpr int kKOff = kQ;                             // q at 0
+  static constexpr int kVOff = kKOff + kStages * kK;
+  static constexpr int kBar = kVOff + kStages * kV;
+  static constexpr int kBars = 1 + 3 * kStages;
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;       // + alignment
+  static_assert(kBytes <= 232448, "above a block's shared memory");
+};
+
+// The GQA kernel's TMA ring and wgmma products at MLA's widths.  Block:
+// one (batch, head, 128-row query tile), causal tiles heaviest first, two
+// consumer warpgroups of 64 rows each.  Key tiles are 64 keys, so a
+// consumer holds 64 x 256 float32 outputs (128 registers a thread), 64 x
+// 64 scores (32) and p's A fragments (16): 220-222 registers as built.
+// So the block has 8 warps and no producer warps: ptxas compiles every
+// thread of a block to the
+// launch's register budget (setmaxnreg moves registers at run time only),
+// and a ninth warp puts three warps on one SM sub-partition, 168
+// registers each, where the consumers spilled and their wgmma were
+// serialized.  Thread 0 issues the TMA loads between its own products:
+// each tile as soon as both consumers have released the stage it goes to
+// (a test of the stage's `empty` barrier that does not wait), waiting
+// only for a tile its loop needs now; the ring is three stages deep (two
+// with v's own tiles), so the loads stay ahead of the products.
+//
+// q and k are 5 boxes of 64 columns with the 128-byte swizzle: columns
+// 0-255 fill four, the rope part 256-287 a fifth that TMA zero-fills past
+// the map's width of 288 (one map and one descriptor form for every box;
+// a 32-column box would need a second map and a 64-byte swizzle to save
+// 8 KB of q and 4 KB a stage, which three stages do not need).  Per tile:
+// S = q k^T as 18 wgmma m64n64k16 from shared memory (only the k-steps
+// that carry data), the online softmax (softmax_scores, 32 scores), p
+// packed to bf16 in registers as the A operand, and O += p v as two wgmma
+// m64n128k16 a k-step with v's rows the MN-major B operand (boxes 8 KB
+// apart: the LBO).  A consumer issues tile kt's q k^T and tile kt - 1's
+// p v together and takes tile kt's softmax while that p v runs,
+// rescaling the accumulator after it.  When v is k's first 256 columns
+// (kShared: MLA's latent, passed as a view of [c_kv, k_rope]) only k is
+// loaded and p v reads the k tile's first four boxes, so a key costs 576
+// bytes of L2 instead of 1,088; otherwise v's tiles come through their
+// own map.
+// Causal: a query tile spans two 64-key diagonal tiles; the first
+// consumer's rows end before the second, which it does not multiply but
+// still waits for (so that its release counts in that tile's round) and
+// releases.  Shared memory: q, then the k (and v) stages and the
+// barriers: 205,904 bytes shared, 230,456 not; one block per SM.
+template <bool kShared>
+__global__ void __launch_bounds__(kMlaThreads, 1)
+flash_attention_mla_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           __nv_bfloat16* __restrict__ o, int h, int group,
+                           int tq, int tk, int causal, float scale_log2) {
+  using S = MlaSmem<kShared>;
+  constexpr int kStages = S::kStages;
+  using Half = float[64];
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + S::kKOff;
+  const uint32_t v_s = base + S::kVOff;
+  const uint32_t q_full = base + S::kBar;
+  const uint32_t k_full = q_full + 8;                   // + 8 stage
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+
+  const int n_qt = tq / kWgBQ;
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.x)
+                        : static_cast<int>(blockIdx.x);   // heaviest first
+  const int q0 = qt * kWgBQ;
+  const int ih = blockIdx.y;
+  const int ib = blockIdx.z;
+  const int ikv = ih / group;
+  // causal: the key tiles up to the query tile's last row (tq == tk)
+  const int n_kt = causal ? 2 * qt + 2 : tk / kMlaBK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      sm90::mbar_init(k_full + 8 * st, 1);
+      sm90::mbar_init(v_full + 8 * st, 1);
+      sm90::mbar_init(empty + 8 * st, kMlaThreads);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // thread 0's loads: tile `next` goes into the stage that tile
+  // next - kStages left, once both consumers released it; it waits for
+  // that only where the tile is `need`ed now (a fresh barrier counts as
+  // released: its phase of parity 1 is taken as complete)
+  const bool producer = threadIdx.x == 0;
+  int next = 0;
+  auto produce = [&](int need) {
+    while (next < n_kt) {
+      const int st = next % kStages;
+      const uint32_t parity = ((next / kStages) & 1) ^ 1;
+      if (next <= need)
+        sm90::mbar_wait(empty + 8 * st, parity);
+      else if (!sm90::mbar_test(empty + 8 * st, parity))
+        return;
+      sm90::mbar_arrive_expect_tx(k_full + 8 * st, S::kK);
+#pragma unroll
+      for (int c = 0; c < kMlaBoxes; ++c)
+        sm90::tma_load_4d(k_s + st * S::kK + c * kMlaKBox, &k_map,
+                          k_full + 8 * st, c * kBoxCols, next * kMlaBK, ikv,
+                          ib);
+      if constexpr (!kShared) {
+        sm90::mbar_arrive_expect_tx(v_full + 8 * st, S::kV);
+#pragma unroll
+        for (int c = 0; c < kMlaVBoxes; ++c)
+          sm90::tma_load_4d(v_s + st * S::kV + c * kMlaKBox, &v_map,
+                            v_full + 8 * st, c * kBoxCols, next * kMlaBK,
+                            ikv, ib);
+      }
+      ++next;
+    }
+  };
+  if (producer) {
+    sm90::mbar_arrive_expect_tx(q_full, S::kQ);
+#pragma unroll
+    for (int c = 0; c < kMlaBoxes; ++c)
+      sm90::tma_load_4d(q_s + c * kMlaQBox, &q_map, q_full, c * kBoxCols,
+                        q0, ih, ib);
+    produce(-1);
+  }
+
+  const int cw = threadIdx.x / 128;          // rows 64 cw .. 64 cw + 63
+  const int tid = threadIdx.x - 128 * cw;
+  const int lane = tid & 31;
+  const int row = 16 * (tid >> 5) + (lane >> 2);   // of the 64; and + 8
+  const int gc = 2 * (lane & 3);
+  // this consumer's 64 rows of q: 64 rows x 128 bytes into each box
+  const uint32_t q_c = q_s + cw * 64 * 128;
+  // causal: its rows end in key tile 2 qt + cw, where the mask falls
+  const int last = causal ? 2 * qt + cw : n_kt - 1;
+
+  float s[32];
+  float acc[128];   // columns 0-127, then 128-255 (two m64n128 halves)
+  uint32_t pa[4][4];
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+
+  // tile kt's stage, once its loads landed (thread 0 issues them first)
+  auto arrived = [&](int kt) {
+    if (producer) produce(kt);
+    sm90::mbar_wait(k_full + 8 * (kt % kStages), (kt / kStages) & 1);
+  };
+  // S = q k^T of tile kt, issued and committed: k-step j reads 16
+  // columns, 32 j bytes into box j / 4 (descriptors derived here, one add
+  // each, not held across tiles)
+  auto issue_qk = [&](int kt) {
+    const uint64_t qd = sm90::sw128_desc(sm90::opaque(q_c), 16, 1024);
+    const uint64_t kd =
+        sm90::sw128_desc(k_s + (kt % kStages) * S::kK, 16, 1024);
+    sm90::fence_operands(s);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kMlaSteps; ++j) {
+      const uint32_t col = 32 * (j % 4);
+      sm90::wgmma_ss_m64n64(s, qd + ((j / 4) * kMlaQBox + col) / 16,
+                            kd + ((j / 4) * kMlaKBox + col) / 16, j > 0);
+    }
+    sm90::wgmma_commit();
+  };
+  // O += p v of tile kt, issued and committed: k-step kk reads keys
+  // 16 kk .. (2048 kk bytes into a box); half hb the columns of boxes
+  // 2 hb and 2 hb + 1 (LBO)
+  auto issue_pv = [&](int kt) {
+    const int st = kt % kStages;
+    if constexpr (!kShared)
+      sm90::mbar_wait(v_full + 8 * st, (kt / kStages) & 1);
+    const uint64_t vd = sm90::sw128_desc(
+        kShared ? k_s + st * S::kK : v_s + st * S::kV, kMlaKBox, 1024);
+    sm90::fence_operands(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int hb = 0; hb < 2; ++hb)
+        sm90::wgmma_rs_m64n128_tb(
+            reinterpret_cast<Half&>(acc[64 * hb]), pa[kk],
+            vd + (2 * hb * kMlaKBox + 2048 * kk) / 16);
+    sm90::wgmma_commit();
+  };
+  // waits for the p v in flight, then lets its stage go
+  auto pv_done = [&](int kt) {
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(pa[kk]);
+    sm90::mbar_arrive(empty + 8 * (kt % kStages));
+  };
+  // p in bf16, in the A-operand layout: k-step kk is keys 16 kk ..
+  // 16 kk + 15, the accumulator's 8-key groups 2 kk and 2 kk + 1
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  // The products of one tile overlap the softmax of the next: after
+  // tile 0's scores, each step issues q k^T of tile kt and p v of tile
+  // kt - 1, takes the softmax of kt's scores while that p v runs, and
+  // rescales the accumulator once the p v is done.
+  sm90::mbar_wait(q_full, 0);
+  arrived(0);
+  issue_qk(0);
+  sm90::wgmma_wait<0>();
+  sm90::fence_operands(s);
+  if (causal && last == 0)
+    softmax_step<true>(s, acc, m, l, scale_log2, row, gc);
+  else
+    softmax_step<false>(s, acc, m, l, scale_log2, row, gc);
+  pack_p();
+  for (int kt = 1; kt <= last; ++kt) {
+    arrived(kt);
+    issue_qk(kt);
+    issue_pv(kt - 1);
+    sm90::wgmma_wait<1>();   // q k^T of tile kt (the older group)
+    sm90::fence_operands(s);
+    float scale[2];
+    if (causal && kt == last)
+      softmax_scores<true>(s, m, l, scale, scale_log2, row, gc);
+    else
+      softmax_scores<false>(s, m, l, scale, scale_log2, row, gc);
+    pv_done(kt - 1);
+    rescale(acc, scale);
+    pack_p();
+  }
+  issue_pv(last);
+  pv_done(last);
+  // causal: the first consumer's rows end before the block's last tile,
+  // which it waits for (so that its release counts in that tile's round)
+  // and releases
+  for (int kt = last + 1; kt < n_kt; ++kt) {
+    arrived(kt);
+    sm90::mbar_arrive(empty + 8 * (kt % kStages));
+  }
+
+  // epilogue: the row sums over the quad, then acc / max(l, 1e-30)
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(kFull, l[hf], 1);
+    l[hf] += __shfl_xor_sync(kFull, l[hf], 2);
+    const float denom = fmaxf(l[hf], 1e-30f);
+    const int qpos = q0 + 64 * cw + row + 8 * hf;
+    __nv_bfloat16* orow =
+        o + ((static_cast<int64_t>(ib) * h + ih) * tq + qpos) * kMlaDv + gc;
+#pragma unroll
+    for (int j = 0; j < kMlaDv / 8; ++j)   // 8-column groups of both halves
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(
+          acc[4 * j + 2 * hf] / denom, acc[4 * j + 2 * hf + 1] / denom);
+  }
+}
+
+template <bool kShared>
+int launch_mla_kernel(const CUtensorMap (&maps)[3], void* o, int b, int h,
+                      int hkv, int tq, int tk, int causal, float scale_log2,
+                      cudaStream_t stream) {
+  auto kernel = flash_attention_mla_kernel<kShared>;
+  static bool configured = false;   // once per instantiation (one device)
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MlaSmem<kShared>::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(tq / kWgBQ, h, b);
+  kernel<<<grid, kMlaThreads, MlaSmem<kShared>::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), h, h / hkv,
+      tq, tk, causal, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// v_in_k: v is k's first 256 columns (the same base and strides), so the
+// kernel reads the latent once
+int launch_mla(const void* q, const void* k, const void* v, void* o, int b,
+               int h, int hkv, int tq, int tk, const long long* st,
+               int causal, float sm_scale, int v_in_k, cudaStream_t stream) {
+  if (tq % kWgBQ || tk % kMlaBK || (causal && tq != tk))
+    return cudaErrorInvalidValue;
+  if (v_in_k && (v != k || st[6] != st[3] || st[7] != st[4] ||
+                 st[8] != st[5]))
+    return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  int err = sm90::encode_bf16_map(&maps[0], q, kMlaD, tq, h, b, st[2], st[1],
+                                  st[0], kBoxCols, kWgBQ);
+  if (!err)
+    err = sm90::encode_bf16_map(&maps[1], k, kMlaD, tk, hkv, b, st[5],
+                                st[4], st[3], kBoxCols, kMlaBK);
+  if (!err && !v_in_k)
+    err = sm90::encode_bf16_map(&maps[2], v, kMlaDv, tk, hkv, b, st[8],
+                                st[7], st[6], kBoxCols, kMlaBK);
+  if (err) return err;
+  if (v_in_k) {
+    maps[2] = maps[1];   // not read
+    return launch_mla_kernel<true>(maps, o, b, h, hkv, tq, tk, causal,
+                                   sm_scale * kLog2e, stream);
+  }
+  return launch_mla_kernel<false>(maps, o, b, h, hkv, tq, tk, causal,
+                                  sm_scale * kLog2e, stream);
+}
+
+
 int launch_bf16(int d, int dv, const void* q, const void* k,
                 const void* v, void* o, int b, int h, int hkv, int tq,
                 int tk, const long long* st, int causal, float sm_scale,
-                cudaStream_t stream) {
+                int v_in_k, cudaStream_t stream) {
   if (d == 32 && dv == 24)
     return launch<__nv_bfloat16, 32, 24>(q, k, v, o, b, h, hkv, tq, tk, st,
                                          causal, sm_scale, stream);
   if (d == kMlaD && dv == kMlaDv)
     return launch_mla(q, k, v, o, b, h, hkv, tq, tk, st, causal, sm_scale,
-                      stream);
+                      v_in_k, stream);
   if (d != dv) return cudaErrorInvalidValue;
   switch (d) {
     case 8:   // below one 16-wide step of the tensor-core product
@@ -1253,13 +1361,16 @@ int launch_bf16(int d, int dv, const void* q, const void* k,
 // head count that is not a multiple of the KV heads, or a grid too large;
 // 0 when there is nothing to launch).  dtype 0 is float32, 1 bfloat16.
 // d is q's and k's width, dv v's.  Strides are in elements: (batch, head,
-// row) of q, then of k, then of v; o is contiguous [B, H, Tq, dv].
+// row) of q, then of k, then of v; o is contiguous [B, H, Tq, dv].  v_in_k
+// says that v is a view of k's first dv columns (the same base and
+// strides): the mla variant then reads the latent once, through k's tiles;
+// the other variants read v as it is.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int b,
     int h, int hkv, int tq, int tk, int d, int dv, long long qsb,
     long long qsh, long long qst, long long ksb, long long ksh,
     long long kst, long long vsb, long long vsh, long long vst, int causal,
-    float sm_scale, void* stream) {
+    float sm_scale, int v_in_k, void* stream) {
   if (b <= 0 || h <= 0 || tq <= 0) return 0;
   if (hkv <= 0 || h % hkv || tk <= 0 || b > 65535 || h > 65535)
     return cudaErrorInvalidValue;
@@ -1270,6 +1381,6 @@ extern "C" int flash_attention_launch(
                       sm_scale, s);
   if (dtype == 1)
     return launch_bf16(d, dv, q, k, v, o, b, h, hkv, tq, tk, st, causal,
-                       sm_scale, s);
+                       sm_scale, v_in_k, s);
   return cudaErrorInvalidValue;
 }

@@ -30,9 +30,16 @@ the diagonal.
   - ``"mma"``, bfloat16 at D = 16 and 32: ``mma.sync`` on the tensor
     cores with synchronous copies, 64-row query tiles.
   - ``"mla"``, bfloat16 at ``(D, Dv) = (288, 256)`` (minicpm3-4b's
-    attention over its latent): ``mma.sync`` as ``"mma"``, each row
-    group's 256 output columns split over two warps that share p through
-    shared memory.  It has not had a Hopper pass (no TMA, no ``wgmma``).
+    attention over its latent): the ``"wgmma"`` kernel's TMA ring and
+    products at MLA's widths, with 64-key tiles (a consumer's 64 x 256
+    float32 outputs then fit in registers), q and k in five 64-column
+    boxes (the rope part zero-filled past 288), and two consumer
+    warpgroups whose thread 0 issues the loads (a block of more warps is
+    compiled to 168 registers a thread, where those outputs spill).  When
+    v is k's first 256 columns (:func:`v_shares_k`: ``_mla_attend``
+    passes the latent that way) only k's tiles are loaded and ``p v``
+    reads v from them, so the latent crosses L2 once; a v of its own is
+    loaded through its own map.  Both modes compute the same function.
   - ``"simt"``, float32 at every width and bfloat16 at D = 8 and at
     ``(32, 24)``: float32 FMAs on the SIMT units, bound by their 67
     TFLOP/s.
@@ -178,7 +185,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
         + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_void_p])
+                                     ctypes.c_int, ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
 
 
@@ -222,15 +229,27 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def v_shares_k(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether ``v`` is a view of ``k``'s first ``Dv`` columns: the same
+    base and the same strides (MLA's latent, ``k_full[..., :kv_lora]``).
+    The ``"mla"`` kernel then reads v from k's tiles."""
+    return (v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+            and v.shape[:-1] == k.shape[:-1] and v.shape[-1] <= k.shape[-1]
+            and v.dtype == k.dtype and v.device == k.device)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
     """Launch the kernel on the current stream (no sync); q, k, v on one
-    CUDA device.  Returns a contiguous ``[B, H, Tq, Dv]`` in q's dtype."""
+    CUDA device.  Returns a contiguous ``[B, H, Tq, Dv]`` in q's dtype.
+    A v that :func:`v_shares_k` stays a view of k's kernel view."""
     check_args(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors: "
                          f"{q.device}")
-    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
+    shared = v_shares_k(k, v)
+    q, k = _kernel_view(q), _kernel_view(k)
+    v = k[..., :v.shape[-1]] if shared else _kernel_view(v)
     b, h, tq, d = q.shape
     hkv, tk, dv = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((b, h, tq, dv), dtype=q.dtype, device=q.device)
@@ -241,7 +260,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             DTYPES.index(q.dtype), b, h, hkv, tq, tk, d, dv, *strides,
-            int(causal), 1.0 / (d ** 0.5), stream)
+            int(causal), 1.0 / (d ** 0.5), int(shared), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

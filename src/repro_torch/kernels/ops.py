@@ -294,31 +294,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head attention with GQA: ``q[B, H, Tq, D]``, ``k[B, Hkv,
     Tk, D]``, ``v[B, Hkv, Tk, Dv]`` -> ``[B, H, Tq, Dv]`` in q's dtype.
 
-    The JAX package's routing rule (``repro/kernels/ops.py::attention``):
-    a call with a bias, or with ``Tq`` or ``Tk`` not a multiple of 128,
-    goes to ``ref.flash_attention_ref`` on every device.  That is the
-    reference's own dispatch, which its decode step (``Tq = 1``, a bias)
-    takes on a TPU too, not a fallback.  Every other call takes the kernel
-    route: a CUDA tensor launches the flash-attention kernel or raises, a
-    CPU tensor runs its plain version.  The kernel route takes ``Dv !=
-    D`` at MLA's pairs ``(288, 256)`` and ``(32, 24)`` and computes there
-    what the reference computes (the TPU kernel crashes on them: ROADMAP
-    queue 3, fault 1).  It raises ``ValueError`` for causal ``Tq != Tk``
-    and a ``(D, Dv)`` pair the kernel is not built for
-    (``flash_attention.check_args``), and ``NotImplementedError`` on
-    every device where grad mode is on and ``q``, ``k`` or ``v`` requires
-    grad: the kernel has no backward, as JAX's ``pallas_call`` has none
-    (ROADMAP queue 3, fault 3).  The reference route stays
-    differentiable.
+    The JAX package's routing rule off a TPU (``repro/kernels/ops.py::
+    attention``): a call with a bias, with ``Tq`` or ``Tk`` not a multiple
+    of 128, or that needs a gradient (grad mode on and ``q``, ``k`` or
+    ``v`` requiring grad) goes to ``ref.flash_attention_ref`` on every
+    device.  That is the reference's own dispatch, which its decode step
+    (``Tq = 1``, a bias) takes on a TPU too, and the function whose
+    gradient JAX's trainer takes on every backend but a TPU; it is not a
+    fallback.  Every other call takes the kernel route: a CUDA tensor
+    launches the flash-attention kernel or raises, a CPU tensor runs its
+    plain version.  The kernel route takes ``Dv != D`` at MLA's pairs
+    ``(288, 256)`` and ``(32, 24)`` and computes there what the reference
+    computes (the TPU kernel crashes on them: ROADMAP queue 3, fault 1).
+    It raises ``ValueError`` for causal ``Tq != Tk`` and a ``(D, Dv)``
+    pair the kernel is not built for (``flash_attention.check_args``).
+    The kernel has no backward, as JAX's ``pallas_call`` has none; a call
+    that needs one never reaches it.
     """
-    if bias is not None or q.shape[2] % 128 or k.shape[2] % 128:
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if (bias is not None or q.shape[2] % 128 or k.shape[2] % 128
+            or needs_grad):
         return ref.flash_attention_ref(q, k, v, causal, bias)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash-attention kernel route has no backward (fault 3 of "
-            "ROADMAP queue 3: the TPU kernel's pallas_call has none "
-            "either); train at a length that is not a multiple of 128, "
-            "which takes the reference")
     if _route(q, "attention"):
         out = flash_attention_cuda(q, k, v, causal=causal)
         attention.launches += 1

@@ -241,14 +241,15 @@ def _mla_attend(p: Params, cfg: TransformerConfig, q_nope: torch.Tensor,
     """Matrix-absorbed MLA attention over the latent (``c_kv``, ``k_rope``
     of ``[B, S, .]``): ``q_eff = q_nope W_kb`` per head, one KV head
     ``[c_kv, k_rope]`` of width ``kv_lora + rope_dim``, ``c_kv`` as the
-    value, and the context expanded through ``W_vb`` to ``[B, H, T,
-    v_head_dim]``."""
+    value (a view of that head's first ``kv_lora`` columns, so that the
+    attention kernel reads the latent once), and the context expanded
+    through ``W_vb`` to ``[B, H, T, v_head_dim]``."""
     nh = q_nope.shape[1]
     w_kb = p["k_b"].reshape(cfg.kv_lora, nh, cfg.nope_dim)
     q_eff = torch.einsum("bhtd,lhd->bhtl", q_nope, w_kb)     # [B,H,T,l]
     q_full = torch.cat([q_eff, q_rope], dim=-1)
     k_full = torch.cat([c_kv, k_rope], dim=-1)[:, None].to(q_full.dtype)
-    ctx = ops.attention(q_full, k_full, c_kv[:, None].to(q_full.dtype),
+    ctx = ops.attention(q_full, k_full, k_full[..., :cfg.kv_lora],
                         causal=causal, bias=bias)             # [B,H,T,l]
     w_vb = p["v_b"].reshape(cfg.kv_lora, nh, cfg.v_head_dim)
     return torch.einsum("bhtl,lhv->bhtv", ctx, w_vb)

@@ -22,7 +22,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     DTYPES, HEAD_DIMS, MLA_WIDTHS, _kernel_view, flash_attention_cuda,
-    flash_attention_plain, kernel_variant, tma_ok)
+    flash_attention_plain, kernel_variant, tma_ok, v_shares_k)
 
 # the sweep of tests/test_kernels.py::test_flash_attention_sweep
 SWEEP = [(2, 4, 2, 256, 64, True), (1, 8, 8, 128, 128, True),
@@ -196,17 +196,39 @@ def test_kernel_route_raises_where_the_tpu_kernel_is_wrong():
 
 
 @pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
-def test_kernel_route_raises_under_autograd(needs_grad):
-    """The kernel has no backward (nor has the TPU kernel's pallas_call):
-    with grad mode on and an input that requires grad, the kernel route
-    raises on the CPU as on a card; under no_grad it runs."""
-    qkv = dict(zip("qkv", (torch.from_numpy(a)
-                           for a in _qkv(1, 4, 2, 128, 128, 8, 13))))
+def test_attention_that_needs_a_gradient_takes_the_reference(needs_grad,
+                                                             monkeypatch):
+    """At T a multiple of 128, a call with grad mode on and an input that
+    requires grad takes ``ref.flash_attention_ref``, as JAX's route does
+    off a TPU: the kernel route (its plain version here) is not called,
+    the output equals the reference's and carries a gradient equal to
+    JAX's.  Under ``no_grad`` the same call takes the kernel route."""
+    import jax
+    arrays = _qkv(1, 4, 2, 128, 128, 8, 13)
+    qkv = dict(zip("qkv", (torch.from_numpy(a) for a in arrays)))
     qkv[needs_grad].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="fault 3"):
-        ops.attention(qkv["q"], qkv["k"], qkv["v"])
+    kernel_calls = []
+    plain = ops.flash_attention_plain
+    monkeypatch.setattr(ops, "flash_attention_plain",
+                        lambda *a, **kw: kernel_calls.append(1)
+                        or plain(*a, **kw))
+    out = ops.attention(qkv["q"], qkv["k"], qkv["v"])
+    assert not kernel_calls and out.requires_grad
+    want = ref.flash_attention_ref(*(t.detach() for t in qkv.values()))
+    np.testing.assert_allclose(out.detach().numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    w = np.random.default_rng(16).normal(size=out.shape).astype(np.float32)
+    torch.sum(out * torch.from_numpy(w)).backward()
+    i = "qkv".index(needs_grad)
+    jgrad = jax.grad(lambda *a: jnp.sum(jref.flash_attention_ref(*a, True)
+                                        * w), argnums=i)(*arrays)
+    np.testing.assert_allclose(qkv[needs_grad].grad.numpy(),
+                               np.asarray(jgrad), rtol=1e-5, atol=1e-5)
     with torch.no_grad():
-        ops.attention(qkv["q"], qkv["k"], qkv["v"])
+        got = ops.attention(qkv["q"], qkv["k"], qkv["v"])
+    assert kernel_calls == [1]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_reference_route_stays_differentiable():
@@ -291,6 +313,24 @@ def test_tma_check_copies_what_it_cannot_take(case):
     assert torch.equal(y, x)
 
 
+@pytest.mark.parametrize("case", ["view", "clone", "other_stride",
+                                  "other_base"])
+def test_v_shares_k_only_for_a_view_of_its_first_columns(case):
+    """The check that lets the ``mla`` kernel read v from k's tiles:
+    "shared" only for ``k[..., :256]`` (the same base and strides), and
+    "separate" for a copy, a view with another row stride over the same
+    memory, and one that starts elsewhere in k's rows."""
+    buf = torch.randn((2 * 512 * 288,)).to(torch.bfloat16)
+    k = buf.as_strided((2, 1, 256, 288), (512 * 288, 512 * 288, 288, 1))
+    v = {"view": lambda: k[..., :256],
+         "clone": lambda: k[..., :256].clone(),
+         "other_stride": lambda: buf.as_strided(
+             (2, 1, 256, 256), (512 * 288, 512 * 288, 576, 1)),
+         "other_base": lambda: k[..., 32:]}[case]()
+    assert v.shape == (2, 1, 256, 256) and tma_ok(k) and tma_ok(v)
+    assert v_shares_k(k, v) == (case == "view")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-3),
                                        ("bfloat16", 3e-2)])
@@ -306,7 +346,8 @@ def test_kernel_matches_plain_on_the_card(dtype, tol):
                (2, 8, 2, 512, 128, False, True),
                (2, 6, 2, 768, 64, True, True),
                (1, 4, 1, 384, 64, False, True)]
-    # MLA's pairs (d, dv), one KV head
+    # MLA's pairs (d, dv), one KV head; in bf16 at (288, 256) also with v
+    # a view of k's first 256 columns (the mla kernel's shared mode)
     shapes += [(1, 4, 1, 256, (288, 256), True, False),
                (2, 3, 1, 384, (288, 256), False, False),
                (2, 4, 1, 256, (32, 24), True, False)]
@@ -321,8 +362,10 @@ def test_kernel_matches_plain_on_the_card(dtype, tol):
             q, k, v = (torch.from_numpy(a).to("cuda", dt)
                        for a in _qkv(b, h, hkv, t, t, d, seed=b * t + h,
                                      dv=dv))
-        got = flash_attention_cuda(q, k, v, causal=causal)
-        want = flash_attention_plain(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol)
+        shared = kernel_variant(dt, d, dv) == "mla"
+        for v in (v, k[..., :dv]) if shared else (v,):
+            got = flash_attention_cuda(q, k, v, causal=causal)
+            want = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)

@@ -307,6 +307,79 @@ def test_mla_train_step_matches_jax():
     _close_trees(tp1, jp1, 1e-6, 1e-6)
 
 
+# T a multiple of 128, where ops.attention's kernel route would serve the
+# forward: with a gradient needed, the call takes the reference, as JAX's
+# does off a TPU; one GQA and one MLA smoke config
+KERNEL_LENGTHS = [128, 256]
+KERNEL_LENGTH_ARCHS = ["internlm2_20b", "minicpm3_4b"]
+
+
+@pytest.mark.parametrize("t", KERNEL_LENGTHS)
+@pytest.mark.parametrize("module", KERNEL_LENGTH_ARCHS)
+def test_lm_gradient_at_kernel_lengths_matches_jax(module, t):
+    jcfg, tcfg = _configs(module)
+    tokens, labels = next(jsyn.lm_batches(jcfg.vocab, 2, t, seed=7))
+    jp = jtfm.init_transformer(jcfg, jax.random.key(7))
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, a, b: jtfm.loss_fn(p, a, b, jcfg)))(
+        jp, jnp.asarray(tokens), jnp.asarray(labels))
+    tloss, tgrads = tstep.value_and_grad(
+        lambda p, a, b: ttfm.loss_fn(p, a, b, tcfg), _carry(jp),
+        torch.from_numpy(tokens), torch.from_numpy(labels))
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    _close_trees(tgrads, jgrads, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("t", KERNEL_LENGTHS)
+@pytest.mark.parametrize("module", KERNEL_LENGTH_ARCHS)
+def test_lm_train_step_at_kernel_lengths_matches_jax(module, t):
+    """One AdamW step from JAX's parameters: the loss and every
+    parameter."""
+    jcfg, tcfg = _configs(module)
+    tokens, labels = next(jsyn.lm_batches(jcfg.vocab, 2, t, seed=8))
+    jp = jtfm.init_transformer(jcfg, jax.random.key(8))
+    jo_cfg, to_cfg = jadam.AdamWConfig(**OPT), tadam.AdamWConfig(**OPT)
+    jo = jadam.init(jp, jo_cfg)
+    to = tadam.opt_state_from_numpy(jax.tree.map(np.asarray, jo), "cpu")
+    jp1, _, jm = jax.jit(jstep.make_train_step(
+        lambda p, a, b: jtfm.loss_fn(p, a, b, jcfg), jo_cfg))(
+        jp, jo, jnp.asarray(tokens), jnp.asarray(labels))
+    tp1, _, tm = tstep.make_train_step(
+        lambda p, a, b: ttfm.loss_fn(p, a, b, tcfg), to_cfg)(
+        _carry(jp), to, torch.from_numpy(tokens), torch.from_numpy(labels))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    _close_trees(tp1, jp1, 1e-6, 1e-6)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-20b", "minicpm3-4b"])
+def test_train_cli_at_seq_128_continues_jax(arch, tmp_path):
+    """``launch/train.py --seq 128 --device cpu`` trains.  The port draws
+    its own weights, so to hold its losses to JAX's it continues a JAX run
+    saved at step 1: the CLI prints JAX's continuation's losses (to its
+    four decimals), and ``train`` returns them within 1e-5."""
+    jd = str(tmp_path / "jax")
+    jlaunch.train(arch, 1, batch=2, seq=128, ckpt_dir=jd, ckpt_every=1,
+                  log_every=0)
+    for copy in ("_jax", "_cli"):
+        shutil.copytree(jd, jd + copy)
+    want = jlaunch.train(arch, 3, batch=2, seq=128, ckpt_dir=jd + "_jax",
+                         ckpt_every=1, log_every=0)["losses"]
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--steps", "3", "--batch", "2", "--seq", "128", "--ckpt-dir",
+         jd + "_cli", "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    first, last = proc.stdout.splitlines()[-1].split()[1::2]
+    np.testing.assert_allclose([float(first), float(last)],
+                               [want[0], want[-1]], rtol=0, atol=5e-5)
+    got = tlaunch.train(arch, 3, batch=2, seq=128, ckpt_dir=jd,
+                        ckpt_every=1, log_every=0, device="cpu")["losses"]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 @pytest.mark.parametrize("family", ["lm", "recsys"])
 def test_four_microbatches_equal_one(family):
     """JAX's GraphBatch does not split into microbatches, so the GNN has

@@ -30,6 +30,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import transformer as jtfm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import v_shares_k  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.models.common import (  # noqa: E402
@@ -225,6 +226,37 @@ def test_mla_forward_matches_jax(q_lora, n_experts, t):
     want = np.asarray(jtfm.forward(jparams, jnp.asarray(toks), jcfg))
     got = ttfm.forward(tparams, torch.from_numpy(toks), tcfg)
     assert got.shape == (2, t, tcfg.vocab_padded)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("t", [128, 256])
+def test_mla_attend_hands_the_kernel_route_a_view_of_the_latent(
+        t, monkeypatch):
+    """``_mla_attend`` passes v as ``k_full[..., :kv_lora]``, a view that
+    ``flash_attention.v_shares_k`` takes (so that the ``mla`` kernel reads
+    the latent once), to the kernel route (its plain version here); its
+    output still equals JAX's ``_mla_attend``."""
+    jcfg, tcfg = _configs("minicpm3_4b")
+    jparams, tparams = _params(jcfg)
+    rng = np.random.default_rng(t)
+    b, nh = 2, jcfg.n_heads
+    shapes = dict(q_nope=(b, nh, t, jcfg.nope_dim),
+                  q_rope=(b, nh, t, jcfg.rope_dim),
+                  c_kv=(b, t, jcfg.kv_lora), k_rope=(b, t, jcfg.rope_dim))
+    x = [rng.normal(size=sh).astype(np.float32) for sh in shapes.values()]
+    seen = []
+    plain = ops.flash_attention_plain
+
+    def spy(q, k, v, causal=True):
+        seen.append((v_shares_k(k, v), v.shape[-1]))
+        return plain(q, k, v, causal=causal)
+    monkeypatch.setattr(ops, "flash_attention_plain", spy)
+    want = np.asarray(jtfm._mla_attend(
+        jax.tree.map(lambda a: a[0], jparams["layers"]), jcfg,
+        *map(jnp.asarray, x), causal=True))
+    got = ttfm._mla_attend(ttfm.layer_params(tparams, 0), tcfg,
+                           *map(torch.from_numpy, x), causal=True)
+    assert seen == [(True, tcfg.kv_lora)]
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 

@@ -8,14 +8,16 @@ register and spill lines), then holds every kernel variant to its plain
 torch version at small shapes: the ``wgmma`` kernel (bf16, D = 64 and 128;
 contiguous and the transformer's strided layout, causal and not, GQA), the
 ``mma.sync`` kernel (bf16, D = 16 and 32), the MLA kernel (bf16,
-``(D, Dv) = (288, 256)``) and the SIMT kernel (float32, bf16 at D = 8 and
+``(D, Dv) = (288, 256)``, in both modes: v a view of k's first 256
+columns, read from k's tiles, and v a tensor of its own) and the SIMT
+kernel (float32, bf16 at D = 8 and
 at ``(32, 24)``), within 3e-2 in bf16 and 2e-3 in float32.  A failing
-``wgmma`` shape is probed further: with q = 0 (uniform p: only the p v
-product and the epilogue count) and with v = 1 (only the normalisation
-counts).  ``--time`` adds the kernel's device time at internlm2-20b's,
-granite-moe-3b-a800m's and minicpm3-4b's layer shapes beside
-``scaled_dot_product_attention`` (at minicpm3-4b's, through
-``chip_smoke.mla_library_call``).
+``wgmma`` or ``mla`` shape is probed further: with q = 0 (uniform p: only
+the p v product and the epilogue count) and with v = 1 (only the
+normalisation counts; the separate mode only).  ``--time`` adds the
+kernel's device time at internlm2-20b's, granite-moe-3b-a800m's and
+minicpm3-4b's layer shapes beside ``scaled_dot_product_attention`` (at
+minicpm3-4b's, in both modes, through ``chip_smoke.mla_library_call``).
 
 It takes a minute, so it is the first thing to run on the card after an
 edit of the kernel, under ``timeout`` (a broken pipeline traps after a few
@@ -33,7 +35,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # (dtype, B, H, Hkv, T, D, Dv, causal, strided); the first two give the
 # producer more key tiles than ring stages, so a stuck pipeline traps; the
-# last six are MLA's pairs (one KV head, v narrower than q)
+# last seven are MLA's pairs (one KV head, v narrower than q; the bf16
+# (288, 256) ones run in both modes)
 SHAPES = (
     ("bfloat16", 1, 2, 1, 512, 64, 64, True, False),
     ("bfloat16", 1, 2, 1, 512, 128, 128, True, False),
@@ -51,6 +54,7 @@ SHAPES = (
     ("bfloat16", 1, 4, 1, 256, 288, 256, True, False),
     ("bfloat16", 2, 3, 1, 384, 288, 256, False, False),
     ("bfloat16", 1, 2, 1, 128, 288, 256, True, False),
+    ("bfloat16", 2, 2, 1, 1024, 288, 256, True, False),
     ("float32", 1, 2, 1, 256, 288, 256, True, False),
     ("bfloat16", 2, 4, 1, 256, 32, 24, True, False),
     ("float32", 2, 4, 1, 256, 32, 24, False, False),
@@ -66,15 +70,18 @@ def err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def probe(q, k, v, causal) -> str:
+def probe(q, k, v, causal, shared=False) -> str:
     """Where a wrong wgmma result comes from: q = 0 leaves only p v and
-    the epilogue; v = 1 leaves only the normalisation."""
+    the epilogue; v = 1 leaves only the normalisation (not when v is a
+    view of k)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     out = []
-    for name, (qq, vv) in (("q=0", (torch.zeros_like(q), v)),
-                           ("v=1", (q, torch.ones_like(v)))):
+    cases = [("q=0", (torch.zeros_like(q), v))]
+    if not shared:
+        cases.append(("v=1", (q, torch.ones_like(v))))
+    for name, (qq, vv) in cases:
         got = flash_attention_cuda(qq, k, vv, causal=causal)
         want = flash_attention_plain(qq, k, vv, causal=causal)
         torch.cuda.synchronize()
@@ -112,20 +119,24 @@ def main() -> int:
     for name, b, h, hkv, t, d, dv, causal, strided in SHAPES:
         dtype = getattr(torch, name)
         tol = 3e-2 if dtype == torch.bfloat16 else 2e-3
-        q, k, v = attn_inputs(b, h, hkv, t, d, dtype, gen, strided, dv)
-        got = flash_attention_cuda(q, k, v, causal=causal)
-        want = flash_attention_plain(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        e = err(got, want)
-        ok = e <= tol and bool(torch.isfinite(got).all())
-        failed += not ok
         variant = kernel_variant(dtype, d, dv)
-        print(f"{'ok  ' if ok else 'FAIL'} {variant:5s} {name:8s} B={b} "
-              f"H={h} Hkv={hkv} T={t} D={d} Dv={dv} causal={causal} "
-              f"strided={strided}: max |err| {e:.3e} (tol {tol})",
-              flush=True)
-        if not ok and variant in ("wgmma", "mla"):
-            print(f"     {probe(q, k, v, causal)}", flush=True)
+        for shared in (False, True) if variant == "mla" else (False,):
+            q, k, v = attn_inputs(b, h, hkv, t, d, dtype, gen, strided, dv)
+            if shared:
+                v = k[..., :dv]
+            got = flash_attention_cuda(q, k, v, causal=causal)
+            want = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            e = err(got, want)
+            ok = e <= tol and bool(torch.isfinite(got).all())
+            failed += not ok
+            mode = " v in k" if shared else ""
+            print(f"{'ok  ' if ok else 'FAIL'} {variant:5s} {name:8s} B={b} "
+                  f"H={h} Hkv={hkv} T={t} D={d} Dv={dv} causal={causal} "
+                  f"strided={strided}{mode}: max |err| {e:.3e} (tol {tol})",
+                  flush=True)
+            if not ok and variant in ("wgmma", "mla"):
+                print(f"     {probe(q, k, v, causal, shared)}", flush=True)
     if failed:
         print(f"attention_check: {failed} shapes failed", file=sys.stderr)
         return 1
@@ -134,21 +145,25 @@ def main() -> int:
         for name, b, h, hkv, t, d, dv, strided in LAYERS:
             q, k, v = attn_inputs(b, h, hkv, t, d, torch.bfloat16, gen,
                                   strided, dv)
-            e = err(flash_attention_cuda(q, k, v),
-                    flash_attention_plain(q, k, v))
-            ms = graph_ms(lambda: flash_attention_cuda(q, k, v), 3, 3)
+            flops = 2 * (d + dv) * b * h * (t * (t + 1) // 2)
             if dv == d:
                 how = "GQA"
                 sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True), 3, 3)
+                modes = (("", v),)
             else:
                 how = f"k, v expanded to {h} heads, {MLA_SDPA_BACKEND}"
                 sdpa = graph_ms(mla_library_call(q, k, v), 3, 3)
-            flops = 2 * (d + dv) * b * h * (t * (t + 1) // 2)
-            print(f"{name} layer B={b} H={h} Hkv={hkv} T={t} D={d} Dv={dv}:"
-                  f" kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                  f"SDPA ({how}) {sdpa:.3f} ms, ratio {ms / sdpa:.2f}; max "
-                  f"|err| {e:.3e}", flush=True)
+                modes = ((", v its own", v), (", v in k", k[..., :dv]))
+            for mode, vv in modes:
+                e = err(flash_attention_cuda(q, k, vv),
+                        flash_attention_plain(q, k, vv))
+                ms = graph_ms(lambda: flash_attention_cuda(q, k, vv), 3, 3)
+                print(f"{name} layer B={b} H={h} Hkv={hkv} T={t} D={d} "
+                      f"Dv={dv}{mode}: kernel {ms:.3f} ms "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s), SDPA ({how}) "
+                      f"{sdpa:.3f} ms, ratio {ms / sdpa:.2f}; max |err| "
+                      f"{e:.3e}", flush=True)
     print("attention_check: every shape matches its plain version")
     return 0
 

@@ -3,13 +3,16 @@
 
     timeout 600 python3 tools/mla_check.py
 
-Builds the flash-attention kernels (printing ``nvcc``'s register and
-spill lines), then runs phase 17: (a) the kernel at ``d_v != d_q``
-against its plain version at minicpm3-4b's smoke and full widths, timed
-at its layer; (b) its full widths at 2 layers, card vs CPU; (c) one
-``full_config()`` prefill (62 launches of the ``mla`` variant); (d) the
-serve loop at full config; (e) the smoke config card vs CPU.  Each fails
-the run as it does there; the results go to ``build/mla_check.json``.
+Builds the flash-attention kernels, then runs phase 17: (a) the
+kernel at ``d_v != d_q`` against its plain version at minicpm3-4b's smoke
+and full widths, the ``mla`` kernel in both modes (v a view of k's first
+256 columns, and v its own tensor), with its registers and spills from
+``nvcc``, timed at its layer beside SDPA; (b) its full widths at 2
+layers, card vs CPU; (c) one ``full_config()`` prefill (62 launches of the
+``mla`` variant; its profiled attention time against 62 x the kernel's);
+(d) the serve loop at full config; (e) the smoke config card vs CPU.  Each
+fails the run as it does there; the results go to
+``build/mla_check.json``.
 """
 from __future__ import annotations
 
@@ -37,11 +40,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     cs.log(f"card: {smi}; torch {torch.__version__}")
     (_, text), = _build.build_all([flash_attention.SOURCE]).values()
-    for line in text.strip().splitlines():
-        if "mla" in line or "spill" in line or "registers" in line:
-            cs.log(f"  nvcc: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = dict(card=smi, **cs.mla_serving(0, gen))
+    out = dict(card=smi, **cs.mla_serving(0, gen, text))
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "mla_check.json").write_text(
         json.dumps(out, indent=1, default=str))
