@@ -197,7 +197,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    x the kernel's time at the layer), peak memory; (d)
    ``serve(minicpm3-4b, full=True)``, batch 4, prompt 16, 32 tokens, ms
    per token beside the weight-read bound, and a profiled decode step;
-   (e) its smoke config at T = 256, card (kernel) vs CPU (plain), 1e-4.
+   (e) its smoke config at T = 256, card (kernel) vs CPU (plain), 1e-4;
+18. the dry-run (``launch/dryrun.py``), after phase 16: (a) at a 1-rank
+   mesh, the ``graphsage-reddit`` ``minibatch_lg``, ``sasrec``
+   ``train_batch`` and ``mosso-stream`` ``stream_batch`` cells at full
+   configuration: the predicted bytes of the parameters, the AdamW state
+   and the inputs (the engine state, for mosso) equal the bytes of the
+   tensors phases 16(c), 16(b) and 3 held on the card, and the predicted
+   FLOPs ``FlopCounterMode`` over one of their steps on the card (GraphSAGE
+   and SASRec; the engine's step reads the host and is not traced), the
+   predicted peak beside ``max_memory_allocated()`` and the roofline's time
+   beside the measured step, with their ratios; (b) ``compressed_psum``
+   over an NCCL group of one rank equal to ``int8_dequantize(
+   *int8_quantize(x))`` bitwise and within ``scale / 2`` of ``x`` (plus
+   two float32 ulps of ``max |x|``: the quantizer rounds in float32); (c) in a
+   subprocess on the CPU, started first, ``internlm2-20b`` and
+   ``llama3-405b`` ``train_4k`` at the 16 x 16 production mesh (a fake
+   process group of 256 ranks), each rank's GB beside the card's 80.
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -216,7 +232,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"   # phases 13-14, removed
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+# the card's published rates have one copy, in the port's launch/mesh.py
+# (set by main() and by load_rates(), which put src/ on the path first)
+HBM_BYTES_PER_S = BF16_OPS_PER_S = None
 LANES = (1, 3, 20, 32, 48, 64, 160, 16384, 1 << 16, 1 << 20)
 CAP = 1 << 25                     # full_config's adj / epos capacity
 CAP_SMALL = 1 << 24               # full_config's eab / snadj / snpos capacity
@@ -234,7 +252,6 @@ REBUILD_TINY_CAPS = (8, 16, 32)   # phase 15(a): tables with wrapped runs
 REBUILD_CAPS = (1 << 16, 1 << 20)  # phase 15(a): at 53% and 70%
 REBUILD_BIG = 1 << 22             # phase 15(a): at 70%, the host fold timed
 FP32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
-BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 tensor-core rate
 # words in the names of cuBLAS/CUTLASS matrix-product kernels
 MATMUL_WORDS = ("gemm", "cutlass", "xmma", "matmul", "sm90", "nvjet", "gemv")
 REDDIT_NODES = 232_965            # PyG's Reddit
@@ -280,7 +297,28 @@ CHECK_ROWS = 1024                 # phase 16(b): rows held card vs CPU
 TRAIN_ARCHS = ("granite-moe-3b-a800m", "graphsage-reddit", "sasrec")
 
 
+DRYRUN_CELLS = ("graphsage-reddit/minibatch_lg", "sasrec/train_batch",
+                "mosso-stream/stream_batch")   # phase 18(a), at 1 rank
+DRYRUN_FULL = ("internlm2-20b", "llama3-405b")  # phase 18(c): train_4k
+CARD_GB = 80.0                    # the H100's device memory, in GB
+
+
 _T0 = time.perf_counter()
+
+
+def load_rates() -> None:
+    """Set ``HBM_BYTES_PER_S`` and ``BF16_OPS_PER_S`` from the port's
+    ``launch/mesh.py`` (the tools call this after putting ``src/`` on the
+    path; ``main()`` does)."""
+    global HBM_BYTES_PER_S, BF16_OPS_PER_S
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    HBM_BYTES_PER_S, BF16_OPS_PER_S = HBM_BW, PEAK_FLOPS_BF16
+
+
+try:       # a tool that imports this module has put src/ on the path
+    load_rates()
+except ImportError:   # alone, or src/ not on the path yet: main() sets them
+    pass
 
 
 def log(msg: str) -> None:
@@ -644,6 +682,7 @@ def main_path(nodes: int, deg: int, seed: int) -> dict:
     from repro_torch.core.engine import BatchedSummarizer
     from repro_torch.core.engine.ops import host_read
     from repro_torch.core.summary import pair_key
+    from repro_torch.launch.steps import state_leaves
     from repro_torch.graph.streams import (barabasi_albert_edges,
                                            edges_to_fully_dynamic_stream)
     from repro_torch.kernels import ops
@@ -711,6 +750,7 @@ def main_path(nodes: int, deg: int, seed: int) -> dict:
                launches_per_step=launches / n_batches,
                host_syncs=syncs, syncs_per_change=syncs / n,
                state_bytes=state_bytes,
+               state_tensor_bytes=tensor_bytes(state_leaves(bs.state)),
                peak_bytes=peak,
                stats=bs.stats(), phi=phi, live_edges=len(truth),
                by_batch={f"{m}:{b}": c for (m, b), c in
@@ -1970,6 +2010,28 @@ def _tree_err(got, want, rtol: float, atol: float, what: str) -> float:
     return err
 
 
+def tensor_bytes(tree) -> int:
+    """Bytes of the tensors of a tree (dicts, lists, tuples, NamedTuples)."""
+    import torch
+    import torch.utils._pytree as pytree
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def held_by_step(params, opt, batch, step) -> dict:
+    """Phase 18(a)'s yardsticks from a training phase: the bytes it holds
+    on the card (parameters, AdamW state, one batch) and
+    ``FlopCounterMode`` over one more step on them."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, *batch)
+    torch.cuda.synchronize()
+    return dict(params=tensor_bytes(params), opt_state=tensor_bytes(opt),
+                inputs=tensor_bytes(batch),
+                flops=int(fc.get_total_flops()))
+
+
 def csr_backward_vs_plain(batch, gen) -> dict:
     """Phase 16(a): the segment sum's backward (the kernel over the
     transposed layout) against torch's autograd of the plain version on
@@ -2098,6 +2160,7 @@ def sasrec_training(seed: int) -> dict:
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     res["ms_per_step"] = 1e3 * steady
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["held"] = held_by_step(params, opt, b, step)
     prof = device_breakdown(
         lambda: step(params, opt, *b),
         {"matmul": MATMUL_WORDS,
@@ -2215,6 +2278,7 @@ def graphsage_training(batch, seed: int) -> dict:
     opt = adamw.init(params, opt_cfg)
     step = make_train_step(loss_fn, opt_cfg)
     # the path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     losses, step_s = [], []
     for _ in range(TRAIN_STEPS):
@@ -2224,6 +2288,8 @@ def graphsage_training(batch, seed: int) -> dict:
         step_s.append(time.perf_counter() - t)
     fwd = ops.segment_reduce.launches - ops.segment_reduce.backward_launches
     bwd = ops.segment_reduce.backward_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held = held_by_step(params, opt, (batch,), step)
     if fwd == 0 or bwd == 0:
         raise AssertionError(f"GraphSAGE training launched {fwd} forward "
                              f"and {bwd} backward CSR kernels")
@@ -2231,7 +2297,8 @@ def graphsage_training(batch, seed: int) -> dict:
                grad_max_abs_err=grad_err, loss=float(loss_c),
                launches=fwd + bwd,
                forward_launches_per_step=fwd / TRAIN_STEPS,
-               backward_launches_per_step=bwd / TRAIN_STEPS)
+               backward_launches_per_step=bwd / TRAIN_STEPS,
+               peak_gb=peak_gb, held=held)
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     res["ms_per_step"] = 1e3 * steady
     log(f"phase 16(c): graphsage full_config training: {TRAIN_STEPS} AdamW "
@@ -3200,6 +3267,178 @@ def compact_live_summarizer(bs, truth, seed: int) -> dict:
     return res
 
 
+_FULL_DRYRUN = r"""
+import json, sys
+from repro_torch.launch import dryrun
+print("RESULT " + json.dumps([dryrun.run_cell(a, "train_4k", verbose=False)
+                             for a in sys.argv[1:]]))
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dryrun_card(path_res: dict, sage_train: dict, sasrec_train: dict) -> dict:
+    """What phases 3, 16(c) and 16(b) held and measured on the card, by
+    phase 18(a)'s cell."""
+    return {
+        "graphsage-reddit/minibatch_lg": dict(
+            sage_train["held"], peak_gb=sage_train["peak_gb"],
+            ms=sage_train["ms_per_step"]),
+        "sasrec/train_batch": dict(
+            sasrec_train["held"], peak_gb=sasrec_train["peak_gb"],
+            ms=sasrec_train["ms_per_step"]),
+        "mosso-stream/stream_batch": dict(
+            state=path_res["state_tensor_bytes"],
+            peak_gb=path_res["peak_bytes"] / 1e9)}
+
+
+def dryrun_vs_card(card: dict, seed: int) -> dict:
+    """Phase 18: the dry-run (``launch/dryrun.py``) against the card.
+    (c) starts first, in a subprocess on the CPU: ``internlm2-20b`` and
+    ``llama3-405b`` ``train_4k`` at the 16 x 16 production mesh (a fake
+    group of 256 ranks), each rank's GB beside the card's 80.  (a) in this
+    process, at a 1-rank mesh (a fake group of one rank): the
+    ``full_config()`` cells of phases 16(c), 16(b) and 3; the predicted
+    bytes of the parameters, the optimizer state and the inputs (the
+    engine state, for mosso) must equal the bytes of the tensors those
+    phases held on the card, and (GraphSAGE, SASRec) the predicted FLOPs
+    ``FlopCounterMode`` over their step on the card; the predicted peak is
+    printed beside ``max_memory_allocated()`` and the roofline's time
+    beside the measured step, with their ratios.  (b) ``compressed_psum``
+    over an NCCL group of one rank equals ``int8_dequantize(
+    *int8_quantize(x))`` bitwise and lies within ``scale / 2`` of ``x``
+    (and two float32 ulps of ``max |x|``)."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.collectives import (compressed_psum,
+                                              int8_dequantize, int8_quantize)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as launch_mesh
+
+    t0 = time.perf_counter()
+    full = subprocess.Popen(
+        [sys.executable, "-c", _FULL_DRYRUN, *DRYRUN_FULL],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""))
+    res = {"cells": {}}
+    try:
+        # (a) at a 1-rank mesh
+        launch_mesh.init_fake_world(1)
+        mesh = launch_mesh.make_host_mesh()
+        for key in DRYRUN_CELLS:
+            arch, shape = key.split("/")
+            t = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, mesh=mesh, verbose=False)
+            mem, held = rec["memory"], card[key]
+            pred = ({"state": mem["state_bytes"]} if arch == "mosso-stream"
+                    else {"params": mem["params_bytes"],
+                          "opt_state": mem["opt_state_bytes"],
+                          "inputs": mem["inputs_bytes"]})
+            if arch != "mosso-stream":
+                pred["flops"] = int(rec["cost"]["flops"])
+            for k, v in pred.items():
+                if v != held[k]:
+                    raise AssertionError(
+                        f"phase 18(a) {key}: predicted {k} {v} != the "
+                        f"card's {held[k]}")
+            row = dict(pred, trace_s=time.perf_counter() - t,
+                       predicted_peak_gb=mem.get(
+                           "peak_bytes", mem["argument_size_in_bytes"]) / 1e9,
+                       card_peak_gb=held["peak_gb"])
+            row["peak_ratio"] = row["card_peak_gb"] / row[
+                "predicted_peak_gb"]
+            terms = rec["roofline"]
+            if terms:
+                row["roofline_ms"] = 1e3 * max(terms["t_compute"],
+                                               terms["t_memory"],
+                                               terms["t_collective"])
+                row["dominant"] = terms["dominant"]
+                row["card_ms"] = held["ms"]
+                row["time_ratio"] = row["card_ms"] / row["roofline_ms"]
+            res["cells"][key] = row
+            log(f"phase 18(a) {key} at 1 rank: predicted == the card's "
+                + ", ".join(f"{k} {v}" for k, v in pred.items())
+                + f"; peak predicted {row['predicted_peak_gb']:.3f} GB, "
+                f"card {row['card_peak_gb']:.3f} GB (card / predicted "
+                f"{row['peak_ratio']:.3f})"
+                + (f"; roofline {row['roofline_ms']:.3f} ms "
+                   f"({row['dominant']}), card {row['card_ms']:.3f} ms per "
+                   f"step (card / roofline {row['time_ratio']:.2f})"
+                   if terms else "; FLOPs not traced (the engine's step "
+                   "reads the host)")
+                + f"; traced in {row['trace_s']:.1f} s")
+        dist.destroy_process_group()
+
+        # (b) compressed_psum over NCCL, one rank
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+            world_size=1, device_id=torch.device("cuda", 0))
+        gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+        x = torch.randn((4096, 1024), generator=gen, device="cuda")
+        q, scale = int8_quantize(x)
+        want = int8_dequantize(q, scale)
+        got = compressed_psum(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("phase 18(b): compressed_psum over one rank "
+                                 "!= int8_dequantize(*int8_quantize(x))")
+        err = float((got.double() - x.double()).abs().max())
+        half = 0.5 * float(scale)
+        # scale / 2 in exact arithmetic; x / scale and q * scale round in
+        # float32, which moves the bound by two ulps of the largest |x|
+        slack = 2 * 2.0 ** -23 * float(x.abs().max())
+        if err > half + slack:
+            raise AssertionError(f"phase 18(b): |psum - x| {err} > scale / 2 "
+                                 f"{half} + {slack:.2e}")
+        dist.destroy_process_group()
+        res["psum"] = dict(max_abs_err=err, half_scale=half, slack=slack)
+        log(f"phase 18(b): compressed_psum over an NCCL group of 1 rank == "
+            f"int8_dequantize(*int8_quantize(x)) bitwise on [4096, 1024] "
+            f"float32; max |out - x| {err:.9e} <= scale / 2 {half:.9e} "
+            f"(+ two float32 ulps of max |x|, {slack:.2e})")
+
+        # (c) the full-width dry-run, started first
+        out, err_text = full.communicate(timeout=600)
+        if full.returncode != 0:
+            raise AssertionError(f"phase 18(c) exited {full.returncode}: "
+                                 f"{err_text[-2000:]}")
+    finally:
+        if full.poll() is None:
+            full.kill()
+            full.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    recs = json.loads([l for l in out.splitlines()
+                       if l.startswith("RESULT ")][-1][len("RESULT "):])
+    res["full"] = {}
+    for rec in recs:
+        if rec["status"] != "ok":
+            raise AssertionError(f"phase 18(c) {rec['arch']}: {rec}")
+        mem = rec["memory"]
+        row = dict(args_gb=mem["argument_size_in_bytes"] / 1e9,
+                   peak_gb=mem["peak_bytes"] / 1e9,
+                   flops=rec["cost"]["flops"],
+                   dominant=rec["roofline"]["dominant"],
+                   trace_s=rec["t_trace_s"])
+        res["full"][rec["arch"]] = row
+        log(f"phase 18(c) {rec['arch']} train_4k at 16 x 16: each rank "
+            f"holds {row['args_gb']:.2f} GB of parameters, AdamW state and "
+            f"inputs, peak {row['peak_gb']:.2f} GB beside the card's "
+            f"{CARD_GB:.0f} GB ({row['peak_gb'] / CARD_GB:.2f}x); "
+            f"{row['flops']:.3e} FLOPs per rank, {row['dominant']}-bound; "
+            f"traced in {row['trace_s']:.1f} s")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 18: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     seed = 0
 
@@ -3212,6 +3451,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    load_rates()
     from repro_torch.kernels import (_build, csr_segment, flash_attention,
                                      ht_probe, ht_rebuild)
     # full float32 matrix products on the card, as on the CPU
@@ -3339,6 +3579,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launcher = train_launcher()
     log(f"phase 16: {time.perf_counter() - t:.1f} s")
+    # 18. the dry-run against the card: the bytes and FLOPs phases 16(c),
+    # 16(b) and 3 held and ran, compressed_psum over NCCL, and the
+    # full-width train_4k cells at 16 x 16
+    dryrun_res = dryrun_vs_card(dryrun_card(path_res, sage_train,
+                                            sasrec_train), seed)
 
     # 9. the flash-attention kernel vs plain, and its times at the layer
     # shape
@@ -3392,7 +3637,7 @@ def main() -> int:
         rebuild_full_size=rebuild_b,
         rebuild_live_summarizer=rebuild_d, csr_backward=csr_bwd,
         sasrec_training=sasrec_train, graphsage_training=sage_train,
-        train_launcher=launcher, mla=mla),
+        train_launcher=launcher, mla=mla, dryrun=dryrun_res),
         indent=1))
 
     entry = dict(name="ht_probe", route="cuda",

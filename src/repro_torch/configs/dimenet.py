@@ -1,6 +1,6 @@
 """dimenet [gnn]: 6 blocks d_hidden=128 n_bilinear=8 n_spherical=7
 n_radial=6.  [arXiv:2003.03123]"""
-from repro_torch.configs.base import ArchSpec, register
+from repro_torch.configs.base import ArchSpec, gnn_cells, register
 from repro_torch.models.gnn import GNNConfig
 
 ARCH_ID = "dimenet"
@@ -20,6 +20,7 @@ def smoke_config() -> GNNConfig:
 SPEC = register(ArchSpec(
     arch_id=ARCH_ID, family="gnn", source="arXiv:2003.03123",
     make_config=full_config, make_smoke_config=smoke_config,
+    cells=gnn_cells(needs_coords=True),
     technique_applicable=("marginal: 30-node radius graphs have near-unique "
                           "neighborhoods (phi/|E| ~ 1); supported, off by "
                           "default. Triplets capped at 4/edge on the large "

@@ -1,5 +1,5 @@
 """egnn [gnn]: 4L d_hidden=64 E(n)-equivariant.  [arXiv:2102.09844]"""
-from repro_torch.configs.base import ArchSpec, register
+from repro_torch.configs.base import ArchSpec, gnn_cells, register
 from repro_torch.models.gnn import GNNConfig
 
 ARCH_ID = "egnn"
@@ -18,4 +18,5 @@ def smoke_config() -> GNNConfig:
 SPEC = register(ArchSpec(
     arch_id=ARCH_ID, family="gnn", source="arXiv:2102.09844",
     make_config=full_config, make_smoke_config=smoke_config,
+    cells=gnn_cells(needs_coords=True),
     technique_applicable="marginal (molecular graphs, see dimenet note)"))

@@ -2,7 +2,7 @@
 MoE 40e top-8.  [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]"""
 import torch
 
-from repro_torch.configs.base import ArchSpec, register
+from repro_torch.configs.base import ArchSpec, lm_cells, register
 from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "granite-moe-3b-a800m"
@@ -27,4 +27,5 @@ SPEC = register(ArchSpec(
     arch_id=ARCH_ID, family="lm",
     source="hf:ibm-granite/granite-3.0-1b-a400m-base",
     make_config=full_config, make_smoke_config=smoke_config,
+    cells=lm_cells(full_attention=True),
     technique_applicable="no (dense LM; exercises MoE/EP substrate)"))

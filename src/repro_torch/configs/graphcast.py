@@ -1,6 +1,6 @@
 """graphcast [gnn]: 16L d_hidden=512 agg=sum n_vars=227,
 encoder-processor-decoder mesh GNN.  [arXiv:2212.12794]"""
-from repro_torch.configs.base import ArchSpec, register
+from repro_torch.configs.base import ArchSpec, gnn_cells, register
 from repro_torch.models.gnn import GNNConfig
 
 ARCH_ID = "graphcast"
@@ -20,5 +20,6 @@ def smoke_config() -> GNNConfig:
 SPEC = register(ArchSpec(
     arch_id=ARCH_ID, family="gnn", source="arXiv:2212.12794",
     make_config=full_config, make_smoke_config=smoke_config,
+    cells=gnn_cells(needs_coords=False),
     technique_applicable=("partial: summarize-once for the static bipartite "
                           "grid<->mesh graphs; processor mesh gains little")))

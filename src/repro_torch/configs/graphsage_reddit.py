@@ -4,7 +4,7 @@ The paper samples 25-10 neighbors; the ``minibatch_lg`` shape this model
 runs at pads a 1024-seed subgraph to 262,144 edges, which holds 15-10
 (1024 x (15 + 150) = 168,960 edges) but not 25-10 (281,600).
 """
-from repro_torch.configs.base import ArchSpec, register
+from repro_torch.configs.base import ArchSpec, gnn_cells, register
 from repro_torch.models.gnn import GNNConfig
 
 ARCH_ID = "graphsage-reddit"
@@ -24,6 +24,7 @@ def smoke_config() -> GNNConfig:
 SPEC = register(ArchSpec(
     arch_id=ARCH_ID, family="gnn", source="arXiv:1706.02216",
     make_config=full_config, make_smoke_config=smoke_config,
+    cells=gnn_cells(needs_coords=False),
     technique_applicable=("YES: summarize the input graph online (MoSSo); "
                           "mean-agg message passing runs on (G*,C) via "
                           "summary_spmm; GetRandomNeighbor doubles as the "

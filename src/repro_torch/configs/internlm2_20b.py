@@ -2,7 +2,7 @@
 [arXiv:2403.17297; hf]"""
 import torch
 
-from repro_torch.configs.base import ArchSpec, register
+from repro_torch.configs.base import ArchSpec, lm_cells, register
 from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "internlm2-20b"
@@ -25,4 +25,5 @@ def smoke_config() -> TransformerConfig:
 SPEC = register(ArchSpec(
     arch_id=ARCH_ID, family="lm", source="arXiv:2403.17297",
     make_config=full_config, make_smoke_config=smoke_config,
+    cells=lm_cells(full_attention=True),
     technique_applicable="no (dense LM)"))

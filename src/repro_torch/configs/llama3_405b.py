@@ -5,7 +5,7 @@ Its full configuration (about 405 B parameters) does not fit one 80 GB
 card; the port runs its smoke configuration."""
 import torch
 
-from repro_torch.configs.base import ArchSpec, register
+from repro_torch.configs.base import ArchSpec, lm_cells, register
 from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "llama3-405b"
@@ -29,4 +29,5 @@ def smoke_config() -> TransformerConfig:
 SPEC = register(ArchSpec(
     arch_id=ARCH_ID, family="lm", source="arXiv:2407.21783",
     make_config=full_config, make_smoke_config=smoke_config,
+    cells=lm_cells(full_attention=True),
     technique_applicable="no (dense LM; the FSDP/TP stress test)"))

@@ -2,7 +2,7 @@
 [hf:openbmb/MiniCPM3-4B; hf]"""
 import torch
 
-from repro_torch.configs.base import ArchSpec, register
+from repro_torch.configs.base import ArchSpec, lm_cells, register
 from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "minicpm3-4b"
@@ -28,4 +28,5 @@ def smoke_config() -> TransformerConfig:
 SPEC = register(ArchSpec(
     arch_id=ARCH_ID, family="lm", source="hf:openbmb/MiniCPM3-4B",
     make_config=full_config, make_smoke_config=smoke_config,
+    cells=lm_cells(full_attention=True),
     technique_applicable="no (dense LM; exercises MLA latent-cache serving)"))

@@ -2,7 +2,7 @@
 MoE 64e top-6.  [hf:moonshotai/Moonlight-16B-A3B; hf]"""
 import torch
 
-from repro_torch.configs.base import ArchSpec, register
+from repro_torch.configs.base import ArchSpec, lm_cells, register
 from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "moonshot-v1-16b-a3b"
@@ -26,4 +26,5 @@ def smoke_config() -> TransformerConfig:
 SPEC = register(ArchSpec(
     arch_id=ARCH_ID, family="lm", source="hf:moonshotai/Moonlight-16B-A3B",
     make_config=full_config, make_smoke_config=smoke_config,
+    cells=lm_cells(full_attention=True),
     technique_applicable="no (dense LM; exercises MoE/EP substrate)"))

@@ -1,6 +1,6 @@
 """sasrec [recsys]: embed_dim=50 2 blocks 1 head seq_len=50, self-attn-seq.
 [arXiv:1808.09781; paper]"""
-from repro_torch.configs.base import ArchSpec, register
+from repro_torch.configs.base import ArchSpec, recsys_cells, register
 from repro_torch.models.sasrec import SASRecConfig
 
 ARCH_ID = "sasrec"
@@ -19,6 +19,7 @@ def smoke_config() -> SASRecConfig:
 SPEC = register(ArchSpec(
     arch_id=ARCH_ID, family="recsys", source="arXiv:1808.09781",
     make_config=full_config, make_smoke_config=smoke_config,
+    cells=recsys_cells(),
     technique_applicable=("YES (beyond-paper): the user-item interaction "
                           "stream is a dynamic bipartite graph; MoSSo keeps "
                           "a lossless online summary of it (storage layer)")))

@@ -49,12 +49,15 @@ def build_csr(receivers: torch.Tensor, n_out: int,
     Edges whose ``edge_mask`` is false are dropped here, and so are
     receivers outside ``[0, n_out)``, as ``jax.ops.segment_sum`` drops
     them: a negative receiver sorts before row 0, so ``row_off[0]`` counts
-    those edges.  No host sync.
+    those edges.  No host sync.  A ``meta`` tensor holds no values (the
+    dry-run), so there every edge is kept: the layout's largest shape.
     """
     if receivers.numel() >= 2 ** 31:
         raise ValueError(f"too many edges for int32 offsets: "
                          f"{receivers.numel()}")
     r = receivers.reshape(-1).to(torch.int64)
+    if edge_mask is not None and r.device.type == "meta":
+        edge_mask = None
     if edge_mask is not None:
         keep = torch.nonzero(edge_mask.reshape(-1)).flatten()
         r = r[keep]
@@ -101,6 +104,8 @@ def csr_segment_plain(senders: torch.Tensor, row_off: torch.Tensor,
     check_args(senders, row_off, x, reduce)
     n_out, f = row_off.numel() - 1, x.shape[1]
     counts = (row_off[1:] - row_off[:-1]).to(torch.int64)
+    if x.device.type == "meta":
+        return _plain_shapes(senders, x, n_out, reduce)
     first = int(row_off[0])
     rows = torch.repeat_interleave(
         torch.arange(n_out, device=x.device), counts)
@@ -120,6 +125,22 @@ def csr_segment_plain(senders: torch.Tensor, row_off: torch.Tensor,
     if reduce != "sum":
         out = torch.where((counts > 0)[:, None], out, torch.zeros_like(out))
     return out
+
+
+def _plain_shapes(senders: torch.Tensor, x: torch.Tensor, n_out: int,
+                 reduce: str) -> torch.Tensor:
+    """The plain version's ops on ``meta`` tensors, which hold no values
+    (the dry-run): every edge's row gathered and reduced into ``n_out``
+    rows, with the senders standing in for the edges' rows (each row's
+    edge count lives in ``row_off``'s values)."""
+    idx = senders.to(torch.int64)
+    msgs = x.index_select(0, idx)
+    out = torch.zeros((n_out, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    if reduce == "sum":
+        return out.index_add(0, idx, msgs)
+    return out.scatter_reduce(0, idx[:, None].expand_as(msgs), msgs,
+                              "amin" if reduce == "min" else "amax")
 
 
 # --------------------------------------------------------------------- #

@@ -41,11 +41,12 @@ from repro_torch.kernels.ht_rebuild import (Table, ht_rebuild_cuda,
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor (the kernel), False for a CPU one (the
-    plain version); raises for any other device."""
+    """True for a CUDA tensor (the kernel), False for a CPU one or a
+    ``meta`` one (the plain version; the dry-run traces shapes on meta
+    tensors); raises for any other device."""
     if t.device.type == "cuda":
         return True
-    if t.device.type != "cpu":
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"{name} runs on CUDA or CPU tensors: {t.device}")
     return False
 
@@ -311,6 +312,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The kernel has no backward, as JAX's ``pallas_call`` has none; a call
     that needs one never reaches it.
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        # the dry-run's sharded step: per rank, on the local shards
+        from repro_torch.dist.sharding import per_rank_attention
+        return per_rank_attention(attention, q, k, v, causal=causal,
+                                  bias=bias)
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     if (bias is not None or q.shape[2] % 128 or k.shape[2] % 128

@@ -74,10 +74,18 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token NLL in float32 (a stable logsumexp); with ``mask``, the
-    mean over the positions it marks."""
+    mean over the positions it marks.
+
+    The label's logit is picked by a compare and a sum over the classes,
+    which is exact (every other term is a zero) and keeps a class dim
+    sharded over ranks sharded: a gather along it has no such layout in
+    DTensor, whose gather backward builds replicated zeros of the whole
+    logits (the dry-run, ``launch/dryrun.py``)."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    classes = torch.arange(logits.shape[-1], device=logits.device)
+    hit = classes == labels.long()[..., None]
+    ll = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
     nll = lse - ll
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)

@@ -42,15 +42,23 @@ class SASRecConfig:
 def init_sasrec(cfg: SASRecConfig, seed: int = 0, device="cuda") -> Params:
     """Random parameters drawn on ``device`` from one ``torch.Generator``
     seeded with ``seed`` (other numbers than ``jax.random``: carry JAX
-    weights across with ``params_from_numpy``)."""
+    weights across with ``params_from_numpy``).  On the ``meta`` device
+    nothing is drawn: the tree holds the shapes only."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
     d, dt = cfg.embed_dim, cfg.param_dtype
-    item_emb = dense_init(gen, (cfg.n_items, d), scale=d ** -0.5, dtype=dt)
-    pos_emb = dense_init(gen, (cfg.seq_len, d), scale=0.02, dtype=dt)
+    if device.type == "meta":
+        def draw(shape, scale=None):
+            return torch.empty(shape, dtype=dt, device=device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+        def draw(shape, scale=None):
+            return dense_init(gen, shape, scale=scale, dtype=dt)
+    item_emb = draw((cfg.n_items, d), scale=d ** -0.5)
+    pos_emb = draw((cfg.seq_len, d), scale=0.02)
     blocks = []
     for _ in range(cfg.n_blocks):
-        blk = {name: dense_init(gen, (d, d), dtype=dt)
+        blk = {name: draw((d, d))
                for name in ("wq", "wk", "wv", "wo", "ff1", "ff2")}
         blk["ln1"] = torch.ones((d,), dtype=dt, device=device)
         blk["ln2"] = torch.ones((d,), dtype=dt, device=device)

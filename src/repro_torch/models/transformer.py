@@ -15,9 +15,10 @@ T = 64), and the kernel route raises under autograd.
 Parameters are nested dicts of tensors laid out as the JAX package's,
 layer leaves stacked on a leading ``[L]`` axis, so ``params_from_numpy``
 (``models/common.py``) carries JAX-initialised weights across.  The
-JAX stack's sharding constraints (``annotate.constrain``) and remat are
-for a mesh and for training; on one GPU at inference both are no-ops and
-are left out.
+JAX stack's sharding constraint on the residual (``annotate.constrain``)
+is the identity without an installed mesh, and its remat (policy
+``"full"``: ``torch.utils.checkpoint`` of each layer) acts only under
+autograd with ``cfg.remat`` (every smoke config turns it off).
 
 MLA (``attn="mla"``, MiniCPM3/DeepSeek-V2 style) caches the compressed
 latent ``c_kv`` and the shared rope key, not per-head keys and values,
@@ -32,12 +33,15 @@ widths (``kernels/flash_attention.py``); the TPU kernel crashes on it
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import annotate
 from repro_torch.kernels import ops
 from repro_torch.models.common import (  # noqa: F401 (re-exported)
     apply_rope, cross_entropy, dense_init, params_from_numpy, params_to,
@@ -259,12 +263,16 @@ def _dense_ffn(p: Params, h: torch.Tensor) -> torch.Tensor:
     return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
 
-def _moe_ffn(p: Params, cfg: TransformerConfig,
-             h: torch.Tensor) -> torch.Tensor:
+def _moe_ffn(p: Params, cfg: TransformerConfig, h: torch.Tensor,
+             expert_lo: int = 0) -> torch.Tensor:
     """Top-k MoE with capacity-bucket dispatch, as the JAX package's: each
     batch row scatters its tokens into an ``[E, C, D]`` buffer (C the
     capacity; tokens past it are dropped), the experts run as batched
-    products, and the outputs are gathered back and mixed by gate."""
+    products, and the outputs are gathered back and mixed by gate.
+
+    Expert weights of fewer than ``E`` experts hold experts ``[expert_lo,
+    expert_lo + E_w)`` (one rank's share under expert parallelism): only
+    those run, and the output is that share's part of the sum."""
     b, t, d = h.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = max(1, int(t * k / e * cfg.capacity_factor))
@@ -288,9 +296,14 @@ def _moe_ffn(p: Params, cfg: TransformerConfig,
                       torch.zeros((), dtype=h.dtype, device=h.device))
     buf.index_put_((rows, flat, slot), upd, accumulate=True)
 
+    e_w = p["w_gate"].shape[0]
+    if e_w != e:
+        buf = buf[:, expert_lo:expert_lo + e_w]
     y = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"]))
     y = y * torch.einsum("becd,edf->becf", buf, p["w_up"])
     y = torch.einsum("becf,efd->becd", y, p["w_down"])
+    if e_w != e:
+        y = F.pad(y, (0, 0, 0, 0, expert_lo, e - expert_lo - e_w))
 
     out = y[rows, flat, slot]                                   # [B,t*k,D]
     out = torch.where(keep[..., None], out,
@@ -300,7 +313,14 @@ def _moe_ffn(p: Params, cfg: TransformerConfig,
 
 
 def _ffn(p: Params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
-    return _moe_ffn(p, cfg, x) if cfg.moe else _dense_ffn(p, x)
+    if not cfg.moe:
+        return _dense_ffn(p, x)
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        # the dry-run's sharded step: per rank, on its experts
+        from repro_torch.dist.sharding import per_rank_moe
+        return per_rank_moe(partial(_moe_ffn, cfg=cfg), p, x)
+    return _moe_ffn(p, cfg, x)
 
 
 # --------------------------------------------------------------------------- #
@@ -310,6 +330,12 @@ def _ffn(p: Params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _layer_fn(cfg: TransformerConfig, h: torch.Tensor, pos: torch.Tensor,
               p: Params) -> torch.Tensor:
+    if cfg.seq_shard:
+        # Megatron-SP: the inter-layer residual is the dominant live
+        # activation; shard its seq dim over 'model' so the per-rank
+        # footprint is B*T*D/(dp*tp), not B*T*D/dp (the identity without
+        # an installed mesh or on a tensor that is not a DTensor)
+        h = annotate.constrain(h, annotate.data_axes(), "model", None)
     x = rms_norm(h, p["ln_attn"])
     b, t, _ = h.shape
     if cfg.attn == "gqa":
@@ -342,8 +368,16 @@ def forward_logits(params: Params, tokens: torch.Tensor,
     h = params["embed"][tokens].to(cfg.compute_dtype)
     pos = torch.arange(tokens.shape[1], device=tokens.device).expand(
         tokens.shape)
+    # JAX's remat (policy "full"): under autograd each layer keeps only its
+    # input and is recomputed in the backward
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        h = _layer_fn(cfg, h, pos, layer_params(params, i))
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(
+                _layer_fn, cfg, h, pos, layer_params(params, i),
+                use_reentrant=False)
+        else:
+            h = _layer_fn(cfg, h, pos, layer_params(params, i))
     h = rms_norm(h, params["ln_f"])
     logits = h @ params["lm_head"].to(cfg.compute_dtype)
     return _mask_pad_vocab(logits, cfg)

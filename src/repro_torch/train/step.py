@@ -4,9 +4,12 @@ accumulation (port of ``repro/train/step.py``).
 ``make_train_step`` builds the step ``launch/train.py`` runs.  Gradients
 come from torch autograd over a detached copy of the parameters; the
 step returns new parameters and a new optimizer state, as JAX's does.
-JAX pins the batch to the mesh's data axes with
-``annotate.constrain_batch``, the identity without a mesh; one GPU has
-none, so the port omits it until the ``dist/`` slice.
+The batch is pinned to the mesh's data axes with
+``annotate.constrain_batch`` (the identity without a mesh, or on a tensor
+that is not a DTensor), as JAX's is, and so is each microbatch: DTensor
+cannot keep a batch sharding through the ``[n_micro, B / n_micro]``
+reshape when ``n_micro`` does not divide by the data ranks, where GSPMD
+reshards on its own.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist import annotate
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import adamw
 
@@ -41,16 +45,18 @@ def make_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig,
     """
 
     def train_step(params, opt_state, *batch):
+        batch = tuple(annotate.constrain_batch(x) for x in batch)
         if n_microbatches == 1:
             loss, grads = value_and_grad(loss_fn, params, *batch)
         else:
             loss = torch.zeros((), dtype=torch.float32,
                                device=opt_state.step.device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for i in range(n_microbatches):
-                parts = tuple(x.reshape(n_microbatches, -1,
-                                        *x.shape[1:])[i] for x in batch)
+                parts = tuple(annotate.constrain_batch(
+                    x.reshape(n_microbatches, -1, *x.shape[1:])[i])
+                    for x in batch)
                 l, g = value_and_grad(loss_fn, params, *parts)
                 loss = loss + l
                 grads = tree_unflatten(grads, [

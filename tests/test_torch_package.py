@@ -40,7 +40,9 @@ def test_port_imports_nothing_of_jax_or_repro():
                  "testing", "testing.proptest", "launch.quickstart",
                  "kernels.ht_rebuild", "configs.sasrec", "models.sasrec",
                  "optim", "optim.adamw", "train", "train.step",
-                 "launch.train", "configs.minicpm3_4b"):
+                 "launch.train", "configs.minicpm3_4b", "dist.annotate",
+                 "dist.sharding", "dist.collectives", "launch.mesh",
+                 "launch.roofline", "launch.steps", "launch.dryrun"):
         assert f"repro_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"

@@ -131,7 +131,9 @@ def test_registry_holds_every_ported_arch():
         jspec = JREG[arch]
         assert (spec.family, spec.source, spec.technique_applicable) == (
             jspec.family, jspec.source, jspec.technique_applicable), arch
-        assert spec.cells == ()
+        # the dry-run's shape cells are ported (tests/test_torch_dryrun.py
+        # holds their inputs to JAX's)
+        assert [c.name for c in spec.cells] == [c.name for c in jspec.cells]
         assert type(spec.make_config()).__name__ == type(
             jspec.make_config()).__name__
 
