@@ -40,8 +40,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6. CSR kernel vs plain: ``csr_segment`` against its plain version for
    sum (rtol = atol = 1e-5), min and max (bitwise), with ±inf inputs and
    empty rows, at the ``full_graph_sm``, ``minibatch_lg`` (F = 128 and
-   602) and ``ogb_products`` shapes; kernel, plain and ``torch.sparse.mm``
-   times beside the byte bound;
+   602), ``ogb_products`` and ``molecule`` shapes, and min at F = 1
+   (``minhash_signature``'s width) at ``minibatch_lg``'s n and e; kernel,
+   plain and ``torch.sparse.mm`` times beside the byte bound;
 7. GraphSAGE path: one graphsage-reddit ``full_config()`` inference
    request on a synthetic graph of Reddit's size (232,965 nodes,
    114,615,892 directed edges, on the host): 1024 seeds sampled 15-10,
@@ -257,11 +258,14 @@ MATMUL_WORDS = ("gemm", "cutlass", "xmma", "matmul", "sm90", "nvjet", "gemv")
 REDDIT_NODES = 232_965            # PyG's Reddit
 REDDIT_EDGES = 114_615_892        # its directed edges
 SEEDS = 1024                      # seed nodes of one GraphSAGE request
-# (name, n, e, f) of the CSR kernel's comparisons: repro configs GNN_SHAPES
-CSR_SHAPES = (("full_graph_sm", 3072, 10752, 1433),
-              ("minibatch_lg", 262144, 262144, 128),
-              ("minibatch_lg", 262144, 262144, 602),
-              ("ogb_products", 2449408, 61859328, 100))
+# (name, n, e, f, reduces) of the CSR kernel's comparisons: repro configs
+# GNN_SHAPES; the F 1 row is minhash_signature's width at minibatch_lg's n, e
+CSR_SHAPES = (("full_graph_sm", 3072, 10752, 1433, ("sum", "min", "max")),
+              ("minibatch_lg", 262144, 262144, 128, ("sum", "min", "max")),
+              ("minibatch_lg", 262144, 262144, 602, ("sum", "min", "max")),
+              ("ogb_products", 2449408, 61859328, 100, ("sum", "min", "max")),
+              ("molecule", 3840, 16384, 32, ("sum", "min", "max")),
+              ("minibatch_lg", 262144, 262144, 1, ("min",)))
 # (B, H, Hkv, T, D, causal) of the attention comparisons: the sweep of
 # tests/test_kernels.py, then the smoke configs' head widths 8 and 16
 ATTN_SHAPES = ((2, 4, 2, 256, 64, True), (1, 8, 8, 128, 128, True),
@@ -1705,7 +1709,7 @@ def time_csr(layout, x, reduce: str, big: bool) -> dict:
 
 
 def csr_vs_plain(gen) -> tuple:
-    """Kernel vs plain for sum/min/max at each shape of ``CSR_SHAPES``,
+    """Kernel vs plain for each shape's reduces in ``CSR_SHAPES``,
     uniform random edges (empty rows where e/n is small); min/max on x
     with ±inf planted in some rows.  Returns the rows and the max error."""
     import torch
@@ -1713,7 +1717,7 @@ def csr_vs_plain(gen) -> tuple:
     from repro_torch.kernels.csr_segment import (csr_segment_cuda,
                                                  csr_segment_plain)
     rows, max_err = [], 0.0
-    for name, n, e, f in CSR_SHAPES:
+    for name, n, e, f, reduces in CSR_SHAPES:
         t = time.perf_counter()
         s = torch.randint(0, n, (e,), generator=gen, device="cuda",
                           dtype=torch.int32)
@@ -1725,7 +1729,7 @@ def csr_vs_plain(gen) -> tuple:
         x_inf[1:64:2, :8] = float("-inf")
         layout = ops.csr_layout(s, r, n)
         empty = int((layout.degree() == 0).sum())
-        for reduce in ("sum", "min", "max"):
+        for reduce in reduces:
             xin = x if reduce == "sum" else x_inf
             got = csr_segment_cuda(*layout, xin, reduce)
             want = csr_segment_plain(*layout, xin, reduce)
@@ -3673,7 +3677,11 @@ def main() -> int:
                          "backward_launches_per_step"],
                      backward={key: csr_bwd[key] for key in (
                          "ms", "call_ms", "plain_ms", "bound_ms",
-                         "library_ms", "transpose_ms", "max_abs_err")})
+                         "library_ms", "transpose_ms", "max_abs_err")},
+                     shapes=[{key: r[key] for key in (
+                         "shape", "f", "reduce", "ms", "plain_ms",
+                         "bound_ms", "gather_bound_ms", "library_ms",
+                         "max_abs_err")} for r in csr_rows])
     mla_layer = mla["attention"]["layer"]
     attn_entry = dict(name="flash_attention", route="cuda",
                       source="src/repro_torch/csrc/flash_attention.cu",

@@ -13,9 +13,10 @@ through.
 * :func:`build_csr` is the layout pass: a stable sort of the edges by
   receiver (as ``jnp.argsort`` in ``build_blocked_csr``) and per-row
   offsets.  The TPU kernel's offsets are per 128-row block; a per-row CSR
-  is the natural layout on a GPU, where one warp owns one row.
+  lets the GPU kernel's warps split a block's rows by their edge counts.
 * :func:`csr_segment_cuda` launches ``csrc/csr_segment.cu`` (the source
-  says what bounds it).  The library is built with ``nvcc`` at first use
+  says what bounds it and how it is laid out) with the launch plan of
+  :func:`launch_plan`.  The library is built with ``nvcc`` at first use
   into ``build/`` and loaded with ``ctypes`` (``kernels/_build.py``).
 * :func:`csr_segment_plain` is a gather plus ``index_add_`` /
   ``scatter_reduce_`` with the count mask, in chunks of edges so that the
@@ -27,7 +28,7 @@ Nothing here imports a GPU toolchain at import time.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,6 +37,8 @@ from repro_torch.kernels import _build
 REDUCES = ("sum", "min", "max")
 SOURCE = _build.CSRC / "csr_segment.cu"
 PLAIN_CHUNK = 1 << 26        # gathered elements per chunk of the plain version
+SLOTS = (1, 2, 3, 4, 6, 8, 10, 12)   # vectors a lane of a wide row: the builds
+LANE_FLOATS = 20             # floats of a row a lane gathers at once
 
 
 def build_csr(receivers: torch.Tensor, n_out: int,
@@ -148,10 +151,41 @@ def _plain_shapes(senders: torch.Tensor, x: torch.Tensor, n_out: int,
 # --------------------------------------------------------------------- #
 
 
+class Plan(NamedTuple):
+    """How the kernel covers a row of ``F`` floats: ``vec`` floats a load
+    (4, 2 or 1); ``lanes`` lanes an edge (32: a wide row, each lane
+    ``slots`` vectors of each of ``chunks`` grid columns; fewer: a narrow
+    row, 32 / ``lanes`` edges at once).  A block takes 32 rows."""
+    vec: int
+    lanes: int
+    slots: int
+    chunks: int
+
+
+def launch_plan(f: int, x_ptr: int) -> Plan:
+    """The kernel's launch plan for ``x[:, F]`` at address ``x_ptr``: the
+    widest load that ``F`` and the address allow; a narrow row where its
+    vectors fit in 16 lanes; else the fewest slots (of :data:`SLOTS`, up
+    to :data:`LANE_FLOATS` floats a lane) that cover the row in the
+    fewest grid columns."""
+    vec = (4 if f % 4 == 0 and x_ptr % 16 == 0 else
+           2 if f % 2 == 0 and x_ptr % 8 == 0 else 1)
+    w = f // vec
+    if w <= 16:
+        lanes = 1 << max(w - 1, 0).bit_length()
+        slots = chunks = 1
+    else:
+        lanes = 32
+        most = max(s for s in SLOTS if s * vec <= LANE_FLOATS)
+        chunks = -(-w // (32 * most))
+        slots = min(s for s in SLOTS if 32 * s * chunks >= w)
+    return Plan(vec, lanes, slots, chunks)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.csr_segment_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.csr_segment_launch.restype = ctypes.c_int
 
 
@@ -162,15 +196,22 @@ def csr_segment_cuda(senders: torch.Tensor, row_off: torch.Tensor,
     check_args(senders, row_off, x, reduce)
     if x.device.type != "cuda":
         raise ValueError(f"csr_segment_cuda needs CUDA tensors: {x.device}")
+    return launch(_build.load(SOURCE, _bind), senders, row_off, x, reduce)
+
+
+def launch(lib: ctypes.CDLL, senders: torch.Tensor, row_off: torch.Tensor,
+           x: torch.Tensor, reduce: str) -> torch.Tensor:
+    """One launch of ``lib``'s kernel (a build of ``csrc/csr_segment.cu``)
+    on checked CUDA tensors, with :func:`launch_plan`'s plan."""
     n_out, f = row_off.numel() - 1, x.shape[1]
     out = torch.empty((n_out, f), dtype=torch.float32, device=x.device)
-    lib = _build.load(SOURCE, _bind)
+    plan = launch_plan(f, x.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.csr_segment_launch(
             senders.data_ptr(), row_off.data_ptr(), x.data_ptr(),
             out.data_ptr(), n_out, x.shape[0], senders.numel(), f,
-            REDUCES.index(reduce), stream)
+            REDUCES.index(reduce), plan.vec, plan.slots, plan.lanes, stream)
     if err != 0:
         raise RuntimeError(f"csr_segment kernel launch failed: CUDA error "
                            f"{err}")

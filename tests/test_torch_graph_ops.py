@@ -19,7 +19,11 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import csr_segment  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
-SHAPES = [(64, 256, 32), (130, 1000, 70), (300, 2000, 128), (17, 50, 8)]
+# (n, e, F); the later ones are the widths the kernel's launch plan tells
+# apart: F 1 and 3 (narrow rows, scalar loads), 100 (a wide row of 25
+# 16-byte vectors), 130 (8-byte vectors over 3 slots a lane)
+SHAPES = [(64, 256, 32), (130, 1000, 70), (300, 2000, 128), (17, 50, 8),
+          (300, 2000, 1), (300, 2000, 3), (200, 3000, 100), (300, 2000, 130)]
 
 
 def _graph(n, e, f, seed):
@@ -47,6 +51,44 @@ def test_segment_reduce_matches_jax_ref(n, e, f, reduce):
     ts, tr, tx = map(torch.from_numpy, (s, r, x))
     _check(ops.segment_reduce(ts, tr, tx, n, reduce), want, reduce)
     _check(ref.segment_reduce_ref(ts, tr, tx, n, reduce), want, reduce)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min", "max"])
+def test_segment_reduce_with_a_hub_row_matches_jax_ref(reduce):
+    """One row of 1,200 edges (more than 1,024) among short and empty
+    rows."""
+    s, r, x = _graph(80, 1600, 12, 31)
+    r[:1200] = 9
+    r[(r > 20) & (r < 30)] = 31                       # empty rows
+    want = jref.segment_reduce_ref(*map(jnp.array, (s, r, x)), 80, reduce)
+    ts, tr, tx = map(torch.from_numpy, (s, r, x))
+    _check(ops.segment_reduce(ts, tr, tx, 80, reduce), want, reduce)
+
+
+# (F, x's address) -> (vec, lanes, slots, chunks)
+PLANS = [
+    ((602, 0), (2, 32, 10, 1)),      # minibatch_lg: 8-byte vectors
+    ((602, 4), (1, 32, 10, 2)),      # a row slice: 4-byte, 2 grid columns
+    ((128, 0), (4, 32, 1, 1)),       # the request's layers
+    ((128, 8), (2, 32, 2, 1)),       # 8-byte aligned only
+    ((100, 0), (4, 32, 1, 1)),       # ogb_products: 25 lanes of 32
+    ((1433, 0), (1, 32, 12, 4)),     # full_graph_sm: 4 grid columns
+    ((1432, 0), (4, 32, 4, 3)),      # 16-byte: at most 20 floats a lane
+    ((1434, 0), (2, 32, 8, 3)),
+    ((130, 0), (2, 32, 3, 1)),
+    ((32, 0), (4, 8, 1, 1)),         # molecule: 4 edges at once
+    ((1, 0), (1, 1, 1, 1)),          # minhash: 32 edges at once
+    ((3, 0), (1, 4, 1, 1)),          # odd F: 8 edges at once
+    ((64, 0), (4, 16, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("args,want", PLANS)
+def test_launch_plan_pins_its_choices(args, want):
+    """The widest load F and the address allow, narrow rows up to 16
+    vectors, and the fewest slots (at most 20 floats a lane) that cover
+    a wide row in the fewest grid columns."""
+    assert tuple(csr_segment.launch_plan(*args)) == want
 
 
 @pytest.mark.parametrize("reduce", ["min", "max"])
@@ -294,45 +336,3 @@ def test_wrappers_count_no_launch_on_the_cpu():
         ops.segment_reduce_csr(ops.Csr(torch.zeros(1, dtype=torch.int32),
                                        torch.zeros(2, dtype=torch.int32)),
                                torch.zeros(1, 2, device="meta"))
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_on_the_card():
-    """The CSR kernel against its plain version on the card (run on a
-    machine with one; skipped elsewhere): sum within 1e-5, min/max
-    exact, with empty rows and ±inf inputs."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    s, r, x = _graph(300, 2000, 130, 7)
-    x[5, :3] = [np.inf, -np.inf, np.inf]
-    layout = ops.csr_layout(torch.from_numpy(s).cuda(),
-                            torch.from_numpy(r).cuda(), 300)
-    tx = torch.from_numpy(x).cuda()
-    for reduce in csr_segment.REDUCES:
-        got = csr_segment.csr_segment_cuda(*layout, tx, reduce)
-        want = csr_segment.csr_segment_plain(*layout, tx, reduce)
-        torch.cuda.synchronize()
-        _check(got.cpu(), want.cpu(), reduce)
-
-
-@pytest.mark.cuda
-def test_cuda_backward_matches_plain_autograd_on_the_card():
-    """The segment sum's backward through the kernel against torch's own
-    autograd of the plain version, on the card (skipped elsewhere):
-    within 1e-5, with masked edges and empty rows."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    s, r, x = _graph(300, 2000, 130, 26)
-    r[r < 20] = 20                                    # empty rows
-    mask = torch.from_numpy(np.random.default_rng(26).random(2000) < 0.8)
-    layout = ops.csr_layout(torch.from_numpy(s).cuda(),
-                            torch.from_numpy(r).cuda(), 300, mask.cuda())
-    g = torch.randn(300, 130, device="cuda")
-    grads = []
-    for fn in (lambda t: ops.segment_reduce_csr(layout, t, "sum"),
-               lambda t: csr_segment.csr_segment_plain(*layout, t, "sum")):
-        tx = torch.from_numpy(x).cuda().requires_grad_(True)
-        torch.sum(fn(tx) * g).backward()
-        grads.append(tx.grad)
-    torch.cuda.synchronize()
-    _check(grads[0].cpu(), grads[1].cpu(), "sum")
