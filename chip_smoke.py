@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    count; on tables of caps 8, 16 and 32 (half full, full with and
    without tombstones, random words); ``ops.ht_probe_many`` over jobs of
    every cap and mode in one launch and in two; a stacked ``[4, 2^20]``
-   table as 4 jobs of one launch (timed beside 4 launches); at the end,
+   table as 4 jobs of one launch, given as 4 row jobs and as one stacked
+   job (timed beside 4 launches); at the end,
    again on a 2^24-slot table (``eab``/``snadj``/``snpos``) at the listed
    and the main path's lane counts, and times at both loads on the card
    beside the word bound and the sector traffic (device time from
@@ -80,7 +81,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    moonshot-v1-16b-a3b at T = 256, card (kernel) against CPU (plain),
    rtol = atol = 1e-4;
 11. sharded path: ``ShardedSummarizer(full_config(), device="cuda",
-   n_shards=4)`` (device routing, ``router_chunk`` 1024) over the first
+   n_shards=4)`` (device routing, ``router_chunk`` 1024, the card's
+   default ``replica_exec="vmap"``: one stacked step) over the first
    ``SHARDED_CHANGES`` (two router chunks) of phase 3's stream, cut to
    keep the script inside its time limit; the probe kernel's launch
    count must move, ``phi ==
@@ -96,21 +98,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    read's 4;
 12. the router's paths at ``smoke_config()`` with 3 shards: device
    routing, host routing, key skew at ``lane_cap=2`` and a bounded drain
-   budget, each on the card and on the CPU with every replica leaf
+   budget, each on the card (``"vmap"``, its default) and on the CPU
+   (``"map"``, its default) with every replica leaf
    bitwise equal after every ``process`` call, and device routing equal
    to host routing after the stream; then ``serve_summary(...,
    verify=True)`` on the card;
 13. batched crash consistency at full width:
    ``BatchedSummarizer(full_config(), checkpoint_dir=...)`` over the first
-   768 changes of phase 3's stream (3 chunks of 256: cut from 5 to keep
-   the run well inside its limit on hosts that ran phases 1-12 in 467-499
-   s).  Run A is uninterrupted with ``save()`` every 2 chunks and at the
-   end (``tools/recovery_check.py`` also times each chunk beside the same
-   chunk unjournaled); its directory is copied at chunk boundary 3,
+   512 changes of phase 3's stream (2 chunks of 256: one chunk and the
+   chunk a recovery replays; cut from 5, then 3, by the script's time
+   limit).  Run A is uninterrupted with a ``save()`` after every chunk
+   (``tools/recovery_check.py`` also times each chunk beside the same
+   chunk unjournaled); its directory is copied at chunk boundary 2,
    before the last save, which is what a kill there leaves on disk
-   (``ft.inject.drive`` with ``kill_at_chunk=3``, as the CPU tests and
-   phase 14(b) kill, without processing the three chunks again), and a
-   fresh summarizer ``recover()``s that copy (epoch 2 + 1 journaled
+   (``ft.inject.drive`` with ``kill_at_chunk=2``, as the CPU tests and
+   phase 14(b) kill, without processing the chunks again), and a
+   fresh summarizer ``recover()``s that copy (epoch 1 + 1 journaled
    chunk): every leaf bitwise, ``stats()`` (less ``stream_retries``) and
    degree / has_edge / neighbors reads equal A's; then A's newest
    checkpoint is corrupted and ``recover()`` must
@@ -118,12 +121,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (host copy, ``np.savez``, fsync, sha256), bytes on disk, ms per journal
    append, seconds per ``restore()`` and ``recover()``, us per change
    journaled beside phase 3's over the same changes;
-14. sharded crash consistency: (a) right after phase 11, one ``save()``
-   of its live 4 x ``full_config()`` summarizer (~5.6 GiB; the free disk
-   is printed first) restored into a fresh ``ShardedSummarizer(
-   full_config(), n_shards=4)``: every replica and intern leaf equal on
-   the card, the label map, ``stats()`` and a snapshot's reads equal, save
-   and restore seconds and bytes; (b) the kill-at-every-chunk-boundary
+14. sharded crash consistency: (a) one ``save()`` of phase 11's live
+   4 x ``full_config()`` summarizer (~5.6 GiB) restored into a fresh one
+   is cut from this script by its time limit (``tools/recovery_check.py``
+   runs it; (b) saves and recovers stacked summarizers on the card);
+   (b) the kill-at-every-chunk-boundary
    bar at ``smoke_config()``, 3 shards, ``router_chunk`` 32, on the card
    and on the CPU, every leaf bitwise the uninterrupted run's and card ==
    CPU; (c) ``python -m repro_torch.launch.summarize_stream 60
@@ -214,7 +216,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    two float32 ulps of ``max |x|``: the quantizer rounds in float32); (c) in a
    subprocess on the CPU, started first, ``internlm2-20b`` and
    ``llama3-405b`` ``train_4k`` at the 16 x 16 production mesh (a fake
-   process group of 256 ranks), each rank's GB beside the card's 80.
+   process group of 256 ranks), each rank's GB beside the card's 80;
+19. ``replica_exec``, after phase 11: ``ShardedSummarizer(
+   full_config(), n_shards=4)`` under ``"map"`` and ``"vmap"`` side by
+   side over the first 1,024 changes of phase 11's stream, in ``process``
+   calls of 256 (the router chunk), every replica and intern leaf equal
+   on the card after each call and after the flush, and ``stats()``
+   equal; per mode us per change, probe launches and jobs per change,
+   host syncs per change, the replicas' bytes, the peak above them while
+   stepping and a ``query()`` snapshot's bytes.
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -248,7 +258,9 @@ STACKED = (4, 1 << 20, 16384)     # replicas, cap, lanes of the stacked form
 NODES = 600                       # BA nodes of the main path's stream
 SHARDS = 4                        # replicas of the sharded path (phase 11)
 SHARDED_CHANGES = 1280            # phase 11: the first changes of the stream
-RECOVERY_CHUNKS = 3               # phase 13: chunks of phase 3's stream
+MODES_CHANGES = 1024              # phase 19: map and vmap on these changes
+MODES_CHUNK = 256                 # phase 19: router chunk = process call
+RECOVERY_CHUNKS = 2               # phase 13: chunks of phase 3's stream
 REBUILD_TINY_CAPS = (8, 16, 32)   # phase 15(a): tables with wrapped runs
 REBUILD_CAPS = (1 << 16, 1 << 20)  # phase 15(a): at 53% and 70%
 REBUILD_BIG = 1 << 22             # phase 15(a): at 70%, the host fold timed
@@ -629,9 +641,12 @@ def multi_job_vs_plain(tables_by_key, tiny, gen) -> dict:
 def stacked_vs_plain(gen) -> dict:
     """A stacked ``[4, 2^20]`` table (four replicas at 53% occupancy) with
     ``[4, B]`` queries as 4 jobs of one launch, bitwise against the plain
-    loop, in both modes; timed beside four one-job launches."""
+    loop, in both modes, given as 4 row-view jobs (``stacked_jobs``) and
+    as the one stacked job the sharded engine's ``"vmap"`` step sends
+    (the plain version's stacked loop); timed beside four one-job
+    launches."""
     import torch
-    from repro_torch.kernels.ht_probe import (ht_probe_cuda,
+    from repro_torch.kernels.ht_probe import (ProbeJob, ht_probe_cuda,
                                               ht_probe_many_cuda,
                                               ht_probe_many_plain,
                                               stacked_jobs)
@@ -646,19 +661,35 @@ def stacked_vs_plain(gen) -> dict:
     for mode in ("find", "insert"):
         jobs = stacked_jobs(tk1, tk2, tval, q1, q2, mode=mode)
         got, _ = ht_probe_many_cuda(jobs)
-        for j, (g, w) in enumerate(zip(got, ht_probe_many_plain(jobs))):
+        want = ht_probe_many_plain(jobs)
+        for j, (g, w) in enumerate(zip(got, want)):
             max_err = max(max_err, check_equal(
                 g, w, f"stacked [{r}, {cap}] replica {j} mode={mode}"))
+        job2d = [ProbeJob(tk1, tk2, tval, q1, q2, False, mode)]
+        (g2,), launched = ht_probe_many_cuda(job2d)
+        if launched != 1:
+            raise AssertionError(f"one stacked job took {launched} launches")
+        (w2,) = ht_probe_many_plain(job2d)
+        for j in range(r):
+            for got_j, want_j in ((tuple(x[j] for x in g2), want[j]),
+                                  (tuple(x[j] for x in w2), want[j])):
+                max_err = max(max_err, check_equal(
+                    got_j, want_j, f"one stacked [{r}, {cap}] job, replica "
+                    f"{j} mode={mode}"))
         one = graph_ms(lambda: ht_probe_many_cuda(jobs), 50)
         each = graph_ms(lambda: [ht_probe_cuda(*job[:5], mode=mode)
                                  for job in jobs], 50)
         res[mode] = dict(one_launch_ms=one, four_launches_ms=each,
                          call_ms=cuda_ms(lambda: ht_probe_many_cuda(jobs),
-                                         50))
+                                         50),
+                         stacked_job_call_ms=cuda_ms(
+                             lambda: ht_probe_many_cuda(job2d), 50))
         log(f"stacked [{r}, 2^{cap.bit_length() - 1}] x {b} lanes "
-            f"mode={mode}: bitwise equal; one launch {one * 1e3:.2f} us "
-            f"(call {res[mode]['call_ms'] * 1e3:.2f} us), {r} launches "
-            f"{each * 1e3:.2f} us")
+            f"mode={mode}: bitwise equal as {r} row jobs and as one "
+            f"stacked job; one launch {one * 1e3:.2f} us (call "
+            f"{res[mode]['call_ms'] * 1e3:.2f} us; the stacked job's call "
+            f"{res[mode]['stacked_job_call_ms'] * 1e3:.2f} us), {r} "
+            f"launches {each * 1e3:.2f} us")
     res["max_abs_err"] = max_err
     return res
 
@@ -943,7 +974,8 @@ def sharded_path(nodes: int, deg: int, seed: int) -> dict:
         seed=seed)[:SHARDED_CHANGES]
     log(f"sharded path: full_config x {SHARDS} shards on one card "
         f"(n_cap={cfg.n_cap} m_cap={cfg.m_cap} per shard, batch="
-        f"{cfg.batch}, router_chunk 1024, device routing); the stream is "
+        f"{cfg.batch}, router_chunk 1024, device routing, the card's "
+        f"default replica_exec 'vmap'); the stream is "
         f"cut to the first {len(stream)} changes of phase 3's (BA n={nodes}"
         f" m={deg}, fully dynamic) by the run's time limit, far below the "
         f"{SHARDS} x n_cap nodes the replicas hold")
@@ -953,6 +985,9 @@ def sharded_path(nodes: int, deg: int, seed: int) -> dict:
     ss = ShardedSummarizer(cfg, device="cuda", n_shards=SHARDS)
     torch.cuda.synchronize()
     state_bytes = torch.cuda.memory_allocated() - base
+    if ss.replica_exec != "vmap":
+        raise AssertionError(f"the card's default replica_exec is "
+                             f"{ss.replica_exec!r}, not 'vmap'")
 
     ops.reset_counts()
     host_read.count = 0
@@ -1037,6 +1072,7 @@ def sharded_path(nodes: int, deg: int, seed: int) -> dict:
     later_us = 1e6 * sum(call_s[half + 1:]) / sum(sizes[half:])
     max_lanes = max(b for (_, b) in by_batch)
     res = dict(changes=n, shards=SHARDS, nodes=nodes, seconds=elapsed,
+               replica_exec=ss.replica_exec,
                acc_cap=ss.router_geometry.acc_cap,
                call_s=call_s, us_per_change=1e6 * elapsed / n,
                later_us_per_change=later_us,
@@ -1069,6 +1105,122 @@ def sharded_path(nodes: int, deg: int, seed: int) -> dict:
     log("sharded path: phi == phi_recomputed, the merged decode and "
         "live_edges() equal the stream's live edges")
     return res, ss, stream
+
+
+def replica_exec_modes(stream) -> dict:
+    """Phase 19: ``ShardedSummarizer(full_config(), n_shards=SHARDS)``
+    under ``replica_exec="map"`` and ``"vmap"`` side by side on the card
+    over the first ``MODES_CHANGES`` changes of phase 11's stream, in
+    ``process`` calls of ``MODES_CHUNK`` (the router chunk), the two
+    modes in turn: every replica and intern leaf equal on the card
+    (``torch.equal``) after each call and after the flush, or the phase
+    fails.  Per mode: us per change (its calls and flush, each ended by a
+    device sync), probe launches and jobs per change, host syncs per
+    change (``ops.host_read.count``), the replicas' bytes, the peak above
+    them while stepping, and a ``query()`` snapshot's bytes."""
+    import torch
+    from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.core.engine import ShardedSummarizer
+    from repro_torch.core.engine.hashtable import HashTable
+    from repro_torch.core.engine.ops import host_read
+    from repro_torch.kernels import ops
+
+    cfg = full_config()
+    stream = stream[:MODES_CHANGES]
+    modes = ("map", "vmap")
+    runs, res = {}, {}
+    torch.cuda.synchronize()
+    for mode in modes:
+        before = torch.cuda.memory_allocated()
+        runs[mode] = ShardedSummarizer(cfg, device="cuda", n_shards=SHARDS,
+                                       router_chunk=MODES_CHUNK,
+                                       replica_exec=mode)
+        torch.cuda.synchronize()
+        res[mode] = dict(state_bytes=torch.cuda.memory_allocated() - before,
+                         seconds=0.0, launches=0, jobs=0, syncs=0,
+                         step_peak_bytes=0)
+
+    def leaves(st):
+        for f in dataclasses.fields(st):
+            v = getattr(st, f.name)
+            if isinstance(v, HashTable):
+                yield from ((f"{f.name}.{w}", getattr(v, w))
+                            for w in ("k1", "k2", "val"))
+            else:
+                yield f.name, v
+
+    def equal(what: str) -> None:
+        for part in ("_est", "_ist"):
+            for (k, a), (_, b) in zip(leaves(getattr(runs["map"], part)),
+                                      leaves(getattr(runs["vmap"], part))):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise AssertionError(f"replica_exec map vs vmap: leaf "
+                                         f"{k} differs {what}")
+
+    def timed(mode: str, fn) -> None:
+        r = res[mode]
+        ops.reset_counts()
+        host_read.count = 0
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        r["seconds"] += time.perf_counter() - t
+        r["launches"] += ops.ht_probe.launches
+        r["jobs"] += ops.ht_probe.jobs
+        r["syncs"] += host_read.count
+        r["step_peak_bytes"] = max(r["step_peak_bytes"],
+                                   torch.cuda.max_memory_allocated() - held)
+
+    calls = 0
+    for off in range(0, len(stream), MODES_CHUNK):
+        for mode in modes:
+            timed(mode, lambda: runs[mode].process(
+                stream[off:off + MODES_CHUNK]))
+        calls += 1
+        equal(f"after process call {calls}")
+    for mode in modes:
+        timed(mode, runs[mode].flush)
+    equal("after the flush")
+    stats = {mode: ss.stats() for mode, ss in runs.items()}
+    if stats["map"] != stats["vmap"]:
+        raise AssertionError(f"replica_exec map vs vmap: stats differ "
+                             f"{stats}")
+    n = len(stream)
+    for mode, ss in runs.items():
+        r = res[mode]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        view = ss.query()
+        torch.cuda.synchronize()
+        r["snapshot_bytes"] = torch.cuda.max_memory_allocated() - held
+        del view
+        r.update(us_per_change=1e6 * r["seconds"] / n,
+                 launches_per_change=r["launches"] / n,
+                 jobs_per_change=r["jobs"] / n,
+                 syncs_per_change=r["syncs"] / n)
+        log(f"replica_exec={mode}: {n} changes in {r['seconds']:.3f} s = "
+            f"{r['us_per_change']:.1f} us/change; probe launches "
+            f"{r['launches_per_change']:.2f}/change serving "
+            f"{r['jobs_per_change']:.2f} jobs/change; host syncs "
+            f"{r['syncs_per_change']:.2f}/change; replicas "
+            f"{r['state_bytes'] / 2**30:.3f} GiB, peak above them while "
+            f"stepping {r['step_peak_bytes'] / 2**20:.1f} MiB, a query() "
+            f"snapshot {r['snapshot_bytes'] / 2**30:.3f} GiB")
+    log(f"replica_exec: map == vmap, every replica and intern leaf on the "
+        f"card after each of {calls} process calls of {MODES_CHUNK} and "
+        f"the flush; vmap / map us per change "
+        f"{res['vmap']['us_per_change'] / res['map']['us_per_change']:.3f},"
+        f" host syncs {res['vmap']['syncs'] / res['map']['syncs']:.3f}, "
+        f"probe launches "
+        f"{res['vmap']['launches'] / res['map']['launches']:.3f}")
+    del runs
+    torch.cuda.empty_cache()
+    return dict(changes=n, shards=SHARDS, router_chunk=MODES_CHUNK,
+                calls=calls, stats=stats["vmap"], **res)
 
 
 def intern_vs_plain(sharded: dict, gen) -> int:
@@ -1118,7 +1270,7 @@ def intern_vs_plain(sharded: dict, gen) -> int:
 
 def _replica_leaves(ss):
     from repro_torch.dist.router import sharded_state_to_numpy
-    return sharded_state_to_numpy(ss.states, ss.interns)
+    return sharded_state_to_numpy(ss._est, ss._ist)
 
 
 def _check_leaves(a, b, what: str) -> None:
@@ -1261,14 +1413,15 @@ def batched_recovery(stream, phase3_step_s, seed: int,
                      twin: bool = False) -> dict:
     """Phase 13: ``BatchedSummarizer(full_config(), checkpoint_dir=...)``
     on the card over the first ``RECOVERY_CHUNKS`` chunks of phase 3's
-    stream.  Run A: uninterrupted, ``save()`` every 2 chunks and at the
-    end, as the recovering driver does; with ``twin``, each chunk is also
+    stream.  Run A: uninterrupted, ``save()`` after every chunk; with
+    ``twin``, each chunk is also
     fed to a summarizer without a checkpoint directory, in alternating
     order, and both are timed (the two must end bitwise equal; it adds
     ``RECOVERY_CHUNKS`` chunks to the phase).  Run B: run A's directory
-    as a kill at chunk boundary 3 leaves it (copied after the third
-    chunk, before its save: epoch 2 and chunk 3 journaled); a fresh
-    summarizer ``recover()``s it (epoch 2 + 1 journaled chunk) and
+    as a kill at the last chunk boundary leaves it (copied after the last
+    chunk, before its save: the epoch before it and the chunk
+    journaled); a fresh summarizer ``recover()``s it (that epoch + 1
+    journaled chunk) and
     finishes the stream: every leaf, ``stats()`` less ``stream_retries``
     and the reads must equal A's.  Then A's newest checkpoint is
     corrupted and a fresh ``recover()`` must fall back one epoch and
@@ -1321,15 +1474,15 @@ def batched_recovery(stream, phase3_step_s, seed: int,
                 times.append(time.perf_counter() - t)
             if i + 1 == RECOVERY_CHUNKS:
                 # run B's directory: what a kill at this boundary leaves
-                # (epoch 2 saved, this chunk journaled, no save after it)
+                # (the epoch before saved, this chunk journaled, no save
+                # after it)
                 shutil.copytree(dir_a, dir_b)
-            if (i + 1) % 2 == 0 or i + 1 == RECOVERY_CHUNKS:
-                checkpointer.save_seconds.clear()
-                t = time.perf_counter()
-                path = a.save()
-                total = time.perf_counter() - t
-                saves.append(dict(checkpointer.save_seconds, total=total,
-                                  epoch=i + 1, bytes=_dir_bytes(path)))
+            checkpointer.save_seconds.clear()
+            t = time.perf_counter()
+            path = a.save()
+            total = time.perf_counter() - t
+            saves.append(dict(checkpointer.save_seconds, total=total,
+                              epoch=i + 1, bytes=_dir_bytes(path)))
         launches_a = ops.ht_probe.launches
         if launches_a == 0:
             raise AssertionError("run A launched no probe kernel")
@@ -1359,8 +1512,8 @@ def batched_recovery(stream, phase3_step_s, seed: int,
         info = rec.recover()
         torch.cuda.synchronize()
         recover_s = time.perf_counter() - t
-        if (info["epoch"], info["replayed_chunks"]) != (2, 1) or \
-                info["cursor"] != 3 * b:
+        if (info["epoch"], info["replayed_chunks"]) != \
+                (RECOVERY_CHUNKS - 1, 1) or info["cursor"] != len(prefix):
             raise AssertionError(f"recover(): {info}")
         inject.drive(rec, prefix, start=rec.stream_cursor)
         torch.cuda.synchronize()
@@ -1375,8 +1528,8 @@ def batched_recovery(stream, phase3_step_s, seed: int,
             raise AssertionError("run B's reads differ from run A's")
         del view, rec
         torch.cuda.empty_cache()
-        log(f"batched recovery: run A's directory at chunk boundary 3 (a "
-            f"kill's), recover() restored epoch {info['epoch']} and replayed "
+        log(f"batched recovery: run A's directory at chunk boundary "
+            f"{RECOVERY_CHUNKS} (a kill's), recover() restored epoch {info['epoch']} and replayed "
             f"{info['replayed_chunks']} chunk; continued, every leaf, "
             f"stats() and {len(labels)} degree / {len(pairs)} has_edge / "
             f"{len(labels)} neighbors reads equal run A's, bitwise")
@@ -3611,10 +3764,13 @@ def main() -> int:
     # (counts set to 0 inside, just before it); 12. the router's paths,
     # card vs CPU, and the serve loop
     sharded, ss, sharded_stream = sharded_path(NODES, 4, seed)
-    # 14(a). phase 11's live summarizer saved and restored bitwise
-    sharded_ckpt = sharded_checkpoint(ss, sharded_stream, seed)
+    # 14(a), a full-width save and restore of phase 11's live summarizer,
+    # is cut by the time limit (tools/recovery_check.py runs it; 14(b)
+    # saves and recovers stacked summarizers on the card)
     del ss
     torch.cuda.empty_cache()
+    # 19. replica_exec "map" and "vmap" side by side, leaf-bitwise
+    modes = replica_exec_modes(sharded_stream)
     #     the probe kernel at phase 11's shapes on full-size intern tables
     max_err = max(max_err, intern_vs_plain(sharded, gen))
     router_paths = sharded_router_paths(seed)
@@ -3635,8 +3791,8 @@ def main() -> int:
         csr_rows=csr_rows, graphsage=sage, smoke_archs=archs,
         attention_rows=attn_rows, lm_card_vs_cpu=lm_a, lm_prefill=lm_b,
         lm_serve=lm_c, lm_smoke_archs=lm_d, sharded=sharded,
-        sharded_router_paths=router_paths, batched_recovery=recovery,
-        sharded_checkpoint=sharded_ckpt, sharded_kill_bar=kill_bar,
+        sharded_router_paths=router_paths, replica_exec_modes=modes,
+        batched_recovery=recovery, sharded_kill_bar=kill_bar,
         summarize_stream=driver, rebuild_kernel_vs_plain=rebuild_a,
         rebuild_full_size=rebuild_b,
         rebuild_live_summarizer=rebuild_d, csr_backward=csr_bwd,
@@ -3656,6 +3812,12 @@ def main() -> int:
                  jobs=path_res["probe_jobs"],
                  sharded_launches=sharded["probe_launches"],
                  sharded_jobs=sharded["probe_jobs"],
+                 sharded_replica_exec=sharded["replica_exec"],
+                 modes_per_change={
+                     mode: {k: modes[mode][k] for k in (
+                         "us_per_change", "launches_per_change",
+                         "jobs_per_change", "syncs_per_change")}
+                     for mode in ("map", "vmap")},
                  sharded_max_lanes_per_job=sharded["max_lanes_per_job"],
                  recovery_launches=recovery["recovery_probe_launches"],
                  sharded_recovery_launches=kill_bar["cuda"]["probe_launches"])

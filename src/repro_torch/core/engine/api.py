@@ -21,7 +21,8 @@ from repro_torch.checkpoint.journal import ChunkJournal
 from repro_torch.core.engine.hashtable import TOMB, HashTable, ht_rebuild
 from repro_torch.core.engine.state import (EngineConfig, EngineState,
                                            copy_state, new_state,
-                                           state_from_numpy, state_to_numpy)
+                                           stack_states, state_from_numpy,
+                                           state_rows, state_to_numpy)
 from repro_torch.core.engine.trial import step_fn
 from repro_torch.core.summary import (ShardedSummaryOutput, SummaryOutput,
                                       encoding_cost, host_node_weight,
@@ -518,8 +519,12 @@ class ShardedSummarizer(_CrashConsistency):
     suffix through the host path (``router_overflows``).  ``"host"``
     buckets on the host: the differential reference.
 
-    **Replicas** (``replica_exec=``): ``"map"``, stepped in turn;
-    ``"vmap"`` raises ``NotImplementedError``.
+    **Replicas** (``replica_exec=``): the replicas are one stacked state
+    (every leaf ``[n_shards, ...]``; ``states`` and ``interns`` are its
+    rows, views that show every write), stepped as one batch a round
+    (``"vmap"``, the default on a CUDA device) or row by row (``"map"``,
+    the default on the CPU); both are leaf-bitwise equal
+    (:mod:`repro_torch.dist.router`).
 
     **Capacity.**  A shard past ``n_cap`` drops the endpoint intern and
     skips the change; the next sync point (``phi``/``stats``/
@@ -549,8 +554,9 @@ class ShardedSummarizer(_CrashConsistency):
         elif overrides:
             cfg = dataclasses.replace(cfg, **overrides)
         self.cfg = cfg
-        self.replica_exec = router.check_replica_exec(replica_exec)
         self.device = resolve_device(device)
+        self.replica_exec = router.check_replica_exec(replica_exec,
+                                                      self.device)
         n_dev = 1
         self.n_shards = n_dev if n_shards is None else int(n_shards)
         if self.n_shards >= router.MAX_SHARDS:
@@ -569,13 +575,14 @@ class ShardedSummarizer(_CrashConsistency):
         self.router_syncs = 0       # per-chunk watermark fetches
         self.chunk_sync = bool(chunk_sync)
         self._drain_rounds = router.drain_telemetry_new(n_dev, self.device)
-        self._bucketed = router.make_bucketed_step(cfg)
+        self._bucketed = router.make_bucketed_step(cfg, self.replica_exec)
         if routing == "device":
             self._route, self.router_geometry = router.make_route_step(
                 self.n_shards, self.router_chunk, self.lane_cap,
                 max_drain_rounds)
             self._engine = router.make_engine_step(
-                cfg, self.n_shards, self.router_geometry.acc_cap)
+                cfg, self.n_shards, self.router_geometry.acc_cap,
+                self.replica_exec)
             self.lane_cap = self.router_geometry.lane_cap
             self.max_drain_rounds = self.router_geometry.max_drain_rounds
             self.sync_free = (self.router_geometry.drain_guaranteed
@@ -590,15 +597,12 @@ class ShardedSummarizer(_CrashConsistency):
         self._epoch = 0             # engine stages applied to the replicas
         self._init_crash_consistency(checkpoint_dir)
 
-        self.states: List[EngineState] = []
-        for s in range(self.n_shards):
-            st = new_state(cfg, self.device)
-            st.step_no = torch.tensor(router.shard_step_no(cfg.seed, s),
-                                      dtype=torch.int64, device=self.device)
-            self.states.append(st)
-        self.interns: List[router.InternState] = [
-            router.intern_new(cfg, self.device)
-            for _ in range(self.n_shards)]
+        est = stack_states([new_state(cfg, self.device)] * self.n_shards)
+        est.step_no.copy_(torch.tensor(
+            [router.shard_step_no(cfg.seed, s) for s in range(self.n_shards)],
+            dtype=torch.int64))
+        self._set_replicas(est, stack_states(
+            [router.intern_new(cfg, self.device)] * self.n_shards))
 
         self._h2label: Dict[int, object] = {}  # 62-bit hash -> caller label
         self._label_buf: List = []   # (labels, hi, lo) pending lazy fold
@@ -606,6 +610,14 @@ class ShardedSummarizer(_CrashConsistency):
         self._host_dict_ops = 0      # label-map mutations inside dispatch
         self._in_dispatch = False
         self._host_cache = None
+
+    def _set_replicas(self, est: EngineState,
+                      ist: "router.InternState") -> None:
+        """Hold the stacked replicas and their rows (``states`` and
+        ``interns``: views, which every write of the engine shows)."""
+        self._est, self._ist = est, ist
+        self.states: List[EngineState] = state_rows(est)
+        self.interns: List[router.InternState] = state_rows(ist)
 
     # ------------------------------------------------------------------ ids
     def _pack_chunk(self, chunk: Sequence[Change], pad_to: int = 0):
@@ -769,7 +781,7 @@ class ShardedSummarizer(_CrashConsistency):
                     buh[s, :k], bul[s, :k] = uh[sel], ul[sel]
                     bvh[s, :k], bvl[s, :k] = vh[sel], vl[sel]
                     bfl[s, :k] = fl[sel]
-            self._bucketed(self.states, self.interns, buh, bul, bvh, bvl,
+            self._bucketed(self._est, self.interns, buh, bul, bvh, bvl,
                            bfl)
         self._epoch += 1
         self._host_cache = None
@@ -800,7 +812,7 @@ class ShardedSummarizer(_CrashConsistency):
             self._process_chunk_host(chunk[delivered:])
 
     def _run_engine(self, routed) -> None:
-        self._engine(self.states, self.interns, self._drain_rounds, *routed)
+        self._engine(self._est, self.interns, self._drain_rounds, *routed)
         self._epoch += 1
 
     def _flush_dispatch(self) -> None:
@@ -831,8 +843,9 @@ class ShardedSummarizer(_CrashConsistency):
         """Snapshot read view (``neighbors``/``degree``/``has_edge`` in
         caller-label space, merged across shards; no pipeline flush,
         :mod:`repro_torch.serve.query`).  The view always holds a copy of
-        the replicas, since the engine writes in place: ``copy`` is taken
-        for the JAX package's signature and changes nothing."""
+        the stacked replicas (one clone), since the engine writes in
+        place: ``copy`` is taken for the JAX package's signature and
+        changes nothing."""
         from repro_torch.serve.query import ShardedSummaryQuery
         return ShardedSummaryQuery(self, copy=copy)
 
@@ -849,8 +862,8 @@ class ShardedSummarizer(_CrashConsistency):
     def _host_fetch(self):
         self._flush_dispatch()
         if self._host_cache is None:
-            self._host_cache = ([copy_state(st, "cpu") for st in self.states],
-                                [copy_state(i, "cpu") for i in self.interns])
+            self._host_cache = (state_rows(copy_state(self._est, "cpu")),
+                                state_rows(copy_state(self._ist, "cpu")))
         self._check_capacity()
         return self._host_cache
 
@@ -882,8 +895,7 @@ class ShardedSummarizer(_CrashConsistency):
     def _scalars(self, *names: str) -> np.ndarray:
         """``int64[len(names), n_shards]``: state scalars of every replica,
         in one read."""
-        return torch.stack([torch.stack([getattr(st, k).to(torch.int64)
-                                         for st in self.states])
+        return torch.stack([getattr(self._est, k).to(torch.int64)
                             for k in names]).cpu().numpy()
 
     def shard_phis(self) -> List[int]:
@@ -931,15 +943,13 @@ class ShardedSummarizer(_CrashConsistency):
 
     # ----------------------------------------------------- recovery closure
     def _ckpt_tree(self) -> dict:
-        """Replicas and interns as host numpy copies (``np.stack``
-        copies) in the JAX package's stacked ``[R, ...]`` layout."""
-        est, ist = router.sharded_state_to_numpy(self.states, self.interns)
+        """Replicas and interns as host numpy copies in the JAX
+        package's stacked ``[R, ...]`` layout."""
+        est, ist = router.sharded_state_to_numpy(self._est, self._ist)
         return {"est": _numpy_tree(est), "ist": _numpy_tree(ist)}
 
     def _ckpt_like(self) -> dict:
-        n = self.n_shards
-        return {"est": _like_tree(self.states[0], n),
-                "ist": _like_tree(self.interns[0], n)}
+        return {"est": _like_tree(self._est), "ist": _like_tree(self._ist)}
 
     def _ckpt_host(self) -> dict:
         # host_label_map() drains the pipeline and folds the lazy label
@@ -974,8 +984,8 @@ class ShardedSummarizer(_CrashConsistency):
 
     def _ckpt_apply(self, tree: dict, host: dict, extra: dict) -> None:
         # fresh tensors: a live query view may still hold the old ones
-        self.states, self.interns = router.sharded_state_from_numpy(
-            tree["est"], tree["ist"], self.device)
+        self._set_replicas(*router.sharded_state_from_numpy(
+            tree["est"], tree["ist"], self.device))
         self._drain_rounds = router.drain_telemetry_restore(
             host["drain_rounds"], 1, self.device)
         self._h2label = dict(host["h2label"])

@@ -32,6 +32,14 @@ launch.
 
 Scalars in this layer are one-lane tensors (shape ``[1]``): indexing with
 a 0-dim tensor would read the index back to the host.
+
+**Stacked tables.**  A table is ``[cap]`` or, in the engine's stacked
+layout (``state.py``), ``[R, cap]``: one row per replica.  A stacked
+table's keys carry the leading ``[R]`` axis (``[R]`` for one lane a row,
+``[R, L]`` for L), row ``r``'s keys probe row ``r``, and every result
+comes back in the keys' shape.  The probe of all R rows is one job of R
+rows, which the kernel runs as R jobs of one launch; a write goes to each
+row's own slot, masked per row by an ``[R]`` predicate.
 """
 from __future__ import annotations
 
@@ -64,13 +72,13 @@ def mul_u32(a: Lane, c: int) -> Lane:
 
 @dataclasses.dataclass
 class HashTable:
-    k1: torch.Tensor   # int32[cap]
-    k2: torch.Tensor   # int32[cap]
-    val: torch.Tensor  # int32[cap]
+    k1: torch.Tensor   # int32[cap], or int32[R, cap] stacked
+    k2: torch.Tensor   # int32[cap], or int32[R, cap] stacked
+    val: torch.Tensor  # int32[cap], or int32[R, cap] stacked
 
     @property
     def capacity(self) -> int:
-        return self.k1.shape[0]
+        return self.k1.shape[-1]
 
 
 def ht_new(capacity: int, device) -> HashTable:
@@ -112,6 +120,45 @@ def _lanes(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1).to(torch.int32).contiguous()
 
 
+_ROW_IDS: dict = {}
+
+
+def row_ids(n: int, device) -> torch.Tensor:
+    """``arange(n)`` (int64) on ``device``, made once per device and n."""
+    key = (torch.device(device), n)
+    ids = _ROW_IDS.get(key)
+    if ids is None:
+        ids = _ROW_IDS[key] = torch.arange(n, device=device)
+    return ids
+
+
+def indexed(x: torch.Tensor, idx: torch.Tensor):
+    """``(t, key)`` with ``t[key]`` the elements ``x[idx]``, row by row
+    when ``x`` is stacked (``idx``'s leading axis is the row); ``t`` is
+    ``x`` or a view of it, so ``t[key] = v`` writes ``x``.  One row is
+    indexed as its own 1-D view (one index tensor, not two)."""
+    if x.dim() == 1:
+        return x, idx
+    if x.shape[0] == 1:
+        return x[0], idx
+    rows = row_ids(x.shape[0], x.device)
+    return x, (rows.reshape((-1,) + (1,) * (idx.dim() - 1)), idx)
+
+
+def _keys(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor):
+    """A probe's key words, broadcast: int32 lanes for a ``[cap]`` table,
+    int32 keys (leading ``[R]``) for a stacked one."""
+    if k1.shape != k2.shape:
+        k1, k2 = torch.broadcast_tensors(k1, k2)
+    if ht.k1.dim() == 1:
+        return _lanes(k1), _lanes(k2)
+    if k1.dtype != torch.int32:
+        k1 = k1.to(torch.int32)
+    if k2.dtype != torch.int32:
+        k2 = k2.to(torch.int32)
+    return k1, k2
+
+
 # one probe of a table: (table, k1, k2, prehashed, mode)
 TableProbe = Tuple[HashTable, torch.Tensor, torch.Tensor, bool, str]
 Probed = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -120,13 +167,40 @@ Probed = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 def probe_many(probes: Sequence[TableProbe]) -> List[Probed]:
     """One probe launch for several ``(table, k1, k2, prehashed, mode)``
     probes: ``(slot, found, val)`` per probe and lane, ``val`` read at the
-    key's find-chain end (garbage when ``~found``)."""
+    key's find-chain end (garbage when ``~found``).  A stacked table's
+    probe is one job of its R rows, its results in the keys' shape."""
     # the kernels layer imports this module for the probe-sequence
     # helpers, so the dependency cannot be top-level
     from repro_torch.kernels import ops as kops
-    return kops.ht_probe_many([
-        (ht.k1, ht.k2, ht.val, _lanes(k1), _lanes(k2), prehashed, mode)
-        for ht, k1, k2, prehashed, mode in probes])
+    jobs, shapes = [], []
+    for ht, k1, k2, prehashed, mode in probes:
+        if ht.k1.dim() == 1 and k1.dim() == 1 and k1.shape == k2.shape:
+            shapes.append(None)         # one engine's lanes, as they are
+            jobs.append((ht.k1, ht.k2, ht.val, _lanes(k1), _lanes(k2),
+                         prehashed, mode))
+            continue
+        if k1.shape != k2.shape:
+            k1, k2 = torch.broadcast_tensors(k1, k2)
+        words = (ht.k1, ht.k2, ht.val)
+        # the results come back in the keys' shape where it is not 1-D
+        # ([1, L] at R = 1) or the table is stacked
+        shapes.append(k1.shape if k1.dim() > 1 or ht.k1.dim() > 1 else None)
+        if ht.k1.dim() == 2 and ht.k1.shape[0] == 1:
+            words = tuple(w[0] for w in words)      # one row: a 1-D job
+        if words[0].dim() == 1:
+            k1, k2 = _lanes(k1), _lanes(k2)
+        else:
+            rows = ht.k1.shape[0]
+            k1, k2 = (k.reshape(rows, -1).to(torch.int32).contiguous()
+                      for k in (k1, k2))
+        jobs.append((*words, k1, k2, prehashed, mode))
+    out = kops.ht_probe_many(jobs)
+    for j, shape in enumerate(shapes):
+        if shape is not None and out[j][0].shape != shape:
+            slot, found, val = out[j]
+            out[j] = (slot.reshape(shape), found.reshape(shape),
+                      val.reshape(shape))
+    return out
 
 
 def ht_find(ht: HashTable,
@@ -159,18 +233,31 @@ def _find_insert_slot(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor,
     return probe_many([(ht, k1, k2, prehashed, "insert")])[0]
 
 
+def _lane_mask(ok: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """A per-row ``[R]`` mask broadcast over ``idx``'s lanes."""
+    return ok.reshape(ok.shape + (1,) * (idx.dim() - ok.dim()))
+
+
 def _put(x: torch.Tensor, idx: torch.Tensor, v, ok) -> None:
-    """``x[idx] = v`` in place under ``ok`` (masked: the old value back)."""
-    if ok is True:
+    """``x[idx] = v`` in place under ``ok`` (masked: the old value back);
+    row by row for a stacked ``x``."""
+    if ok is False:
+        return
+    if isinstance(v, torch.Tensor) and v.dtype != x.dtype:
+        v = v.to(x.dtype)
+    if ok is True and x.dim() == 1:
         x[idx] = v
-    elif ok is not False:
-        x[idx] = torch.where(ok, v, x[idx])
+        return
+    t, key = indexed(x, idx)
+    if ok is not True:
+        v = torch.where(_lane_mask(ok, idx), v, t[key])
+    t[key] = v
 
 
 def set_job(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor,
             prehashed: bool = False) -> TableProbe:
     """The probe half of :func:`ht_set`: the upsert probe of the key."""
-    return ht, _lanes(k1), _lanes(k2), prehashed, "insert"
+    return (ht, *_keys(ht, k1, k2), prehashed, "insert")
 
 
 def set_write(job: TableProbe, probed: Probed, v, ok=True) -> HashTable:
@@ -201,7 +288,7 @@ def ht_add(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor, delta,
     ``new`` is the would-be value either way; the table is only written
     under ``ok``.
     """
-    k1, k2 = _lanes(k1), _lanes(k2)
+    k1, k2 = _keys(ht, k1, k2)
     slot, found, val = _find_insert_slot(ht, k1, k2)
     new = torch.where(found, val, 0) + delta
     if ok is False:
@@ -221,7 +308,7 @@ def ht_add(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor, delta,
 def delete_job(ht: HashTable, k1: torch.Tensor, k2: torch.Tensor,
                ) -> TableProbe:
     """The probe half of :func:`ht_delete`: the find probe of the key."""
-    return ht, _lanes(k1), _lanes(k2), False, "find"
+    return (ht, *_keys(ht, k1, k2), False, "find")
 
 
 def delete_write(job: TableProbe, probed: Probed, ok=True) -> HashTable:
@@ -229,10 +316,10 @@ def delete_write(job: TableProbe, probed: Probed, ok=True) -> HashTable:
     ht = job[0]
     slot, found, _ = probed
     if ok is not True:
-        found = found & ok
-    ht.k1[slot] = torch.where(found, TOMB, ht.k1[slot])
-    ht.k2[slot] = torch.where(found, TOMB, ht.k2[slot])
-    ht.val[slot] = torch.where(found, 0, ht.val[slot])
+        found = found & _lane_mask(ok, slot)
+    for w, dead in (("k1", TOMB), ("k2", TOMB), ("val", 0)):
+        t, key = indexed(getattr(ht, w), slot)
+        t[key] = torch.where(found, dead, t[key])
     return ht
 
 

@@ -10,7 +10,9 @@ Port of ``repro/core/engine/policies.py``: three registries keyed by the
 * ``COMMIT_RULES[cfg.commit]`` — ``(dphi, cfg) -> bool tensor``.
 
 Policy bodies read the state only; every gather whose index comes from a
-table value goes through ``ops.take`` (JAX's clamping gather).
+table value goes through ``ops.take`` (JAX's clamping gather).  They run
+over a stacked state (``ops``): ``y`` and ``seed`` are ``[R]``, the TP
+samples ``[R, c]``, and each result is ``[R]``, one per replica.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.engine.ops import (delta_phi_move,
+from repro_torch.core.engine.ops import (at, delta_phi_move,
                                          delta_phi_move_weighted, rnd_below,
                                          take)
 from repro_torch.core.engine.state import (COMMIT_RULES as COMMIT_RULE_NAMES,
@@ -29,8 +31,8 @@ from repro_torch.core.engine.state import PROPOSALS as PROPOSAL_NAMES
 
 
 def _first_argmax(x: torch.Tensor) -> torch.Tensor:
-    """Index of the first maximum as a one-lane tensor (``jnp.argmax``)."""
-    return torch.argmax(x.to(torch.int32)).reshape(1)
+    """Index of the first maximum along the last axis (``jnp.argmax``)."""
+    return torch.argmax(x.to(torch.int32), dim=-1)
 
 
 def propose_minhash(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
@@ -39,14 +41,14 @@ def propose_minhash(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The paper's sampler: CP(y) = TP(u) ∩ R(y) via min-hash cluster
     equality, uniform pick among the matches (Alg. 1 step 4)."""
-    a = st.n2s[y]
-    my = st.minh[y]
+    a = at(st.n2s, y)
+    my = at(st.minh, y)[:, None]
     cp_mask = (tp_minh == my) & (my != NO_CLUSTER)
-    n_cp = cp_mask.sum().to(torch.int32).reshape(1)
+    n_cp = cp_mask.sum(dim=-1).to(torch.int32)
     pick = rnd_below(seed, 4, n_cp)
     # index of the pick-th True in cp_mask
-    csum = torch.cumsum(cp_mask.to(torch.int32), dim=0) - 1
-    z = tp[_first_argmax((csum == pick) & cp_mask)]
+    csum = torch.cumsum(cp_mask.to(torch.int32), dim=-1) - 1
+    z = at(tp, _first_argmax((csum == pick[:, None]) & cp_mask))
     cand_target = take(st.n2s, z)
     return cand_target, (n_cp > 0) & (cand_target != a)
 
@@ -57,12 +59,13 @@ def propose_magsdm(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mags-DM-style dense-neighborhood grouping: the modal supernode among
     the TP samples, not a uniform pick from a min-hash cluster."""
-    a = st.n2s[y]
+    a = at(st.n2s, y)
     nsid = take(st.n2s, tp)
-    cnt = (nsid[None, :] == nsid[:, None]).sum(dim=1).to(torch.int32)
-    elig = nsid != a
-    cand_target = nsid[_first_argmax(torch.where(elig, cnt, -1))]
-    return cand_target, elig.any().reshape(1) & (cand_target != a)
+    cnt = (nsid[..., None, :] == nsid[..., :, None]).sum(dim=-1).to(
+        torch.int32)
+    elig = nsid != a[:, None]
+    cand_target = at(nsid, _first_argmax(torch.where(elig, cnt, -1)))
+    return cand_target, elig.any(dim=-1) & (cand_target != a)
 
 
 def commit_saving(dphi: torch.Tensor, cfg: EngineConfig) -> torch.Tensor:

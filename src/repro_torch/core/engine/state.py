@@ -5,6 +5,16 @@ validation, ``manifest()``, ``table_caps()``) and the same state leaves,
 held in a mutable dataclass of tensors on one device.  Engine ops update
 the tensors in place (see ``hashtable.py``).
 
+**Stacked states.**  The engine ops run on a *stacked* state: every leaf
+has a leading replica axis ``[R, ...]`` (tables ``[R, cap]``, scalars
+``[R]``), the JAX package's layout under ``jax.vmap``.  The sharded tier
+holds its replicas so (:func:`stack_states`; :func:`state_rows` gives
+each replica as a state of row views).  One engine steps at R = 1
+through :func:`stacked_view`: its scalars as ``[1]`` views, its arrays
+and tables as they are, which the ops index with ``[1]`` ids
+(``ops.at``).  Since the ops write every leaf in place, scalars
+included, a view's writes are the viewed state's.
+
 :func:`state_from_numpy` / :func:`state_to_numpy` map the leaves of a JAX
 ``EngineState`` (taken as numpy) onto this state and back, leaf for leaf;
 the differential tests start both engines from one state with them and
@@ -14,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -136,12 +146,47 @@ def copy_state(st, device=None):
     """A deep copy of a state dataclass of tensors and ``HashTable``s (an
     ``EngineState`` or the router's ``InternState``), on ``device`` or,
     by default, where each leaf lies."""
-    def copy(v):
+    return _map_leaves(st, lambda v: v.to(
+        v.device if device is None else device, copy=True))
+
+
+def _map_leaves(st, fn):
+    """``st`` with ``fn`` applied to every tensor (each word of a table)."""
+    def leaf(v):
         if isinstance(v, HashTable):
-            return HashTable(*(copy(t) for t in (v.k1, v.k2, v.val)))
-        return v.to(v.device if device is None else device, copy=True)
-    return type(st)(**{f.name: copy(getattr(st, f.name))
+            return HashTable(fn(v.k1), fn(v.k2), fn(v.val))
+        return fn(v)
+    return type(st)(**{f.name: leaf(getattr(st, f.name))
                        for f in dataclasses.fields(st)})
+
+
+def stack_states(states: Sequence):
+    """One stacked state (every leaf ``[R, ...]``, copied) from R states of
+    one type (``EngineState`` or the router's ``InternState``)."""
+    fields = [f.name for f in dataclasses.fields(states[0])]
+
+    def stack(vs):
+        if isinstance(vs[0], HashTable):
+            return HashTable(*(torch.stack([getattr(v, w) for v in vs])
+                               for w in ("k1", "k2", "val")))
+        return torch.stack(vs)
+    return type(states[0])(**{k: stack([getattr(s, k) for s in states])
+                              for k in fields})
+
+
+def state_rows(st) -> List:
+    """The rows of a stacked state, each a state of views (no copy):
+    what the engine writes into the stacked state, a row shows."""
+    first = getattr(st, dataclasses.fields(st)[0].name)
+    n_rows = (first.k1 if isinstance(first, HashTable) else first).shape[0]
+    return [_map_leaves(st, lambda t, r=r: t[r]) for r in range(n_rows)]
+
+
+def stacked_view(st):
+    """One replica's state as the ops take it at R = 1: its 0-dim scalars
+    as ``[1]`` views, every other leaf as it is (a 1-D leaf indexed by
+    ``[1]`` ids is its own one row); in-place writes are the state's."""
+    return _map_leaves(st, lambda t: t[None] if t.dim() == 0 else t)
 
 
 def _scalar(x: int, dtype=torch.int32, device=None) -> torch.Tensor:
@@ -180,7 +225,8 @@ def _table_words(t) -> tuple:
 
 
 def state_from_numpy(arrays: Mapping[str, object], device) -> EngineState:
-    """Build a state from numpy leaves named as ``EngineState``'s fields.
+    """Build a state from numpy leaves named as ``EngineState``'s fields,
+    one replica's or stacked ``[R, ...]`` ones (a stacked state).
 
     A table leaf may be a mapping or an object with ``k1``/``k2``/``val``
     (a JAX ``HashTable`` of numpy arrays).
@@ -195,8 +241,8 @@ def state_from_numpy(arrays: Mapping[str, object], device) -> EngineState:
             out[f.name] = HashTable(k1.to(device), k2.to(device),
                                     val.to(device))
         elif f.name == "step_no":
-            out[f.name] = _scalar(int(np.asarray(leaf)) & 0xFFFFFFFF,
-                                  torch.int64, device)
+            out[f.name] = torch.from_numpy(np.asarray(
+                np.asarray(leaf).astype(np.int64) & 0xFFFFFFFF)).to(device)
         else:
             out[f.name] = torch.from_numpy(
                 np.array(leaf, np.int32)).to(device)
@@ -204,8 +250,9 @@ def state_from_numpy(arrays: Mapping[str, object], device) -> EngineState:
 
 
 def state_to_numpy(st: EngineState) -> Dict[str, object]:
-    """Numpy leaves of a state, with JAX's types: int32 everywhere,
-    ``step_no`` uint32, and each table a dict of ``k1``/``k2``/``val``."""
+    """Numpy leaves of a state (stacked or not), with JAX's types: int32
+    everywhere, ``step_no`` uint32, and each table a dict of
+    ``k1``/``k2``/``val``."""
     out: Dict[str, object] = {}
     for f in dataclasses.fields(st):
         v = getattr(st, f.name)
@@ -213,7 +260,7 @@ def state_to_numpy(st: EngineState) -> Dict[str, object]:
             out[f.name] = {w: getattr(v, w).cpu().numpy()
                            for w in ("k1", "k2", "val")}
         elif f.name == "step_no":
-            out[f.name] = np.asarray(int(v), np.uint32)
+            out[f.name] = v.cpu().numpy().astype(np.uint32)
         else:
             out[f.name] = v.cpu().numpy()
     return out

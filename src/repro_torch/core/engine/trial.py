@@ -6,132 +6,199 @@ order (``u0, v0, u1, v1, ...``), each seeded from ``step_no``, and
 advances ``step_no`` by one.  The state after a step is bitwise the JAX
 step's.
 
+**One step, R replicas.**  :func:`step_fn` steps a stacked state
+(``state.py``): R independent replicas, each with its own ``[B]`` change
+batch, as the JAX package's ``jax.vmap`` of its step does; one engine is
+R = 1.  Change ``j`` of every replica applies together, and so does
+every replica's ``i``-th live trial (below).  Replicas share no state,
+so running them side by side changes no replica's bits: each one's
+changes and trials still run in its own stream order.
+
 **Where JAX predicates, the port branches.**  The JAX step is cond-free
 predicated data flow (``pwhen`` regions).  The PRNG is counter-based and
 stateless, so running a region only when its predicate holds gives the
-same bits, and the port decides on the host:
+same bits, and the port decides on the host, for all R replicas at once,
+and masks the region to the replicas where it holds (``ops.pred``):
 
 * the change regions (``do_ins``/``do_del``): the change batch is host
   data, so they branch with no sync;
 * the trial predicate (group validity and the TN filter): one sync per
-  step for all trials of the step (below);
-* ``plan``'s ``ok`` (capacity and semantic guards): one sync per live
-  trial;
-* ``commit``: one sync per planned trial, then the commit tail runs with
-  host-known predicates (``apply_move`` reads its trip count and each
-  ``pair_count_add`` its 0 <-> nonzero transition, one sync each);
+  step for all trials of the step and every replica (below);
+* ``plan``'s ``ok`` (capacity and semantic guards): one sync per trial
+  step;
+* ``commit``: one sync per planned trial step, then the commit tail runs
+  with host-known predicates (``apply_move`` reads its trip counts and
+  each ``pair_count_add`` its 0 <-> nonzero transitions, one sync each);
 * masked, with no sync: ``ensure_node``'s ``need``, ``delete_edge``'s
   min-hash fix-ups, the free-stack push of ``apply_move``.
+
+**Trials in live order.**  JAX's vmapped step runs trial ``(g, k)`` of
+every replica in lock step, each region iff any replica's trial there is
+live.  The TN filter keeps a sample with probability 1/deg, so live
+trials are sparse and rarely share a slot across replicas; the port
+instead runs replica ``r``'s ``i``-th live trial beside every other
+replica's ``i``-th, each with its own ``(g, k)`` seed and samples, and a
+replica with fewer live trials is masked out.  The branch points of a
+step fall from the sum of the replicas' live trials to the largest.
 
 **TP sampling for the whole step at once.**  A trial group's preamble
 (TP samples, their min-hashes, the group's validity and each trial's TN
 filter) reads only ``deg``, ``adj``, ``minh`` and whether ``n2s`` is set,
 and no trial changes those: a move writes ``n2s`` of a seen node to
 another valid sid, and touches no degree, adjacency or min-hash.  So the
-preambles of all ``2B`` groups are computed in one pass over ``2B x c``
-lanes, with one probe launch, before the first trial runs; the values
-are the ones each group would read in turn.
+preambles of all ``2B`` groups of every replica are computed in one pass
+over ``[R, 2B, c]`` lanes, with one probe launch, before the first trial
+runs; the values are the ones each group would read in turn.
 """
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.engine import policies
 from repro_torch.core.engine.hashtable import M32, ht_lookup_batch, mul_u32
-from repro_torch.core.engine.ops import (_sc, alloc_sid, apply_move,
-                                         delete_edge, host_read, insert_edge,
+from repro_torch.core.engine.ops import (Pred, _masked, alloc_sid,
+                                         apply_move, at, delete_edge,
+                                         host_read, insert_edge, pred,
                                          rnd_below, rnd_u01, rnd_u32, take)
-from repro_torch.core.engine.state import EngineConfig, EngineState
+from repro_torch.core.engine.state import (EngineConfig, EngineState,
+                                           stacked_view)
 
 
-def _one_trial(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
-               tp_minh: torch.Tensor, seed: torch.Tensor,
-               cfg: EngineConfig) -> bool:
-    """Steps 3-5 of Alg. 1 for one testing node y whose trial predicate
-    holds; returns ``cap_ok`` (False counts as a skip)."""
+def _trial_step(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
+                tp_minh: torch.Tensor, seed: torch.Tensor, live: Pred,
+                cfg: EngineConfig) -> Tuple[List[bool], torch.Tensor]:
+    """Steps 3-5 of Alg. 1 for one trial of every replica where ``live``
+    holds: testing node ``y[r]`` with its group's TP samples ``tp[r]``
+    and seed ``seed[r]``.  Returns ``cap_ok`` on the host and on the
+    device (False counts as a skip)."""
     propose = policies.PROPOSALS[cfg.proposal]
     objective = policies.OBJECTIVES[cfg.objective]
     accept = policies.COMMIT_RULES[cfg.commit]
 
     # plan: candidate selection (proposal policy; counters 4.. are
     # reserved for the proposal's own draws)
-    a = st.n2s[y]
+    a = at(st.n2s, y)
     # float32 compare against the float32 escape, as in JAX
     esc = rnd_u01(seed, 3) <= float(np.float32(cfg.escape))
     cand_target, cand_ok = propose(st, y, tp, tp_minh, seed, cfg)
-    top = st.free_top.reshape(1)
-    fresh_sid = st.free[(top - 1).clamp(min=0)]
+    top = st.free_top
+    fresh_sid = at(st.free, (top - 1).clamp(min=0))
     target = torch.where(esc, fresh_sid, cand_target)
-    cap_ok = ((st.deg[y] <= cfg.d_cap)
-              & (st.sndeg[a] <= cfg.sn_cap)
+    cap_ok = ((at(st.deg, y) <= cfg.d_cap)
+              & (at(st.sndeg, a) <= cfg.sn_cap)
               & (esc | (take(st.sndeg, cand_target) <= cfg.sn_cap))
               & (~esc | (top > 0)))
-    sem_ok = torch.where(esc, st.ssize[a] > 1, cand_ok)
-    ok, cap_ok, esc = host_read(torch.cat([cap_ok & sem_ok, cap_ok, esc]))
-    if not ok:
-        return cap_ok
+    ok = _masked(live, cap_ok & torch.where(esc, at(st.ssize, a) > 1,
+                                            cand_ok), False)
+    n = y.shape[0]
+    flags = host_read(torch.cat([ok, cap_ok, esc]))
+    ok_h, cap_h, esc_h = flags[:n], flags[n:2 * n], flags[2 * n:]
+    plan = pred(ok_h, ok)
+    if plan is False:
+        return cap_h, cap_ok
 
     # eval_phi: dphi of the candidate move
-    dphi, nbrs, nvalid = objective(st, y, target.clamp(min=0), esc, cfg)
-    if not host_read(accept(dphi, cfg))[0]:
-        return True
+    fresh = pred([e for e, o in zip(esc_h, ok_h) if o], esc)
+    dphi, nbrs, nvalid = objective(st, y, target.clamp(min=0), fresh, cfg)
+    commit = _masked(plan, accept(dphi, cfg), False)
+    commit_h = host_read(commit)
+    moved = pred(commit_h, commit)
+    if moved is False:
+        return cap_h, cap_ok
 
     # the commit tail
-    alloc_sid(st, ok=esc)
-    apply_move(st, y, target, dphi, nbrs, nvalid, cfg)
-    st.n_accept = _sc(st.n_accept + 1)
-    return True
+    alloc_sid(st, ok=pred([c and e for c, e in zip(commit_h, esc_h)],
+                          lambda: commit & esc))
+    apply_move(st, y, target, dphi, nbrs, nvalid, cfg, ok=moved)
+    st.n_accept += _masked(moved, 1)
+    return cap_h, cap_ok
 
 
 def _trial_phase(st: EngineState, nodes: torch.Tensor,
                  cfg: EngineConfig) -> None:
-    """Steps 1-5 of Alg. 1 for every input node (int32[2B], -1 = pad)."""
+    """Steps 1-5 of Alg. 1 for every input node of every replica
+    (``int32[R, 2B]``, -1 = pad)."""
     dev = st.device
-    n_groups, c = nodes.shape[0], cfg.c
+    n_rep, n_groups = nodes.shape
+    c = cfg.c
     gidx = torch.arange(n_groups, dtype=torch.int64, device=dev)
-    seeds = rnd_u32(st.step_no, mul_u32(gidx, 2654435761))[:, None]
+    seeds = rnd_u32(st.step_no[:, None], mul_u32(gidx, 2654435761))
     u_s = nodes.clamp(min=0)
-    du = st.deg[u_s]
-    valid = (nodes >= 0) & (st.n2s[u_s] >= 0) & (du > 0)
+    du = at(st.deg, u_s)
+    valid = (nodes >= 0) & (at(st.n2s, u_s) >= 0) & (du > 0)
 
     # 1. TP(u): c uniform neighbor samples per group
     ks = torch.arange(c, dtype=torch.int64, device=dev)
-    ridx = rnd_below(seeds, ks * 8 + 1, du[:, None])
-    tp = ht_lookup_batch(st.adj, u_s[:, None].expand(n_groups, c), ridx,
-                         default=0).reshape(n_groups, c)
+    ridx = rnd_below(seeds[..., None], ks * 8 + 1, du[..., None])
+    tp = ht_lookup_batch(st.adj, u_s[..., None], ridx, default=0)
     tp_minh = take(st.minh, tp)
     # 2. TN filter: testing prob 1/deg(w)
-    tseed = rnd_u32(seeds, ks + 100)
+    tseed = rnd_u32(seeds[..., None], ks + 100)
     keep = rnd_u01(tseed, 2) * take(st.deg, tp).to(torch.float32) <= 1.0
-    pred = host_read(valid[:, None] & keep)
+    live = (valid[..., None] & keep).reshape(n_rep, n_groups * c)
+    n_live = live.sum(dim=-1)
+    counts = host_read(n_live)
+    n_steps = max(counts)
+    st.n_trials += n_live
+    if not n_steps:
+        return
 
-    n_trials = n_skipped = 0
-    for g in range(n_groups):
-        for k in range(c):
-            if pred[g][k]:
-                n_trials += 1
-                n_skipped += not _one_trial(st, tp[g, k:k + 1], tp[g],
-                                            tp_minh[g], tseed[g, k:k + 1],
-                                            cfg)
-    st.n_trials = _sc(st.n_trials + n_trials)
-    st.n_skipped = _sc(st.n_skipped + n_skipped)
+    # each replica's live trials in stream order, (g, k) = divmod(pos, c)
+    pos = torch.sort((~live).to(torch.uint8), dim=-1,
+                     stable=True).indices[:, :n_steps]
+    grp = (pos // c)[..., None].expand(n_rep, n_steps, c)
+    ys = tp.reshape(n_rep, -1).gather(-1, pos)
+    tps = tp.gather(1, grp)
+    tp_minhs = tp_minh.gather(1, grp)
+    tseeds = tseed.reshape(n_rep, -1).gather(-1, pos)
+    on = torch.arange(n_steps, device=dev) < n_live[:, None]
+
+    skipped = [0] * n_rep
+    skipped_dev = None
+    for i in range(n_steps):
+        on_h = [i < k for k in counts]
+        on_i = pred(on_h, lambda: on[:, i])
+        cap_h, cap_ok = _trial_step(st, ys[:, i], tps[:, i], tp_minhs[:, i],
+                                    tseeds[:, i], on_i, cfg)
+        skip = [o and not c for o, c in zip(on_h, cap_h)]
+        if any(skip):
+            skipped = [k + s for k, s in zip(skipped, skip)]
+            m = _masked(on_i, ~cap_ok, False).to(torch.int32)
+            skipped_dev = m if skipped_dev is None else skipped_dev + m
+    if any(skipped):
+        # one count for every replica needs no device tensor
+        st.n_skipped += (skipped[0] if len(set(skipped)) == 1
+                         else skipped_dev)
 
 
 def step_fn(st: EngineState, u, v, ins, cfg: EngineConfig) -> EngineState:
     """One engine step over a padded batch of changes, in place.
 
-    ``u``/``v`` are int32[B] host arrays (``-1`` = padding) and ``ins``
-    bool[B].  Batch semantics: all changes apply first, then trial groups
-    run for every endpoint in stream order.
+    ``st`` is one engine's state, with ``u``/``v`` int32[B] host arrays
+    (``-1`` = padding) and ``ins`` bool[B], or a stacked state of R
+    replicas with ``[R, B]`` arrays, replica ``r`` stepping on row ``r``.
+    Batch semantics: all changes apply first, then trial groups run for
+    every endpoint in stream order.
     """
-    u = np.asarray(u, np.int32).reshape(-1)
-    v = np.asarray(v, np.int32).reshape(-1)
-    ins = np.asarray(ins, bool).reshape(-1)
-    uv = torch.from_numpy(np.stack([u, v], axis=1)).to(st.device)
-    for j in np.flatnonzero(u >= 0):
-        change = insert_edge if ins[j] else delete_edge
-        change(st, uv[j, 0:1], uv[j, 1:2], cfg)
-    _trial_phase(st, uv.reshape(-1), cfg)
-    st.step_no = (st.step_no + 1) & M32
+    if st.phi.dim() == 0:
+        st = stacked_view(st)
+    n_rep = st.phi.shape[0]
+    u = np.asarray(u, np.int32).reshape(n_rep, -1)
+    v = np.asarray(v, np.int32).reshape(n_rep, -1)
+    ins = np.asarray(ins, bool).reshape(n_rep, -1)
+    uvi = torch.from_numpy(np.stack([u, v, ins], -1).astype(np.int32)
+                           ).to(st.device)
+    do_ins, do_del = (u >= 0) & ins, (u >= 0) & ~ins
+    for j in range(u.shape[1]):
+        for change, do, flag in ((insert_edge, do_ins, 1),
+                                 (delete_edge, do_del, 0)):
+            ok = pred(do[:, j], lambda: (uvi[:, j, 0] >= 0)
+                      & (uvi[:, j, 2] == flag))
+            if ok is not False:
+                change(st, uvi[:, j, 0], uvi[:, j, 1], cfg, ok)
+    _trial_phase(st, uvi[..., :2].reshape(n_rep, -1), cfg)
+    st.step_no.copy_((st.step_no + 1) & M32)
     return st

@@ -27,16 +27,27 @@ that every replica's PRNG cursor advances in lockstep.  The route stage's
 extra drain rounds are folded into the carried telemetry
 (``telem += rounds - 1``).
 
-**Replica layout.**  The replicas are a list of
-:class:`~repro_torch.core.engine.state.EngineState` and a list of
-:class:`InternState`, stepped in turn: the JAX package's
-``replica_exec="map"``, which it documents as leaf-bitwise equal to
-``"vmap"``.  The engine writes its tensors in place and rebinds its
-scalar fields, so the replicas are never views into stacked ``[R, ...]``
-tensors; probes of different replicas with no write between them still
-share one launch (``probe_many`` takes jobs on different tables).
-:func:`sharded_state_from_numpy` / :func:`sharded_state_to_numpy` convert
-to and from the JAX package's stacked layout.
+**Replica layout.**  The replicas are one stacked
+:class:`~repro_torch.core.engine.state.EngineState` and one stacked
+:class:`InternState`, every leaf with a leading ``[R, ...]`` axis: the
+JAX package's layout, which :func:`sharded_state_from_numpy` /
+:func:`sharded_state_to_numpy` load and save without a copy per row.
+``replica_exec`` picks how the engine rounds step it, as in the JAX
+package, and both modes are leaf-bitwise equal:
+
+* ``"vmap"`` steps the stacked state once per round
+  (:func:`~repro_torch.core.engine.trial.step_fn` over ``[R, B]``
+  changes): each probe is one launch of R jobs and each branch point of
+  the step one host read for all R replicas.  The default on a CUDA
+  device, as JAX's on an accelerator backend.
+* ``"map"`` steps each replica's row in turn (R = 1 views): the
+  reference that ``"vmap"`` is held to, and the default on the CPU, as
+  JAX's on its CPU backend, so that the port and the JAX package run the
+  same layout there by default.  It is not the faster layout on the CPU:
+  ``"vmap"`` takes fewer host reads there too.
+
+Interning works on the rows of the stacked intern state, which the
+router writes in place.
 
 **Interning.**  One probe launch resolves the ``2 R`` pre-lookups of a
 chunk (u and v of every replica, prehashed, against the tables at chunk
@@ -50,7 +61,7 @@ so ``h2l`` matches JAX's slot for slot.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +70,9 @@ from repro_torch.core.engine.hashtable import (M32, HashTable, ht_new,
                                                ht_set, probe_many, u32)
 from repro_torch.core.engine.ops import host_read
 from repro_torch.core.engine.state import (EngineConfig, EngineState,
-                                           state_from_numpy, state_to_numpy)
+                                           _table_words, copy_state,
+                                           state_from_numpy, state_rows,
+                                           state_to_numpy)
 from repro_torch.core.engine.trial import step_fn
 
 INVALID = -1
@@ -68,26 +81,24 @@ INVALID = -1
 # residues; (n-1)**2 + (n-1) must stay below 2**31, as in the JAX package
 MAX_SHARDS = 1 << 15
 
-# the JAX package's replica layouts; the port steps replicas in turn
+# the JAX package's replica layouts (see the module docstring)
 REPLICA_EXEC_MODES = ("vmap", "map")
-DEFAULT_REPLICA_EXEC = "map"
 
 
-def check_replica_exec(replica_exec: Optional[str]) -> str:
-    """The replica layout to use: ``"map"`` (replicas stepped in turn).
+def default_replica_exec(device) -> str:
+    """``"vmap"`` on a CUDA device and ``"map"`` on the CPU, as the JAX
+    package picks by backend (the module docstring)."""
+    return "vmap" if torch.device(device).type == "cuda" else "map"
 
-    ``"vmap"`` raises ``NotImplementedError``: the port's step branches on
-    the host per trial, so it has no batched form over the replica axis."""
+
+def check_replica_exec(replica_exec: Optional[str], device="cpu") -> str:
+    """The replica layout to use on ``device``: ``replica_exec``, or the
+    device's default when it is None."""
     if replica_exec is None:
-        return DEFAULT_REPLICA_EXEC
+        replica_exec = default_replica_exec(device)
     if replica_exec not in REPLICA_EXEC_MODES:
         raise ValueError(f"replica_exec must be one of "
                          f"{REPLICA_EXEC_MODES}: {replica_exec}")
-    if replica_exec == "vmap":
-        raise NotImplementedError(
-            "replica_exec='vmap' is not ported: the port steps replicas in "
-            "turn ('map'), which the JAX package documents as leaf-bitwise "
-            "equal to 'vmap' (ROADMAP.md, queue 3)")
     return replica_exec
 
 
@@ -247,27 +258,35 @@ def shard_key(uh: torch.Tensor, ul: torch.Tensor, vh: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
-def _step_rounds(ests: Sequence[EngineState], u: np.ndarray, v: np.ndarray,
-                 ins: np.ndarray, rounds: int, cfg: EngineConfig) -> None:
-    """``rounds`` engine steps of every replica, round-major; ``u``/``v``/
-    ``ins`` are ``[R, >= rounds * batch]`` host arrays."""
+def _step_rounds(est: EngineState, u: np.ndarray, v: np.ndarray,
+                 ins: np.ndarray, rounds: int, cfg: EngineConfig,
+                 replica_exec: str) -> None:
+    """``rounds`` engine steps of every replica of the stacked ``est``,
+    round-major; ``u``/``v``/``ins`` are ``[R, >= rounds * batch]`` host
+    arrays.  ``"vmap"`` steps the stacked state once a round, ``"map"``
+    each replica's row in turn."""
     b = cfg.batch
+    rows = state_rows(est) if replica_exec == "map" else None
     for r in range(rounds):
         sl = slice(r * b, (r + 1) * b)
-        for s, est in enumerate(ests):
-            step_fn(est, u[s, sl], v[s, sl], ins[s, sl] != 0, cfg)
+        if rows is None:
+            step_fn(est, u[:, sl], v[:, sl], ins[:, sl] != 0, cfg)
+            continue
+        for s, row in enumerate(rows):
+            step_fn(row, u[s, sl], v[s, sl], ins[s, sl] != 0, cfg)
 
 
-def make_bucketed_step(cfg: EngineConfig):
+def make_bucketed_step(cfg: EngineConfig, replica_exec: str):
     """The step over host-bucketed ``[n_shards, batch]`` hash-word rounds:
-    ``(ests, ists, uh, ul, vh, vl, ins)`` numpy arrays, states updated in
-    place.  Each replica interns its round, then steps once."""
+    ``(est, ists, uh, ul, vh, vl, ins)`` with the stacked engine state,
+    the intern rows and numpy arrays, states updated in place.  Each
+    replica interns its round, then steps once."""
 
-    def bucketed(ests, ists, uh, ul, vh, vl, ins) -> None:
+    def bucketed(est, ists, uh, ul, vh, vl, ins) -> None:
         host = np.stack([uh, ul, vh, vl, ins], -1).astype(np.int32)
-        buckets = torch.from_numpy(host).to(ests[0].device)
+        buckets = torch.from_numpy(host).to(est.device)
         u, v, _ = intern_buckets(ists, buckets, cfg.n_cap)
-        _step_rounds(ests, u, v, np.asarray(ins), 1, cfg)
+        _step_rounds(est, u, v, np.asarray(ins), 1, cfg, replica_exec)
 
     return bucketed
 
@@ -399,15 +418,17 @@ def make_route_step(n_shards: int, chunk: int, lane_cap: int,
 # --------------------------------------------------------------------------- #
 
 
-def make_engine_step(cfg: EngineConfig, n_shards: int, acc_cap: int):
+def make_engine_step(cfg: EngineConfig, n_shards: int, acc_cap: int,
+                     replica_exec: str):
     """The state-carrying engine stage for routed buckets:
-    ``(ests, ists, telem, buckets, rounds)``, in place.  Interns each
-    shard's ``int32[n_shards, acc_cap, 5]`` bucket, then runs
-    ``max_s ceil(count_s / batch)`` engine rounds on every replica, and
-    adds the route stage's extra drain rounds to ``telem``."""
+    ``(est, ists, telem, buckets, rounds)`` with the stacked engine state
+    and the intern rows, in place.  Interns each shard's
+    ``int32[n_shards, acc_cap, 5]`` bucket, then runs ``max_s
+    ceil(count_s / batch)`` engine rounds on every replica, and adds the
+    route stage's extra drain rounds to ``telem``."""
     b = cfg.batch
 
-    def engine(ests, ists, telem, buckets, rounds: int) -> None:
+    def engine(est, ists, telem, buckets, rounds: int) -> None:
         if tuple(buckets.shape) != (n_shards, acc_cap, 5):
             raise ValueError(f"buckets must be [{n_shards}, {acc_cap}, 5]: "
                              f"{tuple(buckets.shape)}")
@@ -416,10 +437,10 @@ def make_engine_step(cfg: EngineConfig, n_shards: int, acc_cap: int):
         erounds = int((-(-counts // b)).max())
         # one spare round of padding, so a round's slice never runs short
         pad = np.full((n_shards, b), INVALID, np.int32)
-        _step_rounds(ests, np.concatenate([u, pad], 1),
+        _step_rounds(est, np.concatenate([u, pad], 1),
                      np.concatenate([v, pad], 1),
                      np.concatenate([host[..., 4], np.zeros_like(pad)], 1),
-                     erounds, cfg)
+                     erounds, cfg, replica_exec)
         telem += rounds - 1
 
     return engine
@@ -438,61 +459,28 @@ def default_lane_cap(chunk: int, n_dev: int, n_shards: int,
 # --------------------------------------------------------------------------- #
 
 
-def _row(leaf, r: int):
-    if isinstance(leaf, Mapping):
-        return {w: np.asarray(leaf[w])[r] for w in ("k1", "k2", "val")}
-    if hasattr(leaf, "k1"):
-        return {w: np.asarray(getattr(leaf, w))[r]
-                for w in ("k1", "k2", "val")}
-    return np.asarray(leaf)[r]
-
-
 def sharded_state_from_numpy(est: Mapping[str, object],
                              ist: Mapping[str, object], device,
-                             ) -> Tuple[List[EngineState], List[InternState]]:
-    """The replicas of a JAX ``ShardedSummarizer``'s stacked state: ``est``
-    and ``ist`` map the ``EngineState`` / ``InternState`` field names to
-    numpy ``[R, ...]`` leaves (a table leaf as a mapping or an object with
-    ``k1``/``k2``/``val``)."""
-    n_rep = int(np.asarray(est["phi"]).shape[0])
-    ests = [state_from_numpy({k: _row(v, r) for k, v in est.items()}, device)
-            for r in range(n_rep)]
-    ists = []
-    for r in range(n_rep):
-        h = _row(ist["h2l"], r)
-        t = HashTable(*(torch.from_numpy(np.array(h[w], np.int32)).to(device)
-                        for w in ("k1", "k2", "val")))
-        ists.append(InternState(
-            h2l=t,
-            l2h=torch.from_numpy(np.array(_row(ist["l2h"], r), np.int32))
-            .to(device),
-            **{k: torch.tensor(int(_row(ist[k], r)), dtype=torch.int32,
-                               device=device)
-               for k in ("n_nodes", "n_dropped")}))
-    return ests, ists
+                             ) -> Tuple[EngineState, InternState]:
+    """The stacked replicas of a JAX ``ShardedSummarizer``: ``est`` and
+    ``ist`` map the ``EngineState`` / ``InternState`` field names to numpy
+    ``[R, ...]`` leaves (a table leaf as a mapping or an object with
+    ``k1``/``k2``/``val``).  One copy a leaf, none a row."""
+    def t(x):
+        return torch.from_numpy(np.array(x, np.int32)).to(device)
+    return state_from_numpy(est, device), InternState(
+        h2l=HashTable(*(t(w) for w in _table_words(ist["h2l"]))),
+        l2h=t(ist["l2h"]), n_nodes=t(ist["n_nodes"]),
+        n_dropped=t(ist["n_dropped"]))
 
 
-def sharded_state_to_numpy(ests: Sequence[EngineState],
-                           ists: Sequence[InternState],
+def sharded_state_to_numpy(est: EngineState, ist: InternState,
                            ) -> Tuple[Dict[str, object], Dict[str, object]]:
     """Stacked numpy leaves with the JAX package's types (int32, ``step_no``
-    uint32, tables as ``k1``/``k2``/``val`` dicts): the inverse of
-    :func:`sharded_state_from_numpy`."""
-    per = [state_to_numpy(st) for st in ests]
-    est = {}
-    for k, v in per[0].items():
-        if isinstance(v, dict):
-            est[k] = {w: np.stack([p[k][w] for p in per])
-                      for w in ("k1", "k2", "val")}
-        else:
-            est[k] = np.stack([p[k] for p in per])
-    ist = dict(
-        h2l={w: np.stack([getattr(i.h2l, w).cpu().numpy() for i in ists])
-             for w in ("k1", "k2", "val")},
-        l2h=np.stack([i.l2h.cpu().numpy() for i in ists]),
-        n_nodes=np.stack([i.n_nodes.cpu().numpy() for i in ists]),
-        n_dropped=np.stack([i.n_dropped.cpu().numpy() for i in ists]))
-    return est, ist
+    uint32, tables as ``k1``/``k2``/``val`` dicts), copies on the host:
+    the inverse of :func:`sharded_state_from_numpy`."""
+    return (state_to_numpy(copy_state(est, "cpu")),
+            state_to_numpy(copy_state(ist, "cpu")))
 
 
 def shard_step_no(seed: int, shard: int) -> int:

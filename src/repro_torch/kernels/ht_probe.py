@@ -14,12 +14,16 @@ is bitwise: the probe sequence is the table layout.
   tables of any caps and modes (a tile
   of 8 threads per lane, one pass for both modes; the source says what
   bounds it).  A stacked ``[R, cap]`` table with ``[R, B]`` queries, the
-  TPU kernel's form under ``jax.vmap``, is R jobs (:func:`stacked_jobs`).
-  :func:`ht_probe_cuda` is the one-job case.  The shared library is built
+  TPU kernel's form under ``jax.vmap``, is R jobs: given as one job, its
+  rows become R kernel jobs writing the rows of one ``[R, B]`` output
+  triple (the sharded engine's stacked step); :func:`stacked_jobs` splits
+  it into R row-view jobs instead.  :func:`ht_probe_cuda` is the one-job
+  case.  The shared library is built
   with ``nvcc`` at first use into ``build/`` at the repository root, from
   this checkout's source, and loaded with ``ctypes`` (``kernels/_build.py``).
 * :func:`ht_probe_plain` is the uniform masked two-pass loop over the
-  whole batch of ``_probe_kernel``, in ``int64`` torch, and
+  whole batch of ``_probe_kernel``, in ``int64`` torch (a stacked job's
+  rows in one loop), and
   :func:`ht_probe_many_plain` a loop of it over the jobs.  The CPU tests
   run them, and ``chip_smoke.py`` holds the kernel to them on the card.
 
@@ -47,7 +51,9 @@ Probe = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 class ProbeJob(NamedTuple):
     """One probe batch: a table ``(tk1, tk2, tval)``, its queries
-    ``(q1, q2)`` and how to probe it."""
+    ``(q1, q2)`` and how to probe it.  The table ``[cap]`` with queries
+    ``[B]``, or a stacked table ``[R, cap]`` with queries ``[R, B]``, row
+    ``r``'s queries against row ``r`` (R kernel jobs)."""
     tk1: torch.Tensor
     tk2: torch.Tensor
     tval: torch.Tensor
@@ -68,19 +74,24 @@ def stacked_jobs(tk1, tk2, tval, q1, q2, *, prehashed: bool = False,
 
 def check_args(tk1, tk2, tval, q1, q2, mode: str) -> None:
     """Raise on what neither version takes: mixed devices, a dtype other
-    than int32, a non-contiguous or non-1-D tensor, a capacity that is
-    not a power of two, or an unknown mode."""
+    than int32, a non-contiguous tensor, a table that is not ``[cap]``
+    with ``[B]`` queries or ``[R, cap]`` with ``[R, B]`` queries, a
+    capacity that is not a power of two, or an unknown mode."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}: {mode!r}")
-    cap = tk1.shape[0]
+    cap = tk1.shape[-1] if tk1.dim() in (1, 2) else 0
     if cap <= 0 or cap & (cap - 1):
-        raise ValueError(f"table capacity must be a power of two: {cap}")
+        raise ValueError(f"table capacity must be a power of two: "
+                         f"{tuple(tk1.shape)}")
     for name, t in (("tk1", tk1), ("tk2", tk2), ("tval", tval)):
-        if t.shape != (cap,):
-            raise ValueError(f"{name} must have shape ({cap},): {t.shape}")
-    if q1.dim() != 1 or q2.shape != q1.shape:
-        raise ValueError(f"queries must be 1-D and of one shape: "
-                         f"{tuple(q1.shape)} vs {tuple(q2.shape)}")
+        if t.shape != tk1.shape:
+            raise ValueError(f"{name} must have shape {tuple(tk1.shape)}: "
+                             f"{tuple(t.shape)}")
+    if (q1.dim() != tk1.dim() or q2.shape != q1.shape
+            or q1.shape[:-1] != tk1.shape[:-1]):
+        raise ValueError(f"queries must be 1-D (2-D [R, B] for an [R, cap] "
+                         f"table) and of one shape: {tuple(q1.shape)} vs "
+                         f"{tuple(q2.shape)}")
     for name, t in (("tk1", tk1), ("tk2", tk2), ("tval", tval),
                     ("q1", q1), ("q2", q2)):
         if t.dtype != torch.int32:
@@ -101,21 +112,29 @@ def probe_chains(tk1, tk2, q1, q2, *, prehashed: bool, mode: str,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(start, i1, i2)`` per lane, all int64: the chain start, the
     pass-1 offset where the find chain ends and, in insert mode, the
-    pass-2 offset of the first free slot (zeros in find mode).
+    pass-2 offset of the first free slot (zeros in find mode).  A stacked
+    ``[R, cap]`` table's lanes ``[R, B]`` walk their own rows.
 
     Each pass is one uniform loop over the batch: a lane's offset
     advances while its scalar loop would go on and freezes once it
     stops, and the loop runs until every lane froze.
     """
-    cap = tk1.shape[0]
+    cap = tk1.shape[-1]
     start = _probe_start(q1, q2, cap, prehashed)
+    rows = None                 # row r's slots in the flattened table
+    f1, f2 = tk1, tk2
+    if tk1.dim() == 2:
+        rows = torch.arange(tk1.shape[0], device=tk1.device)[:, None] * cap
+        f1, f2 = tk1.reshape(-1), tk2.reshape(-1)
 
     def chain(stop_fn):
         i = torch.zeros_like(start)
         done = torch.zeros(start.shape, dtype=torch.bool, device=start.device)
         while not bool(done.all()):
             slot = (start + i) & (cap - 1)
-            done = done | stop_fn(tk1[slot], tk2[slot]) | (i >= cap)
+            if rows is not None:
+                slot = slot + rows
+            done = done | stop_fn(f1[slot], f2[slot]) | (i >= cap)
             i = torch.where(done, i, i + 1)
         return i
 
@@ -130,15 +149,20 @@ def ht_probe_plain(tk1, tk2, tval, q1, q2, *, prehashed: bool = False,
                    mode: str = "find") -> Probe:
     """The kernel's function in plain torch, on any device."""
     check_args(tk1, tk2, tval, q1, q2, mode)
-    cap = tk1.shape[0]
+    cap = tk1.shape[-1]
     start, i1, i2 = probe_chains(tk1, tk2, q1, q2, prehashed=prehashed,
                                  mode=mode)
     slot1 = (start + i1) & (cap - 1)
-    found = (tk1[slot1] == q1) & (tk2[slot1] == q2)
+    if tk1.dim() == 1:
+        k1, k2, val = tk1[slot1], tk2[slot1], tval[slot1]
+    else:                       # row by row for a stacked table
+        k1, k2, val = (tk1.gather(-1, slot1), tk2.gather(-1, slot1),
+                       tval.gather(-1, slot1))
+    found = (k1 == q1) & (k2 == q2)
     slot = slot1
     if mode == "insert":
         slot = torch.where(found, slot1, (start + i2) & (cap - 1))
-    return slot.to(torch.int32), found, tval[slot1]
+    return slot.to(torch.int32), found, val
 
 
 def ht_probe_many_plain(jobs: Sequence[ProbeJob]) -> List[Probe]:
@@ -167,13 +191,15 @@ def _bind(lib: ctypes.CDLL) -> None:
                            f"jobs a launch, the wrapper {MAX_JOBS}")
 
 
-def _check_job(job, device: torch.device) -> int:
+def _check_job(job, device: torch.device) -> Tuple[int, int]:
     """The launch's checks, from shapes, dtypes, devices and contiguity
-    alone; returns the job's lane count.  On a failure :func:`check_args`,
-    the plain version's full check, names the reason."""
+    alone; returns the job's rows (0 for a 1-D table) and lanes a row.
+    On a failure :func:`check_args`, the plain version's full check,
+    names the reason."""
     tk1, tk2, tval, q1, q2, _, mode = job
-    cap = tk1.shape[0]
-    ok = (mode in MODES and tk1.dim() == 1 and q1.dim() == 1
+    cap = tk1.shape[-1] if tk1.dim() in (1, 2) else 0
+    ok = (mode in MODES and q1.dim() == tk1.dim()
+          and q1.shape[:-1] == tk1.shape[:-1]
           and cap > 0 and not cap & (cap - 1)
           and tk2.shape == tk1.shape and tval.shape == tk1.shape
           and q2.shape == q1.shape)
@@ -183,10 +209,10 @@ def _check_job(job, device: torch.device) -> int:
     if not ok:
         check_args(tk1, tk2, tval, q1, q2, mode)
         raise ValueError(f"every job of a launch must lie on {device}")
-    n = q1.shape[0]
+    n = q1.shape[-1]
     if n > MAX_LANES:
         raise ValueError(f"too many lanes for one job: {n}")
-    return n
+    return (tk1.shape[0] if tk1.dim() == 2 else 0), n
 
 
 def _launch_packed(lib: ctypes.CDLL, packed, stream: int) -> int:
@@ -208,10 +234,10 @@ def _launch_packed(lib: ctypes.CDLL, packed, stream: int) -> int:
 def ht_probe_many_cuda(jobs: Sequence[ProbeJob],
                        ) -> Tuple[List[Probe], int]:
     """Launch the kernel over the jobs on the current stream of their
-    device (no sync), one launch for every ``MAX_JOBS`` jobs with lanes.
-    Returns ``(slot, found, val)`` per job, bitwise
-    :func:`ht_probe_many_plain`'s, and the number of launches made.  Every
-    tensor must lie on one CUDA device."""
+    device (no sync), one launch for every ``MAX_JOBS`` kernel jobs with
+    lanes; a stacked job is one kernel job a row.  Returns ``(slot,
+    found, val)`` per job, bitwise :func:`ht_probe_many_plain`'s, and the
+    number of launches made.  Every tensor must lie on one CUDA device."""
     if not jobs:
         return [], 0
     device = jobs[0][0].device
@@ -220,19 +246,25 @@ def ht_probe_many_cuda(jobs: Sequence[ProbeJob],
     lib = _build.load(SOURCE, _bind)
     outs, packed = [], []
     for job in jobs:
-        n = _check_job(job, device)
+        rows, n = _check_job(job, device)
+        shape = (rows, n) if rows else (n,)
         # three allocations cost the host less than views of one buffer
         # (tools/probe_check.py's host-cost split; PERF.md)
-        out = (torch.empty(n, dtype=torch.int32, device=device),
-               torch.empty(n, dtype=torch.bool, device=device),
-               torch.empty(n, dtype=torch.int32, device=device))
+        out = (torch.empty(shape, dtype=torch.int32, device=device),
+               torch.empty(shape, dtype=torch.bool, device=device),
+               torch.empty(shape, dtype=torch.int32, device=device))
         outs.append(out)
-        if n:
-            tk1, tk2, tval, q1, q2, prehashed, mode = job
+        if not n:
+            continue
+        tk1, tk2, tval, q1, q2, prehashed, mode = job
+        cap = tk1.shape[-1]
+        ptrs = [t.data_ptr() for t in (tk1, tk2, tval, q1, q2, *out)]
+        # a row's byte offset in each tensor: tables, int32 queries and
+        # outputs, bool found
+        steps = [4 * cap] * 3 + [4 * n] * 3 + [n, 4 * n]
+        for r in range(max(rows, 1)):
             packed.append((n, _JOB.pack(
-                tk1.data_ptr(), tk2.data_ptr(), tval.data_ptr(),
-                q1.data_ptr(), q2.data_ptr(), out[0].data_ptr(),
-                out[1].data_ptr(), out[2].data_ptr(), tk1.shape[0], n,
+                *(p + r * d for p, d in zip(ptrs, steps)), cap, n,
                 mode == "insert", bool(prehashed))))
     if not packed:
         return outs, 0

@@ -66,7 +66,8 @@ def ht_probe_many(jobs: Sequence[ProbeJob]) -> List[Probe]:
     """Several probe batches, each a :class:`~repro_torch.kernels.ht_probe.
     ProbeJob` ``(tk1, tk2, tval, q1, q2, prehashed, mode)`` on its own
     table, cap and mode: ``(slot, found, val)`` per job.  On the card they
-    share one launch (one per ``MAX_JOBS`` jobs)."""
+    share one launch (one per ``MAX_JOBS`` kernel jobs; a stacked ``[R,
+    cap]`` job is R of them, and ``ht_probe.jobs`` counts R)."""
     if not jobs:
         return []
     if not _route(jobs[0][0], "ht_probe"):
@@ -77,9 +78,10 @@ def ht_probe_many(jobs: Sequence[ProbeJob]) -> List[Probe]:
         return ht_probe_many_plain(jobs)
     out, launches = ht_probe_many_cuda(jobs)
     ht_probe.launches += launches
-    ht_probe.jobs += len(jobs)
     for job in jobs:
-        ht_probe.by_batch[job[6], job[3].shape[0]] += 1
+        rows = job[0].shape[0] if job[0].dim() == 2 else 1
+        ht_probe.jobs += rows
+        ht_probe.by_batch[job[6], job[3].shape[-1]] += rows
     return out
 
 

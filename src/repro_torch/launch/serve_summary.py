@@ -24,7 +24,7 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.core.engine import EngineConfig, ShardedSummarizer
-from repro_torch.dist.router import DEFAULT_REPLICA_EXEC, REPLICA_EXEC_MODES
+from repro_torch.dist.router import REPLICA_EXEC_MODES
 from repro_torch.launch.stream import make_stream
 
 
@@ -136,7 +136,9 @@ def main(argv=None) -> None:
                     help="serial route/engine dispatch: every snapshot "
                          "then sits exactly at the write head (lag 0)")
     ap.add_argument("--replica-exec", choices=list(REPLICA_EXEC_MODES),
-                    default=DEFAULT_REPLICA_EXEC)
+                    default=None,
+                    help="replica layout (default: 'vmap' on cuda, 'map' "
+                         "on cpu)")
     ap.add_argument("--reads-per-chunk", type=int, default=64)
     ap.add_argument("--verify", action="store_true",
                     help="check every sampled read against the snapshot "
@@ -157,7 +159,8 @@ def main(argv=None) -> None:
         router_chunk=args.router_chunk, pipeline=not args.no_pipeline,
         replica_exec=args.replica_exec)
     print(f"stream: {len(stream)} changes; shards={ss.n_shards} "
-          f"pipeline={ss.pipeline} device={ss.device}")
+          f"pipeline={ss.pipeline} replica_exec={ss.replica_exec} "
+          f"device={ss.device}")
     t0 = time.time()
     out = serve_summary(ss, stream, reads_per_chunk=args.reads_per_chunk,
                         verify=args.verify, seed=args.seed)

@@ -44,7 +44,7 @@ from repro_torch.core.engine import (BatchedSummarizer, EngineConfig,
                                     ShardedSummarizer)
 from repro_torch.core.engine.state import OBJECTIVES, PROPOSALS
 from repro_torch.core.reference import ALGORITHMS, WeightedDynamicSummary
-from repro_torch.dist.router import DEFAULT_REPLICA_EXEC, REPLICA_EXEC_MODES
+from repro_torch.dist.router import REPLICA_EXEC_MODES
 from repro_torch.ft.resilience import run_stream_with_recovery
 from repro_torch.graph.streams import (barabasi_albert_edges,
                                        copying_model_edges,
@@ -111,9 +111,11 @@ def main(argv=None) -> None:
                     help="sharded: run each chunk's engine stage right after "
                          "its route stage (bit-identical results)")
     ap.add_argument("--replica-exec", choices=list(REPLICA_EXEC_MODES),
-                    default=DEFAULT_REPLICA_EXEC,
-                    help="sharded: replica layout; 'map' steps the replicas "
-                         "in turn ('vmap' is not ported)")
+                    default=None,
+                    help="sharded: replica layout; 'vmap' steps the stacked "
+                         "replicas as one batch, 'map' each in turn "
+                         "(bit-identical; default: 'vmap' on cuda, 'map' on "
+                         "cpu)")
     ap.add_argument("--algo", choices=list(ALGORITHMS), default="mosso",
                     help="reference: the Tier-A algorithm")
     ap.add_argument("--graph", choices=["ba", "copying"], default="ba")

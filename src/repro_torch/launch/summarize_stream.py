@@ -35,7 +35,7 @@ import numpy as np
 from repro_torch.checkpoint.checkpointer import _flatten
 from repro_torch.core.engine import EngineConfig, ShardedSummarizer
 from repro_torch.core.engine.state import OBJECTIVES, PROPOSALS
-from repro_torch.dist.router import DEFAULT_REPLICA_EXEC
+from repro_torch.dist.router import default_replica_exec
 from repro_torch.ft.inject import SimulatedCrash, drive
 from repro_torch.graph.streams import (barabasi_albert_edges,
                                        edges_to_fully_dynamic_stream)
@@ -99,7 +99,8 @@ def main(argv=None) -> dict:
         ss = make_engine(ckpt_dir)
         _check(ss.routing == "device" and ss.sync_free and ss.pipeline,
                "the default router is not the sync-free pipelined path")
-        _check(ss.replica_exec == DEFAULT_REPLICA_EXEC, ss.replica_exec)
+        _check(ss.replica_exec == default_replica_exec(ss.device),
+               ss.replica_exec)
         print(f"router: chunk={ss.router_chunk} lane_cap={ss.lane_cap} "
               f"sync_free={ss.sync_free} pipeline={ss.pipeline} "
               f"replica_exec={ss.replica_exec} device={ss.device}")

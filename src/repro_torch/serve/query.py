@@ -37,7 +37,8 @@ import torch
 from repro_torch.core.engine.hashtable import (ht_find_batch,
                                                ht_lookup_batch, probe_many)
 from repro_torch.core.engine.ops import host_read, t_of, take
-from repro_torch.core.engine.state import EngineState, copy_state
+from repro_torch.core.engine.state import (EngineState, copy_state,
+                                           state_rows)
 from repro_torch.dist import labelhash
 
 
@@ -240,16 +241,18 @@ class ShardedSummaryQuery:
 
     Does not flush the dispatch pipeline: on the pipelined router the
     snapshot is the state after ``epoch`` engine stages, one routed chunk
-    behind ``process``.  It holds copies of every replica's engine and
-    intern state (the engine writes in place, so a view without a copy
-    would change under the next ``process``); ``copy`` is taken for the
-    JAX package's signature and changes nothing.  The snapshot's
+    behind ``process``.  It holds one copy of the stacked engine and
+    intern states, whichever ``replica_exec`` steps them (the engine
+    writes in place, so a view without a copy would change under the next
+    ``process``); ``copy`` is taken for the JAX package's signature and
+    changes nothing.  The snapshot's
     ``n_dropped`` counters are checked on the first answer.
     """
 
     def __init__(self, summarizer, copy: bool = False) -> None:
-        self._est = [copy_state(st) for st in summarizer.states]
-        self._ist = [copy_state(it) for it in summarizer.interns]
+        # one clone of the stacked replicas; the rows are its views
+        self._est = state_rows(copy_state(summarizer._est))
+        self._ist = state_rows(copy_state(summarizer._ist))
         self._summ = summarizer
         self._rev_cache: dict = {}
         self._intern_host = None

@@ -64,7 +64,7 @@ def live_set(stream):
 
 def assert_replicas_equal(p: ShardedSummarizer, j, tag: str) -> None:
     """Port replicas vs the JAX package's stacked state, leaf for leaf."""
-    est, ist = router.sharded_state_to_numpy(p.states, p.interns)
+    est, ist = router.sharded_state_to_numpy(p._est, p._ist)
     assert_leaves_equal(est, jax_leaves(j.state), f"{tag}: engine")
     assert_leaves_equal(ist, jax_leaves(j.intern), f"{tag}: intern")
 
@@ -86,13 +86,14 @@ def assert_outputs_equal(p: ShardedSummarizer, j, live, tag: str) -> None:
     assert p.live_edges() == live, tag
 
 
-def drive(stream, call: int, cfg_kw=CFG, **skw):
+def drive(stream, call: int, cfg_kw=CFG, replica_exec=None, **skw):
     """One stream through both summarizers in ``call``-sized ``process``
-    calls, replicas compared after every call; returns both."""
+    calls, replicas compared after every call; returns both.
+    ``replica_exec`` is the port's (JAX runs ``"map"``)."""
     j = JaxSharded(JaxConfig(**cfg_kw), n_shards=SHARDS, trial_backend="xla",
                    replica_exec="map", **skw)
     p = ShardedSummarizer(EngineConfig(**cfg_kw), device="cpu",
-                          n_shards=SHARDS, **skw)
+                          n_shards=SHARDS, replica_exec=replica_exec, **skw)
     assert (p.lane_cap, p.max_drain_rounds, p.sync_free, p.pipeline) == \
         (j.lane_cap, j.max_drain_rounds, j.sync_free, j.pipeline)
     assert_replicas_equal(p, j, "new")
@@ -219,7 +220,7 @@ def test_converters_round_trip_and_initial_replicas_equal_jax():
     assert_leaves_equal(got_i, ist, "round trip intern")
     p = ShardedSummarizer(EngineConfig(**dict(CFG, seed=7)), device="cpu",
                           n_shards=4)
-    new_e, new_i = router.sharded_state_to_numpy(p.states, p.interns)
+    new_e, new_i = router.sharded_state_to_numpy(p._est, p._ist)
     assert_leaves_equal(new_e, est, "new engine")      # step_no decorrelated
     assert_leaves_equal(new_i, ist, "new intern")
     assert router.intern_cap(EngineConfig(n_cap=1 << 20)) == 1 << 22
@@ -292,6 +293,36 @@ def test_non_default_triple_leaf_bitwise_every_call():
     assert p.stats()["router_drain_rounds"] > 0
 
 
+@pytest.mark.parametrize("case", ["device", "skew_lane_cap_2", "host"])
+def test_vmap_leaf_bitwise_every_call(case):
+    """The port's ``replica_exec="vmap"`` (the stacked replicas stepped as
+    one batch) against JAX's ``"map"``, here so that it reuses this
+    file's JAX compiles; JAX's own tests hold its ``"map"`` leaf-bitwise
+    to its ``"vmap"``.  Under key skew only the hub's shard has trials,
+    and every replica's PRNG cursor still advances in lock step."""
+    stream, call, skw = CASES[case]
+    p, _ = drive(stream, call, replica_exec="vmap", **skw)
+    assert p.replica_exec == "vmap"
+    st = p.stats()
+    assert st["trials"] > 0 and st["accepted"] > 0
+    if case == "skew_lane_cap_2":
+        owner = p.shard_of(stream[0][0], stream[0][1])
+        steps = [int(s.step_no) - router.shard_step_no(0, r)
+                 for r, s in enumerate(p.states)]
+        trials = [int(s.n_trials) for s in p.states]
+        assert len(set(steps)) == 1 and steps[0] >= 2, steps
+        assert [t > 0 for t in trials] == [r == owner
+                                           for r in range(SHARDS)], trials
+
+
+def test_vmap_non_default_triple_leaf_bitwise_every_call():
+    kw = dict(CFG, proposal="magsdm", objective="weighted",
+              commit="threshold", commit_margin=1, weight_levels=3)
+    p, _ = drive(ba_stream(4), CHUNK, cfg_kw=kw, replica_exec="vmap",
+                 routing="device", router_chunk=CHUNK, lane_cap=4)
+    assert p.stats()["accepted"] > 0
+
+
 # --------------------------------------------------------------------------- #
 # the port on its own: capacity, collisions, labels, arguments
 # --------------------------------------------------------------------------- #
@@ -335,8 +366,11 @@ def test_arbitrary_hashable_labels_round_trip():
 
 def test_arguments_and_device_policy(monkeypatch):
     cfg = EngineConfig(**CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedSummarizer(cfg, device="cpu", replica_exec="vmap")
+    assert ShardedSummarizer(cfg, device="cpu",
+                             replica_exec="vmap").replica_exec == "vmap"
+    # the default follows the device, as JAX's follows the backend
+    assert router.check_replica_exec(None, torch.device("cuda")) == "vmap"
+    assert router.check_replica_exec(None, "cpu") == "map"
     with pytest.raises(ValueError, match="replica_exec"):
         ShardedSummarizer(cfg, device="cpu", replica_exec="pmap")
     with pytest.raises(ValueError, match="routing"):

@@ -3,6 +3,9 @@
 
     timeout 600 python3 tools/probe_check.py [--time] [--tiles 1,16,32]
         [--baseline DIR]
+    timeout 1500 python3 tools/probe_check.py --engine --baseline DIR
+        [--pairs 10] [--changes 768] [--device cpu --config smoke]
+        [--profile]
 
 Builds ``src/repro_torch/csrc/ht_probe.cu`` (printing ``nvcc``'s register
 and spill lines), then holds it to its plain torch version, bitwise:
@@ -28,11 +31,29 @@ in one process on one card.
 It takes a few minutes, so it is the first thing to run on the card after
 an edit of the kernel; ``chip_smoke.py`` phase 2 is the full check.
 Exits non-zero on a mismatch and without a CUDA device.
+
+``--engine --baseline DIR [--pairs 10] [--changes 768]`` instead holds
+the batched engine above the kernel against the baseline's:
+``BatchedSummarizer(full_config(), device="cuda")`` (``--device cpu
+--config smoke`` rehearse it on the CPU) over the first ``--changes``
+changes of ``chip_smoke.py``'s phase-3 stream (BA 600 nodes, m 4, fully
+dynamic, seed 0), one fresh process per run, the two trees in
+alternating pairs (baseline, this; this, baseline; ...), each building
+its own probe kernel.  Per run: us per change (host clock around each
+``process`` call of one batch, ended by a device sync), probe launches
+and host syncs per change, and a checksum of the state's leaves, which
+must be equal across the runs.  It prints one JSON line per run, each
+pair's this / baseline ratio, their median and how many pairs this tree
+lost, and writes ``build/engine_ab.json``; ``--profile`` runs each tree
+once more under ``cProfile`` and prints its 40 costliest functions by
+own time.
 """
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import json
+import statistics
 import subprocess
 import sys
 import time
@@ -194,6 +215,108 @@ def host_split(tables, gen, n: int = 2000) -> None:
               flush=True)
 
 
+ENGINE_RUN = r"""
+import cProfile, io, json, pstats, sys, time, zlib
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.configs import mosso_stream
+from repro_torch.core.engine import BatchedSummarizer
+from repro_torch.core.engine.ops import host_read
+from repro_torch.core.engine.state import state_to_numpy
+from repro_torch.graph.streams import (barabasi_albert_edges,
+                                       edges_to_fully_dynamic_stream)
+from repro_torch.kernels import ops
+stream = edges_to_fully_dynamic_stream(
+    barabasi_albert_edges(600, 4, 0), delete_prob=0.1,
+    seed=0)[:int(sys.argv[2])]
+cfg = getattr(mosso_stream, sys.argv[4] + "_config")()
+dev = sys.argv[3]
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+bs = BatchedSummarizer(cfg, device=dev)
+bs.process(stream[:cfg.batch])           # builds the kernel, warms up
+sync()
+ops.reset_counts()
+host_read.count = 0
+prof = cProfile.Profile() if sys.argv[5] == "profile" else None
+t = time.perf_counter()
+if prof:
+    prof.enable()
+for off in range(cfg.batch, len(stream), cfg.batch):
+    bs.process(stream[off:off + cfg.batch])
+sync()
+dt = time.perf_counter() - t
+if prof:
+    prof.disable()
+    text = io.StringIO()
+    pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(40)
+    print(text.getvalue())
+n = len(stream) - cfg.batch
+crc = 0
+for k, v in sorted(state_to_numpy(bs.state).items()):
+    for w in (v.values() if isinstance(v, dict) else (v,)):
+        crc = zlib.crc32(w.tobytes(), crc)
+print(json.dumps(dict(changes=n, us_per_change=1e6 * dt / n,
+                      launches_per_change=ops.ht_probe.launches / n,
+                      syncs_per_change=host_read.count / n,
+                      phi=bs.phi, crc=crc)))
+"""
+
+
+def engine_ab(args) -> int:
+    """``--engine``: this tree's batched engine against ``--baseline``'s,
+    in alternating pairs of fresh processes (the module docstring)."""
+    trees = {"baseline": args.baseline.resolve() / "src",
+             "this": ROOT / "src"}
+    card = args.device
+    if args.device == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    order = []
+    for i in range(args.pairs):
+        order += [("baseline", "this"), ("this", "baseline")][i % 2]
+    if args.profile:
+        order += ["baseline", "this"]
+    runs = []
+    for i, name in enumerate(order):
+        mode = "profile" if i >= 2 * args.pairs else "time"
+        out = subprocess.run([sys.executable, "-c", ENGINE_RUN,
+                              str(trees[name]), str(args.changes),
+                              args.device, args.config, mode],
+                             capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            print(out.stdout, out.stderr, file=sys.stderr)
+            return 1
+        lines = out.stdout.strip().splitlines()
+        res = dict(json.loads(lines[-1]), tree=name, pair=i // 2,
+                   profiled=mode == "profile")
+        if res["profiled"]:
+            print(f"engine: {name} under cProfile\n" + "\n".join(lines[:-1]))
+        print(json.dumps(res), flush=True)
+        runs.append(res)
+    if len({r["crc"] for r in runs}) != 1:
+        print("engine: the trees' states differ", file=sys.stderr)
+        return 1
+    timed = [r for r in runs if not r["profiled"]]
+    us = {(r["pair"], r["tree"]): r["us_per_change"] for r in timed}
+    ratios = [us[p, "this"] / us[p, "baseline"] for p in range(args.pairs)]
+    med = {name: statistics.median(r["us_per_change"] for r in timed
+                                   if r["tree"] == name) for name in trees}
+    print(f"engine: {args.pairs} pairs, this / baseline per pair "
+          + ", ".join(f"{x:.3f}" for x in ratios)
+          + f"; median ratio {statistics.median(ratios):.3f}, this slower "
+          f"in {sum(x > 1 for x in ratios)} of {args.pairs}; median us per "
+          f"change baseline {med['baseline']:.1f}, this {med['this']:.1f}; "
+          f"states equal ({card})")
+    (ROOT / "build").mkdir(exist_ok=True)
+    (ROOT / "build" / "engine_ab.json").write_text(
+        json.dumps(dict(card=card, runs=runs, ratios=ratios, median=med),
+                   indent=1))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time", action="store_true",
@@ -202,9 +325,21 @@ def main() -> int:
                     help="other tile widths to build, check and time "
                          "beside the shipped 8, e.g. 1,16,32")
     ap.add_argument("--baseline", type=Path,
-                    help="a checkout whose probe kernel to hold and time "
-                         "beside this one")
+                    help="a checkout whose probe kernel (with --engine: "
+                         "engine) to hold and time beside this one")
+    ap.add_argument("--engine", action="store_true",
+                    help="time the batched engine against --baseline's "
+                         "instead")
+    ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--changes", type=int, default=768)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--config", choices=["full", "smoke"], default="full")
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
+    if args.engine:
+        if args.baseline is None:
+            ap.error("--engine needs --baseline")
+        return engine_ab(args)
     import torch
     if not torch.cuda.is_available():
         print("probe_check: no CUDA device is visible", file=sys.stderr)

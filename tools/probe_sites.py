@@ -2,7 +2,7 @@
 """Probe launches and jobs per change, by engine call site, on the CPU.
 
     PYTHONPATH=src python tools/probe_sites.py [--nodes N] [--shards R]
-        [--search full]
+        [--replica-exec map|vmap] [--search full]
 
 Drives ``BatchedSummarizer(smoke_config(), device="cpu")`` over a fully
 dynamic Barabasi-Albert stream of N nodes (degree 4, 10% deletions, seed
@@ -10,7 +10,8 @@ dynamic Barabasi-Albert stream of N nodes (degree 4, 10% deletions, seed
 (``ht_probe``, and ``ht_probe_many`` where the tree has it) by the engine
 line that issued it: on the card each call is one launch (more only past
 48 jobs).  ``--shards R`` drives ``ShardedSummarizer(n_shards=R)`` with
-its defaults instead (device routing, ``router_chunk`` 1024).  ``--search
+its defaults instead (device routing, ``router_chunk`` 1024), with
+``--replica-exec`` (default: the CPU's, ``"map"``).  ``--search
 full`` takes ``full_config()``'s search parameters (``c``, ``batch``,
 ``escape``, ``d_cap``, ``sn_cap``) with the capacities cut to the stream
 (``n_cap``, ``m_cap`` as the stream CLI sizes them), which changes no
@@ -48,6 +49,7 @@ def main() -> int:
     ap.add_argument("--nodes", type=int, default=120)
     ap.add_argument("--shards", type=int, default=0,
                     help="replicas of a ShardedSummarizer (0: batched)")
+    ap.add_argument("--replica-exec", choices=["map", "vmap"], default=None)
     ap.add_argument("--search", choices=["smoke", "full"], default="smoke")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
@@ -71,7 +73,10 @@ def main() -> int:
 
     ops.ht_probe = counted(ops.ht_probe, lambda a: 1)
     if hasattr(ops, "ht_probe_many"):
-        ops.ht_probe_many = counted(ops.ht_probe_many, lambda a: len(a[0]))
+        ops.ht_probe_many = counted(
+            ops.ht_probe_many,
+            lambda a: sum(j[0].shape[0] if j[0].dim() == 2 else 1
+                          for j in a[0]))
     stream = edges_to_fully_dynamic_stream(
         barabasi_albert_edges(args.nodes, 4, 0), delete_prob=0.1, seed=0)
     cfg = smoke_config()
@@ -82,7 +87,8 @@ def main() -> int:
             m_cap=1 << max(10, (len(stream) * 2).bit_length()))
     host_read.count = 0
     if args.shards:
-        bs = ShardedSummarizer(cfg, device="cpu", n_shards=args.shards)
+        bs = ShardedSummarizer(cfg, device="cpu", n_shards=args.shards,
+                               replica_exec=args.replica_exec)
         bs.run(stream)
         bs.flush()
     else:

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """The sharded summarizer on the card, beside the batched one: a short run.
 
-    timeout 900 python3 tools/sharded_check.py
+    timeout 900 python3 tools/sharded_check.py [--no-batched] [--no-modes]
 
-Builds the probe kernel, then runs ``chip_smoke.py``'s phase 3 (the
-batched summarizer at ``full_config()``), its phase 11
-(``ShardedSummarizer(full_config(), n_shards=4)``) over the same stream
-of ``chip_smoke.NODES`` BA nodes, and its phase 12 (the router's paths
-card vs CPU and ``serve_summary``), so that the two paths' us per change come from
-one card in one call.  Each phase fails the run as it does there.
-Writes the results to ``build/sharded_check.json``.
+Builds the probe kernel, then runs ``chip_smoke.py``'s stacked probe
+check of phase 2 (a ``[4, 2^20]`` table as row jobs and as one stacked
+job), its phase 3 (the batched summarizer at ``full_config()``; skipped
+with ``--no-batched``), its phase 11 (``ShardedSummarizer(full_config(),
+n_shards=4)``, the card's default ``replica_exec="vmap"``) over the same
+stream of ``chip_smoke.NODES`` BA nodes, its phase 19 (``"map"`` and
+``"vmap"`` side by side, leaf-bitwise; skipped with ``--no-modes``) and
+its phase 12 (the router's paths card vs CPU and ``serve_summary``), so
+that the paths' us per change come from one card in one call.  Each
+phase fails the run as it does there.  Writes the results to
+``build/sharded_check.json``.
 """
 from __future__ import annotations
 
@@ -35,17 +39,26 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     chip_smoke.log(f"card: {smi}; torch {torch.__version__}")
     _build.build_all([ht_probe.SOURCE])
-    out = dict(card=smi,
-               batched=chip_smoke.main_path(chip_smoke.NODES, 4, 0)[0])
+    chip_smoke.load_rates()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = dict(card=smi, stacked=chip_smoke.stacked_vs_plain(gen))
     torch.cuda.empty_cache()
-    out["sharded"] = chip_smoke.sharded_path(chip_smoke.NODES, 4, 0)[0]
+    if "--no-batched" not in sys.argv:
+        out["batched"] = chip_smoke.main_path(chip_smoke.NODES, 4, 0)[0]
+        torch.cuda.empty_cache()
+    out["sharded"], ss, stream = chip_smoke.sharded_path(chip_smoke.NODES,
+                                                         4, 0)
+    del ss
     torch.cuda.empty_cache()
+    if "--no-modes" not in sys.argv:
+        out["modes"] = chip_smoke.replica_exec_modes(stream)
     out["router_paths"] = chip_smoke.sharded_router_paths(0)
-    sh, ba = out["sharded"], out["batched"]
-    chip_smoke.log(
-        f"sharded / batched us per change: "
-        f"{sh['us_per_change'] / ba['us_per_change']:.3f} (later: "
-        f"{sh['later_us_per_change'] / ba['later_us_per_change']:.3f})")
+    sh, ba = out["sharded"], out.get("batched")
+    if ba:
+        chip_smoke.log(
+            f"sharded / batched us per change: "
+            f"{sh['us_per_change'] / ba['us_per_change']:.3f} (later: "
+            f"{sh['later_us_per_change'] / ba['later_us_per_change']:.3f})")
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "sharded_check.json").write_text(
         json.dumps(out, indent=1, default=str))
