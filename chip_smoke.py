@@ -80,13 +80,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    configurations of internlm2-20b, llama3-405b, granite-moe-3b-a800m and
    moonshot-v1-16b-a3b at T = 256, card (kernel) against CPU (plain),
    rtol = atol = 1e-4;
-11. sharded path: ``ShardedSummarizer(full_config(), device="cuda",
-   n_shards=4)`` (device routing, ``router_chunk`` 1024, the card's
-   default ``replica_exec="vmap"``: one stacked step) over the first
-   ``SHARDED_CHANGES`` (two router chunks) of phase 3's stream, cut to
-   keep the script inside its time limit; the probe kernel's launch
-   count must move, ``phi ==
-   phi_recomputed()``, the merged lossless decode and ``live_edges()``
+11. sharded path: ``ShardedSummarizer(full_config(), device="cuda:0",
+   n_shards=4)`` (one card on any host; device routing, ``router_chunk``
+   1024, the card's default ``replica_exec="vmap"``: one stacked step)
+   over the first ``SHARDED_CHANGES`` (two router chunks) of phase 3's
+   stream, cut to keep the script inside its time limit; the probe
+   kernel's launch count must move, ``phi == phi_recomputed()``, the
+   merged lossless decode and ``live_edges()``
    must equal the stream's live edge set, and sharded degree / has_edge /
    neighbors reads from a ``query()`` snapshot must agree with it; us per
    change, probe launches and jobs per change, the largest lanes per
@@ -218,13 +218,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``llama3-405b`` ``train_4k`` at the 16 x 16 production mesh (a fake
    process group of 256 ranks), each rank's GB beside the card's 80;
 19. ``replica_exec``, after phase 11: ``ShardedSummarizer(
-   full_config(), n_shards=4)`` under ``"map"`` and ``"vmap"`` side by
-   side over the first 1,024 changes of phase 11's stream, in ``process``
-   calls of 256 (the router chunk), every replica and intern leaf equal
-   on the card after each call and after the flush, and ``stats()``
-   equal; per mode us per change, probe launches and jobs per change,
-   host syncs per change, the replicas' bytes, the peak above them while
-   stepping and a ``query()`` snapshot's bytes.
+   full_config(), device="cuda:0", n_shards=4)`` under ``"map"`` and
+   ``"vmap"`` side by side over the first 512 changes of phase 11's
+   stream, in ``process`` calls of 256 (the router chunk), every replica
+   and intern leaf equal on the card after each call and after the
+   flush, and ``stats()`` equal; per mode us per change, probe launches
+   and jobs per change, host syncs per change, the replicas' bytes, the
+   peak above them while stepping and a ``query()`` snapshot's bytes.
+   The ``"vmap"`` run's replicas after each call and the flush are kept
+   on the card for phase 20;
+20. the mesh, after phase 19: ``ShardedSummarizer(full_config(),
+   mesh=EngineMesh(devices), n_shards=4)`` over phase 19's changes and
+   calls, ``devices`` the first 4 cards (2 on a host of 2 or 3), or
+   ``["cuda:0"] * 4`` on a host of one, its positions stepped in turn
+   (the default); under ``"vmap"`` over phase 19's changes and ``"map"``
+   over its first call (at one replica a position the two step alike),
+   every replica and intern leaf equal on the card to phase 19's
+   one-position run after each call and after the flush, the engine
+   counters of ``stats()`` equal to that run's at the same point; per
+   mode us per change, host reads and probe launches per change by
+   position, the peak memory of each card;
+   then one hub chunk at ``lane_cap`` 2 (the star of JAX's
+   ``tests/test_router.py:409``, 90 leaves, ``router_chunk`` 128) on 4 ×
+   ``smoke_config()`` (the route stage's skew does not depend on the
+   engine's size; at ``full_config()`` the two runs took 40 s on an
+   H100), which
+   must take at least two drain rounds, leaf-bitwise to the same chunk
+   at one position.
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -258,8 +278,11 @@ STACKED = (4, 1 << 20, 16384)     # replicas, cap, lanes of the stacked form
 NODES = 600                       # BA nodes of the main path's stream
 SHARDS = 4                        # replicas of the sharded path (phase 11)
 SHARDED_CHANGES = 1280            # phase 11: the first changes of the stream
-MODES_CHANGES = 1024              # phase 19: map and vmap on these changes
-MODES_CHUNK = 256                 # phase 19: router chunk = process call
+MODES_CHANGES = 512               # phases 19-20: map and vmap on these changes
+MODES_CHUNK = 256                 # phases 19-20: router chunk = process call
+MESH_POSITIONS = 4                # phase 20: mesh positions (one per shard)
+HUB_LEAVES = 90                   # phase 20: the hub chunk's star
+HUB_CHUNK = 128                   # phase 20: its router chunk
 RECOVERY_CHUNKS = 2               # phase 13: chunks of phase 3's stream
 REBUILD_TINY_CAPS = (8, 16, 32)   # phase 15(a): tables with wrapped runs
 REBUILD_CAPS = (1 << 16, 1 << 20)  # phase 15(a): at 53% and 70%
@@ -982,7 +1005,7 @@ def sharded_path(nodes: int, deg: int, seed: int) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ss = ShardedSummarizer(cfg, device="cuda", n_shards=SHARDS)
+    ss = ShardedSummarizer(cfg, device="cuda:0", n_shards=SHARDS)
     torch.cuda.synchronize()
     state_bytes = torch.cuda.memory_allocated() - base
     if ss.replica_exec != "vmap":
@@ -1121,8 +1144,8 @@ def replica_exec_modes(stream) -> dict:
     import torch
     from repro_torch.configs.mosso_stream import full_config
     from repro_torch.core.engine import ShardedSummarizer
-    from repro_torch.core.engine.hashtable import HashTable
     from repro_torch.core.engine.ops import host_read
+    from repro_torch.core.engine.state import copy_state
     from repro_torch.kernels import ops
 
     cfg = full_config()
@@ -1132,7 +1155,8 @@ def replica_exec_modes(stream) -> dict:
     torch.cuda.synchronize()
     for mode in modes:
         before = torch.cuda.memory_allocated()
-        runs[mode] = ShardedSummarizer(cfg, device="cuda", n_shards=SHARDS,
+        runs[mode] = ShardedSummarizer(cfg, device="cuda:0",
+                                       n_shards=SHARDS,
                                        router_chunk=MODES_CHUNK,
                                        replica_exec=mode)
         torch.cuda.synchronize()
@@ -1140,22 +1164,12 @@ def replica_exec_modes(stream) -> dict:
                          seconds=0.0, launches=0, jobs=0, syncs=0,
                          step_peak_bytes=0)
 
-    def leaves(st):
-        for f in dataclasses.fields(st):
-            v = getattr(st, f.name)
-            if isinstance(v, HashTable):
-                yield from ((f"{f.name}.{w}", getattr(v, w))
-                            for w in ("k1", "k2", "val"))
-            else:
-                yield f.name, v
+    snapshots = []      # the vmap run after each call and the flush
 
     def equal(what: str) -> None:
-        for part in ("_est", "_ist"):
-            for (k, a), (_, b) in zip(leaves(getattr(runs["map"], part)),
-                                      leaves(getattr(runs["vmap"], part))):
-                if a.dtype != b.dtype or not torch.equal(a, b):
-                    raise AssertionError(f"replica_exec map vs vmap: leaf "
-                                         f"{k} differs {what}")
+        a, b = ((runs[mode]._est, runs[mode]._ist) for mode in modes)
+        check_blocks(a, b, f"replica_exec map vs vmap {what}")
+        snapshots.append([[copy_state(x) for x in part] for part in b])
 
     def timed(mode: str, fn) -> None:
         r = res[mode]
@@ -1220,7 +1234,211 @@ def replica_exec_modes(stream) -> dict:
     del runs
     torch.cuda.empty_cache()
     return dict(changes=n, shards=SHARDS, router_chunk=MODES_CHUNK,
-                calls=calls, stats=stats["vmap"], **res)
+                calls=calls, stats=stats["vmap"], **res), snapshots
+
+
+def _leaf_items(st):
+    """``(name, tensor)`` of every leaf of a state (each table word)."""
+    from repro_torch.core.engine.hashtable import HashTable
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        if isinstance(v, HashTable):
+            yield from ((f"{f.name}.{w}", getattr(v, w))
+                        for w in ("k1", "k2", "val"))
+        else:
+            yield f.name, v
+
+
+def check_blocks(got, want, what: str) -> None:
+    """Two runs' replicas (each ``(engine blocks, intern blocks)``, a
+    summarizer's ``(_est, _ist)``, split over any number of positions)
+    equal on the card, leaf for leaf in shard order: the blocks of each
+    leaf gathered on ``want``'s first device."""
+    import torch
+    for part, g_blocks, w_blocks in zip(("engine", "intern"), got, want):
+        g_items = [dict(_leaf_items(b)) for b in g_blocks]
+        w_items = [dict(_leaf_items(b)) for b in w_blocks]
+        for k, w0 in w_items[0].items():
+            dev = w0.device
+            a, b = (items[0][k] if len(items) == 1 else
+                    torch.cat([i[k].to(dev) for i in items])
+                    for items in (g_items, w_items))
+            if a.dtype != b.dtype or not torch.equal(a.to(dev), b):
+                raise AssertionError(f"{what}: {part} leaf {k} differs")
+
+
+ENGINE_COUNTERS = ("phi", "num_edges", "trials", "accepted", "skipped")
+
+
+def mesh_devices():
+    """Phase 20's positions: the first 4 cards (2 on a host of 2 or 3:
+    the 4 shards must split evenly), or one card at every position."""
+    import torch
+    count = torch.cuda.device_count()
+    if count >= 2:
+        n = MESH_POSITIONS if count >= MESH_POSITIONS else 2
+        return [f"cuda:{i}" for i in range(n)], f"{n} distinct cards"
+    return ["cuda:0"] * MESH_POSITIONS, "one card at every position"
+
+
+def mesh_path(stream, snapshots, modes: dict) -> dict:
+    """Phase 20: ``ShardedSummarizer(full_config(), mesh=EngineMesh(...),
+    n_shards=SHARDS)`` in phase 19's calls, under ``"vmap"`` over its
+    changes and ``"map"`` over its first call: every replica and intern
+    leaf equal on the card to phase 19's one-position run (``snapshots``:
+    after each call and the flush; the pipelined state after call k + 1
+    is the flushed state after call k) after each call and after the
+    flush; us per change (calls and flush, each ended by a sync of every
+    card), host reads and probe launches per change by position
+    (``None``: the route stage's reads), each card's peak above what it
+    held before.  Then one hub chunk at ``lane_cap`` 2 on the mesh and at
+    one position, at ``smoke_config()``, leaf-bitwise after the flush,
+    with at least two drain rounds."""
+    from collections import Counter
+
+    import torch
+    from repro_torch.configs.mosso_stream import full_config, smoke_config
+    from repro_torch.core.engine import ShardedSummarizer
+    from repro_torch.core.engine.ops import host_read, reset_host_reads
+    from repro_torch.dist import labelhash
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import EngineMesh
+
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    devices, layout = mesh_devices()
+    cards = sorted(set(devices))
+    log(f"phase 20: torch.cuda.device_count() = {count}; the mesh "
+        f"{devices} ({layout}); {SHARDS} x full_config over the first "
+        f"{MODES_CHANGES} changes of phase 11's stream in process calls of "
+        f"{MODES_CHUNK}, as phase 19")
+    cfg = full_config()
+    stream = stream[:MODES_CHANGES]
+    n = len(stream)
+    res = dict(device_count=count, devices=devices, layout=layout,
+               changes=len(stream), shards=SHARDS,
+               router_chunk=MODES_CHUNK)
+
+    def sync() -> None:
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    for mode, changes in (("vmap", stream), ("map", stream[:MODES_CHUNK])):
+        sync()
+        held = {c: torch.cuda.memory_allocated(c) for c in cards}
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        ss = ShardedSummarizer(cfg, mesh=EngineMesh(devices),
+                               n_shards=SHARDS, router_chunk=MODES_CHUNK,
+                               replica_exec=mode)
+        if len(ss._est) != len(devices):
+            raise AssertionError(f"phase 20: {len(ss._est)} positions")
+        r = dict(seconds=0.0, reads=Counter(), launches=Counter(), jobs=0)
+
+        def timed(fn) -> None:
+            ops.reset_counts()
+            reset_host_reads()
+            sync()
+            t = time.perf_counter()
+            fn()
+            sync()
+            r["seconds"] += time.perf_counter() - t
+            r["reads"].update(host_read.by_position)
+            r["launches"].update(ops.ht_probe.by_position)
+            r["jobs"] += ops.ht_probe.jobs
+
+        calls, n = 0, len(changes)
+        for off in range(0, n, MODES_CHUNK):
+            timed(lambda: ss.process(changes[off:off + MODES_CHUNK]))
+            check_blocks((ss._est, ss._ist), snapshots[calls],
+                         f"phase 20 {mode}: the mesh vs one position after "
+                         f"process call {calls + 1}")
+            calls += 1
+        timed(ss.flush)
+        check_blocks((ss._est, ss._ist), snapshots[calls],
+                     f"phase 20 {mode}: the mesh vs one position after the "
+                     f"flush")
+        stats = ss.stats()
+        want = (modes["stats"] if n == len(stream) else
+                {k: sum(int(getattr(snapshots[calls][0][d], name).sum())
+                        for d in range(len(snapshots[calls][0])))
+                 for k, name in zip(ENGINE_COUNTERS, (
+                     "phi", "num_edges", "n_trials", "n_accept",
+                     "n_skipped"))})
+        bad = [k for k in ENGINE_COUNTERS if stats[k] != want[k]]
+        if bad or sum(r["launches"].values()) == 0:
+            raise AssertionError(f"phase 20 {mode}: counters {bad} differ "
+                                 f"from phase 19's, or no probe launch: "
+                                 f"{stats} {dict(r['launches'])}")
+        peak = {c: torch.cuda.max_memory_allocated(c) - held[c]
+                for c in cards}
+        one = modes[mode]
+        out = dict(changes=n, seconds=r["seconds"],
+                   us_per_change=1e6 * r["seconds"] / n,
+                   reads_per_change={str(k): v / n
+                                     for k, v in sorted(r["reads"].items(),
+                                                        key=str)},
+                   launches_per_change={str(k): v / n for k, v in sorted(
+                       r["launches"].items(), key=str)},
+                   jobs_per_change=r["jobs"] / n,
+                   peak_bytes=peak, stats=stats,
+                   one_position=dict(us_per_change=one["us_per_change"],
+                                     syncs_per_change=one["syncs_per_change"],
+                                     launches_per_change=one[
+                                         "launches_per_change"]))
+        res[mode] = out
+        log(f"phase 20 {mode}: the mesh == one position over {n} changes, "
+            f"every replica and intern leaf after each of {calls} calls and "
+            f"the flush; "
+            f"{out['us_per_change']:.1f} us/change (one position, phase 19: "
+            f"{one['us_per_change']:.1f}); host reads per change by "
+            f"position {out['reads_per_change']} (one position: "
+            f"{one['syncs_per_change']:.2f} in all); probe launches per "
+            f"change by position {out['launches_per_change']} (one "
+            f"position: {one['launches_per_change']:.2f}); peak above the "
+            f"held memory by card "
+            + ", ".join(f"{c}: {b / 2**30:.3f} GiB" for c, b in peak.items()))
+        del ss
+        torch.cuda.empty_cache()
+
+    # the hub chunk: a star whose centre's hash undercuts every leaf's, so
+    # every change routes to one shard, 2 a (source, shard) lane and round
+    leaves = [f"x{i:03d}" for i in range(HUB_LEAVES)]
+    lo = min(labelhash.hash_label(x) for x in leaves)
+    hub = next(h for h in (f"hub{j}" for j in range(100_000))
+               if labelhash.hash_label(h) < lo)
+    chunk = [(hub, x, True) for x in leaves]
+    runs = {name: ShardedSummarizer(smoke_config(), n_shards=SHARDS,
+                                    router_chunk=HUB_CHUNK, lane_cap=2, **kw)
+            for name, kw in (("mesh", dict(mesh=EngineMesh(devices))),
+                             ("one", dict(device="cuda:0")))}
+    for ss in runs.values():
+        ss.process(chunk)
+        ss.flush()
+    mesh, one = runs["mesh"], runs["one"]
+    check_blocks((mesh._est, mesh._ist), (one._est, one._ist),
+                 "phase 20 hub chunk: the mesh vs one position")
+    hub_stats = {name: ss.stats() for name, ss in runs.items()}
+    rounds = hub_stats["mesh"]["router_drain_rounds"] + 1
+    bad = [k for k in ENGINE_COUNTERS
+           if hub_stats["mesh"][k] != hub_stats["one"][k]]
+    if rounds < 2 or bad or hub_stats["mesh"]["router_overflows"]:
+        raise AssertionError(f"phase 20 hub chunk: {rounds} drain rounds, "
+                             f"counters {bad} differ: {hub_stats}")
+    res["hub"] = dict(leaves=HUB_LEAVES, router_chunk=HUB_CHUNK, lane_cap=2,
+                      drain_rounds=rounds,
+                      one_position_drain_rounds=hub_stats["one"][
+                          "router_drain_rounds"] + 1,
+                      stats=hub_stats["mesh"])
+    del runs, mesh, one, ss
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 20 hub chunk: {HUB_LEAVES} changes to one shard at lane_cap "
+        f"2, {rounds} drain rounds on the mesh "
+        f"({res['hub']['one_position_drain_rounds']} at one position), "
+        f"every leaf equal to one position's; phase 20 "
+        f"{res['seconds']:.1f} s")
+    return res
 
 
 def intern_vs_plain(sharded: dict, gen) -> int:
@@ -1318,30 +1536,30 @@ def sharded_router_paths(seed: int) -> dict:
     for name, (changes, kw) in cases.items():
         runs = {dev: ShardedSummarizer(cfg, device=dev, n_shards=3,
                                        router_chunk=chunk, **kw)
-                for dev in ("cuda", "cpu")}
+                for dev in ("cuda:0", "cpu")}
         ops.reset_counts()
         calls = 0
         for off in range(0, len(changes), chunk):
             for ss in runs.values():
                 ss.process(changes[off:off + chunk])
-            _check_leaves(_replica_leaves(runs["cuda"]),
+            _check_leaves(_replica_leaves(runs["cuda:0"]),
                           _replica_leaves(runs["cpu"]),
                           f"{name} call {calls} card vs cpu")
             calls += 1
         stats = {dev: ss.stats() for dev, ss in runs.items()}   # flushed
-        final[name] = _replica_leaves(runs["cuda"])
-        if stats["cuda"] != stats["cpu"]:
+        final[name] = _replica_leaves(runs["cuda:0"])
+        if stats["cuda:0"] != stats["cpu"]:
             raise AssertionError(f"{name}: stats differ {stats}")
         if ops.ht_probe.launches == 0:
             raise AssertionError(f"{name} launched no probe kernel")
         truth = live_edges(changes)
-        if runs["cuda"].materialize().decode_edges() != truth:
+        if runs["cuda:0"].materialize().decode_edges() != truth:
             raise AssertionError(f"{name}: lossless decode failed")
-        out[name] = dict(calls=calls, stats=stats["cuda"],
+        out[name] = dict(calls=calls, stats=stats["cuda:0"],
                          probe_launches=ops.ht_probe.launches)
         log(f"sharded router paths: {name}: card == cpu, every replica "
             f"leaf bitwise after each of {calls} process calls; "
-            f"{ops.ht_probe.launches} probe launches; {stats['cuda']}")
+            f"{ops.ht_probe.launches} probe launches; {stats['cuda:0']}")
     _check_leaves(final["device"], final["host"],
                   "device routing vs host routing on the card")
     s = out["skew_lane_cap_2"]["stats"]
@@ -1350,7 +1568,8 @@ def sharded_router_paths(seed: int) -> dict:
         raise AssertionError(f"the skew cases did not drain: {s} {b}")
     log("sharded router paths: device routing == host routing on the card, "
         "bitwise after the stream")
-    ss = ShardedSummarizer(cfg, device="cuda", n_shards=3, router_chunk=chunk)
+    ss = ShardedSummarizer(cfg, device="cuda:0", n_shards=3,
+                           router_chunk=chunk)
     t = time.perf_counter()
     served = serve_summary(ss, stream, reads_per_chunk=16, verify=True,
                            seed=seed)
@@ -1618,7 +1837,7 @@ def sharded_checkpoint(ss, stream, seed: int) -> dict:
         save_s = time.perf_counter() - t
         parts = dict(checkpointer.save_seconds)
         n_bytes = _dir_bytes(path)
-        fresh = ShardedSummarizer(full_config(), device="cuda",
+        fresh = ShardedSummarizer(full_config(), device="cuda:0",
                                   n_shards=ss.n_shards,
                                   router_chunk=ss.router_chunk)
         ops.reset_counts()
@@ -3769,8 +3988,12 @@ def main() -> int:
     # saves and recovers stacked summarizers on the card)
     del ss
     torch.cuda.empty_cache()
-    # 19. replica_exec "map" and "vmap" side by side, leaf-bitwise
-    modes = replica_exec_modes(sharded_stream)
+    # 19. replica_exec "map" and "vmap" side by side, leaf-bitwise; 20. the
+    # same changes over a mesh of positions, leaf-bitwise to phase 19's
+    modes, snapshots = replica_exec_modes(sharded_stream)
+    mesh_res = mesh_path(sharded_stream, snapshots, modes)
+    del snapshots
+    torch.cuda.empty_cache()
     #     the probe kernel at phase 11's shapes on full-size intern tables
     max_err = max(max_err, intern_vs_plain(sharded, gen))
     router_paths = sharded_router_paths(seed)
@@ -3792,6 +4015,7 @@ def main() -> int:
         attention_rows=attn_rows, lm_card_vs_cpu=lm_a, lm_prefill=lm_b,
         lm_serve=lm_c, lm_smoke_archs=lm_d, sharded=sharded,
         sharded_router_paths=router_paths, replica_exec_modes=modes,
+        mesh=mesh_res,
         batched_recovery=recovery, sharded_kill_bar=kill_bar,
         summarize_stream=driver, rebuild_kernel_vs_plain=rebuild_a,
         rebuild_full_size=rebuild_b,
@@ -3817,6 +4041,10 @@ def main() -> int:
                      mode: {k: modes[mode][k] for k in (
                          "us_per_change", "launches_per_change",
                          "jobs_per_change", "syncs_per_change")}
+                     for mode in ("map", "vmap")},
+                 mesh_devices=mesh_res["devices"],
+                 mesh_launches_per_change={
+                     mode: mesh_res[mode]["launches_per_change"]
                      for mode in ("map", "vmap")},
                  sharded_max_lanes_per_job=sharded["max_lanes_per_job"],
                  recovery_launches=recovery["recovery_probe_launches"],

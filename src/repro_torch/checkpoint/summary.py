@@ -44,8 +44,9 @@ break bitwise replay, which is worse.  Execution *variants* that are
 leaf-bitwise state-identical by the standing differential bar —
 ``replica_exec``, ``trial_backend`` (the port records its probe route),
 ``routing``, the device count — are recorded informationally but NOT
-pinned: a checkpoint the JAX package took on an 8-device mesh restores
-onto the port's one card (same ``n_shards``), which is the elastic leg.
+pinned: a checkpoint taken on a mesh of 8 devices or positions, by
+either package, restores onto 1 or 4 (same ``n_shards``; the rows split
+over the live mesh), which is the elastic leg.
 
 Retention: the newest :data:`KEEP_EPOCHS` checkpoints are kept and the
 journal is compacted to the *oldest* retained checkpoint's sequence

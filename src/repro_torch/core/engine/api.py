@@ -1,8 +1,9 @@
 """Host-side front-ends around the batched engine.
 
 Port of ``repro/core/engine/api.py``: :class:`BatchedSummarizer` (one
-engine), :class:`ShardedSummarizer` (``n_shards`` engine replicas on one
-device, edge-partitioned by label hash) and the state-level exports
+engine), :class:`ShardedSummarizer` (``n_shards`` engine replicas over
+the positions of an engine mesh, edge-partitioned by label hash) and the
+state-level exports
 (:func:`state_live_edges`, :func:`state_materialize`,
 :func:`state_phi_recomputed`), and both tiers' crash consistency: epoch
 checkpoints and the write-ahead chunk journal (``checkpoint_dir``,
@@ -11,6 +12,7 @@ checkpoints and the write-ahead chunk journal (``checkpoint_dir``,
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -29,6 +31,7 @@ from repro_torch.core.summary import (ShardedSummaryOutput, SummaryOutput,
                                       is_superedge, pair_key)
 from repro_torch.device import resolve_device
 from repro_torch.dist import labelhash, router
+from repro_torch.launch.mesh import EngineMesh, make_engine_mesh
 
 Change = Tuple[int, int, bool]
 
@@ -479,17 +482,37 @@ def _relabel_output(out: SummaryOutput, rev: Sequence[object],
     )
 
 
-def _dropped(interns) -> int:
-    """Dropped endpoint interns over all replicas (one read)."""
-    return int(torch.stack([i.n_dropped for i in interns]).sum())
+def _dropped(blocks) -> int:
+    """Dropped endpoint interns over all replicas: one read a block (a
+    position's stacked ``InternState``)."""
+    return sum(int(i.n_dropped.sum()) for i in blocks)
+
+
+def _mesh(mesh: Optional[EngineMesh], device, n_shards: Optional[int],
+          ) -> EngineMesh:
+    """The summarizer's engine mesh: ``mesh``, or one made from ``device``
+    as the JAX package makes its default (the first ``gcd(n_shards,
+    device_count)`` cards, all of them without ``n_shards``) on
+    ``"cuda"``; a mesh of one position on an indexed CUDA device or the
+    CPU."""
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass mesh= or device=, not both")
+        return mesh
+    dev = resolve_device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        if n_shards is None:
+            return make_engine_mesh()
+        return make_engine_mesh(math.gcd(int(n_shards),
+                                         torch.cuda.device_count()))
+    return EngineMesh([dev])
 
 
 class ShardedSummarizer(_CrashConsistency):
-    """Edge-partitioned summarization: ``n_shards`` engine replicas on one
-    device.
+    """Edge-partitioned summarization: ``n_shards`` engine replicas over
+    the ``n_dev`` positions of an engine mesh.
 
-    Port of the JAX package's ``ShardedSummarizer`` on one card
-    (``n_dev = 1``; its ``n_shards > n_devices`` layout).  Every change is
+    Port of the JAX package's ``ShardedSummarizer``.  Every change is
     routed to the shard owning its canonical pair, ``min(h(u), h(v)) %
     n_shards`` over the stable 62-bit label hash ``h``
     (:mod:`repro_torch.dist.labelhash`), so each replica summarizes a
@@ -519,30 +542,53 @@ class ShardedSummarizer(_CrashConsistency):
     suffix through the host path (``router_overflows``).  ``"host"``
     buckets on the host: the differential reference.
 
-    **Replicas** (``replica_exec=``): the replicas are one stacked state
-    (every leaf ``[n_shards, ...]``; ``states`` and ``interns`` are its
-    rows, views that show every write), stepped as one batch a round
-    (``"vmap"``, the default on a CUDA device) or row by row (``"map"``,
-    the default on the CPU); both are leaf-bitwise equal
-    (:mod:`repro_torch.dist.router`).
+    **Mesh** (``mesh=``, an :class:`~repro_torch.launch.mesh.EngineMesh`):
+    ``n_loc = n_shards // n_dev`` replicas at each position, shard ``s``
+    at position ``s // n_loc`` (``n_shards % n_dev`` raises), as JAX's
+    ``shard_map`` lays them over its devices.  One process drives every
+    position, as one host drives JAX's mesh; a device may stand at
+    several positions (``EngineMesh(["cuda:0"] * 4)`` on one card,
+    ``["cpu"] * 8`` for JAX's eight fake host devices).  Without
+    ``mesh``, ``device="cuda"`` (the default) takes JAX's default mesh:
+    the first ``gcd(n_shards, device_count)`` cards, or every card and
+    one shard each without ``n_shards``; an indexed device (``"cuda:1"``)
+    or ``"cpu"`` is a mesh of one position.  ``router_chunk`` is rounded
+    up to a multiple of ``n_dev``.  The route stage exchanges the lanes
+    between positions (peer copies between distinct cards) and the engine
+    stage steps the positions in turn.  The step is bound by the host
+    (about 20 host reads a change), so on a host of several cards the
+    default mesh takes longer a change than ``device="cuda:0"``, which
+    steps every replica as one stack (``PERF.md`` §6): the mesh buys
+    room, each card holding only its positions' replicas, not speed.
+
+    **Replicas** (``replica_exec=``): each position's replicas are one
+    stacked state (every leaf ``[n_loc, ...]``; ``states`` and
+    ``interns`` are the rows of all positions in shard order, views that
+    show every write), stepped as one batch a round (``"vmap"``, the
+    default on a CUDA device) or row by row (``"map"``, the default on the
+    CPU); both are leaf-bitwise equal (:mod:`repro_torch.dist.router`).
 
     **Capacity.**  A shard past ``n_cap`` drops the endpoint intern and
     skips the change; the next sync point (``phi``/``stats``/
     ``materialize``/...) raises ``RuntimeError``.
 
-    **Device.**  The replicas live on ``device`` (default ``"cuda"``);
-    every table probe, the intern pre-lookups and inserts included, runs
-    the probe kernel there.  With no CUDA device visible the constructor
-    raises unless ``device="cpu"`` is passed.
+    **Device.**  Each position's replicas live on its device; every table
+    probe, the intern pre-lookups and inserts included, runs the probe
+    kernel there.  With no CUDA device visible the constructor raises
+    unless ``device="cpu"`` (or a mesh of CPU positions) is passed.
 
     **Crash consistency.**  With ``checkpoint_dir`` every ``router_chunk``
     slice is journaled before it is routed; ``save()`` flushes the
     pipeline and writes the replicas, the interns, the drain telemetry and
-    the folded hash -> label map in the JAX package's stacked layout and
-    on-disk format (:class:`_CrashConsistency`).
+    the folded hash -> label map in the JAX package's stacked layout
+    (all ``n_shards`` rows in shard order) and on-disk format
+    (:class:`_CrashConsistency`).  The manifest records ``n_devices``
+    without pinning it: a checkpoint written at 8 positions restores at
+    1 and the reverse, here and in the JAX package.
     """
 
-    def __init__(self, cfg: EngineConfig | None = None, *, device="cuda",
+    def __init__(self, cfg: EngineConfig | None = None, *,
+                 mesh: Optional[EngineMesh] = None, device=None,
                  n_shards: Optional[int] = None, routing: str = "device",
                  router_chunk: int = 1024, lane_cap: Optional[int] = None,
                  max_drain_rounds: Optional[int] = None,
@@ -554,11 +600,18 @@ class ShardedSummarizer(_CrashConsistency):
         elif overrides:
             cfg = dataclasses.replace(cfg, **overrides)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = _mesh(mesh, device, n_shards)
+        self.devices: List[torch.device] = [
+            resolve_device(d) for d in self.mesh.devices]
+        self.device = self.devices[0]
         self.replica_exec = router.check_replica_exec(replica_exec,
                                                       self.device)
-        n_dev = 1
+        n_dev = len(self.devices)
         self.n_shards = n_dev if n_shards is None else int(n_shards)
+        if self.n_shards % n_dev != 0:
+            raise ValueError(
+                f"n_shards={self.n_shards} must be a multiple of the mesh "
+                f"device count {n_dev}")
         if self.n_shards >= router.MAX_SHARDS:
             raise ValueError(
                 f"n_shards={self.n_shards} must be < {router.MAX_SHARDS} "
@@ -567,10 +620,12 @@ class ShardedSummarizer(_CrashConsistency):
         if routing not in ("device", "host"):
             raise ValueError(f"routing must be 'device' or 'host': {routing}")
         self.routing = routing
-        self.router_chunk = int(router_chunk)
+        # rounded up so that the chunk splits evenly over the positions
+        self.router_chunk = -(-int(router_chunk) // n_dev) * n_dev
         self.lane_cap = (router.default_lane_cap(
             self.router_chunk, n_dev, self.n_shards, cfg.batch)
-            if lane_cap is None else min(int(lane_cap), self.router_chunk))
+            if lane_cap is None
+            else min(int(lane_cap), self.router_chunk // n_dev))
         self.router_overflows = 0   # changes spilled to the host path
         self.router_syncs = 0       # per-chunk watermark fetches
         self.chunk_sync = bool(chunk_sync)
@@ -578,7 +633,7 @@ class ShardedSummarizer(_CrashConsistency):
         self._bucketed = router.make_bucketed_step(cfg, self.replica_exec)
         if routing == "device":
             self._route, self.router_geometry = router.make_route_step(
-                self.n_shards, self.router_chunk, self.lane_cap,
+                n_dev, self.n_shards, self.router_chunk, self.lane_cap,
                 max_drain_rounds)
             self._engine = router.make_engine_step(
                 cfg, self.n_shards, self.router_geometry.acc_cap,
@@ -597,12 +652,17 @@ class ShardedSummarizer(_CrashConsistency):
         self._epoch = 0             # engine stages applied to the replicas
         self._init_crash_consistency(checkpoint_dir)
 
-        est = stack_states([new_state(cfg, self.device)] * self.n_shards)
-        est.step_no.copy_(torch.tensor(
-            [router.shard_step_no(cfg.seed, s) for s in range(self.n_shards)],
-            dtype=torch.int64))
-        self._set_replicas(est, stack_states(
-            [router.intern_new(cfg, self.device)] * self.n_shards))
+        n_loc = self.n_shards // n_dev
+        ests, ists = [], []
+        for d, dev in enumerate(self.devices):
+            est = stack_states([new_state(cfg, dev)] * n_loc)
+            est.step_no.copy_(torch.tensor(
+                [router.shard_step_no(cfg.seed, s)
+                 for s in range(d * n_loc, (d + 1) * n_loc)],
+                dtype=torch.int64))
+            ests.append(est)
+            ists.append(stack_states([router.intern_new(cfg, dev)] * n_loc))
+        self._set_replicas(ests, ists)
 
         self._h2label: Dict[int, object] = {}  # 62-bit hash -> caller label
         self._label_buf: List = []   # (labels, hi, lo) pending lazy fold
@@ -611,13 +671,17 @@ class ShardedSummarizer(_CrashConsistency):
         self._in_dispatch = False
         self._host_cache = None
 
-    def _set_replicas(self, est: EngineState,
-                      ist: "router.InternState") -> None:
-        """Hold the stacked replicas and their rows (``states`` and
+    def _set_replicas(self, ests: Sequence[EngineState],
+                      ists: Sequence["router.InternState"]) -> None:
+        """Hold each position's stacked replicas (``_est[d]``,
+        ``_ist[d]``) and their rows in shard order (``states`` and
         ``interns``: views, which every write of the engine shows)."""
-        self._est, self._ist = est, ist
-        self.states: List[EngineState] = state_rows(est)
-        self.interns: List[router.InternState] = state_rows(ist)
+        self._est, self._ist = list(ests), list(ists)
+        self._intern_rows = [state_rows(i) for i in self._ist]
+        self.states: List[EngineState] = [
+            row for est in self._est for row in state_rows(est)]
+        self.interns: List[router.InternState] = [
+            row for rows in self._intern_rows for row in rows]
 
     # ------------------------------------------------------------------ ids
     def _pack_chunk(self, chunk: Sequence[Change], pad_to: int = 0):
@@ -781,7 +845,7 @@ class ShardedSummarizer(_CrashConsistency):
                     buh[s, :k], bul[s, :k] = uh[sel], ul[sel]
                     bvh[s, :k], bvl[s, :k] = vh[sel], vl[sel]
                     bfl[s, :k] = fl[sel]
-            self._bucketed(self._est, self.interns, buh, bul, bvh, bvl,
+            self._bucketed(self._est, self._intern_rows, buh, bul, bvh, bvl,
                            bfl)
         self._epoch += 1
         self._host_cache = None
@@ -792,8 +856,12 @@ class ShardedSummarizer(_CrashConsistency):
         """Device routing: the route stage, then the engine stage of the
         previous routed chunk (pipelined) or of this one."""
         packed = np.stack(self._pack_chunk(chunk, pad_to=self.router_chunk))
-        words = torch.from_numpy(packed).to(self.device).unbind(0)
-        buckets, _, delivered, rounds = self._route(*words)
+        n_in = self.router_chunk // len(self.devices)
+        # position d's slice of the chunk, on its device
+        words = [torch.from_numpy(np.ascontiguousarray(
+            packed[:, d * n_in:(d + 1) * n_in])).to(dev)
+            for d, dev in enumerate(self.devices)]
+        buckets, _, delivered, rounds = self._route(words)
         routed = (buckets, rounds)
         self._host_cache = None
         if len(self._label_buf) >= 128:
@@ -812,7 +880,8 @@ class ShardedSummarizer(_CrashConsistency):
             self._process_chunk_host(chunk[delivered:])
 
     def _run_engine(self, routed) -> None:
-        self._engine(self._est, self.interns, self._drain_rounds, *routed)
+        self._engine(self._est, self._intern_rows, self._drain_rounds,
+                     *routed)
         self._epoch += 1
 
     def _flush_dispatch(self) -> None:
@@ -822,11 +891,12 @@ class ShardedSummarizer(_CrashConsistency):
             self._run_engine(prev)
 
     def flush(self) -> None:
-        """Barrier: drains the dispatch pipeline and waits for the
-        device."""
+        """Barrier: drains the dispatch pipeline and waits for every
+        position's device."""
         self._flush_dispatch()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def run(self, stream: Iterable[Change]) -> "ShardedSummarizer":
         self.process(list(stream))
@@ -862,16 +932,20 @@ class ShardedSummarizer(_CrashConsistency):
     def _host_fetch(self):
         self._flush_dispatch()
         if self._host_cache is None:
-            self._host_cache = (state_rows(copy_state(self._est, "cpu")),
-                                state_rows(copy_state(self._ist, "cpu")))
+            self._host_cache = tuple(
+                [row for blk in blocks
+                 for row in state_rows(copy_state(blk, "cpu"))]
+                for blocks in (self._est, self._ist))
         self._check_capacity()
         return self._host_cache
 
     def _check_capacity(self) -> None:
         self._flush_dispatch()
-        interns = (self._host_cache[1] if self._host_cache is not None
-                   else self.interns)
-        self._raise_if_dropped(_dropped(interns))
+        if self._host_cache is not None:   # the counters are on the host
+            dropped = sum(int(i.n_dropped) for i in self._host_cache[1])
+        else:
+            dropped = _dropped(self._ist)
+        self._raise_if_dropped(dropped)
 
     def _raise_if_dropped(self, dropped: int) -> None:
         if dropped:
@@ -893,10 +967,12 @@ class ShardedSummarizer(_CrashConsistency):
         return self.host_states()[shard]
 
     def _scalars(self, *names: str) -> np.ndarray:
-        """``int64[len(names), n_shards]``: state scalars of every replica,
-        in one read."""
-        return torch.stack([getattr(self._est, k).to(torch.int64)
-                            for k in names]).cpu().numpy()
+        """``int64[len(names), n_shards]``: state scalars of every replica
+        in shard order, one read a position."""
+        return np.concatenate(
+            [torch.stack([getattr(est, k).to(torch.int64)
+                          for k in names]).cpu().numpy()
+             for est in self._est], axis=1)
 
     def shard_phis(self) -> List[int]:
         self._check_capacity()
@@ -927,7 +1003,7 @@ class ShardedSummarizer(_CrashConsistency):
         self._fold_labels()
         phi, ne, tr, ac, sk = self._scalars(
             "phi", "num_edges", "n_trials", "n_accept", "n_skipped").sum(1)
-        self._raise_if_dropped(_dropped(self.interns))
+        self._raise_if_dropped(_dropped(self._ist))
         return dict(phi=int(phi), num_edges=int(ne), trials=int(tr),
                     accepted=int(ac), skipped=int(sk),
                     n_shards=self.n_shards, routing=self.routing,
@@ -944,12 +1020,14 @@ class ShardedSummarizer(_CrashConsistency):
     # ----------------------------------------------------- recovery closure
     def _ckpt_tree(self) -> dict:
         """Replicas and interns as host numpy copies in the JAX
-        package's stacked ``[R, ...]`` layout."""
+        package's stacked ``[n_shards, ...]`` layout, every position's
+        rows in shard order."""
         est, ist = router.sharded_state_to_numpy(self._est, self._ist)
         return {"est": _numpy_tree(est), "ist": _numpy_tree(ist)}
 
     def _ckpt_like(self) -> dict:
-        return {"est": _like_tree(self._est), "ist": _like_tree(self._ist)}
+        return {"est": _like_tree(self.states[0], stack=self.n_shards),
+                "ist": _like_tree(self.interns[0], stack=self.n_shards)}
 
     def _ckpt_host(self) -> dict:
         # host_label_map() drains the pipeline and folds the lazy label
@@ -973,7 +1051,7 @@ class ShardedSummarizer(_CrashConsistency):
                 "routing": self.routing,
                 "replica_exec": self.replica_exec,
                 "trial_backend": _probe_backend(self.device),
-                "n_devices": 1}
+                "n_devices": len(self.devices)}
 
     @staticmethod
     def _ckpt_pins() -> tuple:
@@ -983,11 +1061,12 @@ class ShardedSummarizer(_CrashConsistency):
                 "drain_geometry")
 
     def _ckpt_apply(self, tree: dict, host: dict, extra: dict) -> None:
-        # fresh tensors: a live query view may still hold the old ones
-        self._set_replicas(*router.sharded_state_from_numpy(
-            tree["est"], tree["ist"], self.device))
+        # fresh tensors: a live query view may still hold the old ones;
+        # the rows split over the live mesh, whatever mesh wrote them
+        self._set_replicas(*router.sharded_blocks_from_numpy(
+            tree["est"], tree["ist"], self.devices))
         self._drain_rounds = router.drain_telemetry_restore(
-            host["drain_rounds"], 1, self.device)
+            host["drain_rounds"], len(self.devices), self.device)
         self._h2label = dict(host["h2label"])
         self._label_buf = []
         self._label_head = None

@@ -38,6 +38,7 @@ R rows of a stacked table is one launch of R jobs.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable, Sequence, Tuple, Union
 
 import torch
@@ -50,6 +51,7 @@ from repro_torch.core.engine.hashtable import (M32, HashTable, Lane,
                                                mul_u32, probe_many, set_job,
                                                set_write, u32)
 from repro_torch.core.engine.state import NO_CLUSTER, EngineConfig, EngineState
+from repro_torch.device import current_position
 
 I32_MAX = 0x7FFFFFFF
 
@@ -62,13 +64,21 @@ Pred = Union[bool, torch.Tensor]
 
 
 def host_read(x: torch.Tensor) -> list:
-    """``x.tolist()``, counted in ``host_read.count``: on the card every
-    call is one device -> host sync."""
+    """``x.tolist()``, counted in ``host_read.count`` (and in
+    ``host_read.by_position`` under the current mesh position): on the
+    card every call is one device -> host sync."""
     host_read.count += 1
+    host_read.by_position[current_position()] += 1
     return x.tolist()
 
 
-host_read.count = 0
+def reset_host_reads() -> None:
+    """Set ``host_read.count`` and its counts by position to 0."""
+    host_read.count = 0
+    host_read.by_position = Counter()
+
+
+reset_host_reads()
 
 
 def pred(flags: Sequence[bool],

@@ -1,45 +1,64 @@
 """Stream router and node interning of the sharded tier, in torch.
 
-Port of ``repro/dist/router.py`` for one device (``n_dev = 1``): the
-``n_shards`` engine replicas of a :class:`~repro_torch.core.engine.api.
-ShardedSummarizer` all live on one card, as in the JAX package's
-``n_shards > n_devices`` layout, and the ``all_to_all`` of the route
-stage is the identity.  Placement, interning, the drain loop and the
-engine-round schedule are the JAX package's, so the replica states are
-leaf-bitwise equal to its ``ShardedSummarizer``'s.
+Port of ``repro/dist/router.py``: the ``n_shards`` engine replicas of a
+:class:`~repro_torch.core.engine.api.ShardedSummarizer` lie on the
+``n_dev`` positions of a 1-D mesh (:class:`~repro_torch.launch.mesh.
+EngineMesh`), ``n_loc = n_shards // n_dev`` of them stacked on each
+position's device; shard ``s`` lives at position ``s // n_loc``, row ``s
+% n_loc``, as in the JAX package's ``shard_map`` layout.  Placement,
+interning, the drain loop and the engine-round schedule are the JAX
+package's, so the replica states are leaf-bitwise equal to its
+``ShardedSummarizer``'s at any number of positions.
 
-**Stage 1, route** (:func:`make_route_step`, no state): shard keys
+**Positions.**  A position is what a device is in the JAX package's
+mesh.  One host process drives every position, as one host drives JAX's
+``shard_map``; a device may stand at several positions (``["cuda:0"] *
+4`` on one card, ``["cpu"] * 8`` in the CPU tests: the counterpart of
+JAX's ``--xla_force_host_platform_device_count``).  The engine stage
+steps the positions in turn (:func:`for_positions`), each under its
+device; the positions share no state, so the bits do not depend on the
+order.  JAX's devices run at once; the port's step is bound by its host
+reads, so four cards stepped in turn take longer than one card holding
+all four positions (``PERF.md``).
+
+**Stage 1, route** (:func:`make_route_step`, no state): position ``d``
+holds stream positions ``[d n_in, (d+1) n_in)`` of the chunk.  Shard keys
 ``min(h(u), h(v)) % n_shards`` over the two 31-bit label-hash words, the
-stable per-shard rank, the capacity bound of ``lane_cap`` changes per
-shard and round, and the drain loop: each round routes the pending stream
-prefix up to the first overflowing *position* and appends its changes at
-each shard's bucket watermark, so the buckets hold each shard's changes in
-stream order.  Eager torch runs the loop on the host: a round that can
-overflow reads its ``first`` position back (:func:`~repro_torch.core.
-engine.ops.host_read`); with ``lane_cap`` equal to the chunk
+stable rank of each change within its (source position, destination
+shard) lane, the capacity bound of ``lane_cap`` changes per lane and
+round, and the drain loop: each round routes the pending stream prefix up
+to the first overflowing *position* of any source (JAX's ``pmin``: one
+host read of every position's first, on the host's clock), scatters it
+into ``[n_dev, n_loc, lane_cap]`` lanes, and **exchanges** them: source
+``d``'s lanes for position ``j`` are copied to ``j``'s device (a peer
+copy between distinct cards, none where the device repeats), where ``j``
+flattens them source-major, which is stream order, and appends them at
+each shard's bucket watermark.  With ``lane_cap`` equal to ``n_in``
 (``static_no_overflow``) the one round reads nothing.
 
 **Stage 2, engine** (:func:`make_engine_step`): every replica interns its
 whole bucket first (:func:`intern_buckets`: first come, first served in
 delivery order, ``u`` before ``v``), then all replicas run ``max_s
-ceil(count_s / batch)`` engine rounds, padding-only rounds included, so
-that every replica's PRNG cursor advances in lockstep.  The route stage's
-extra drain rounds are folded into the carried telemetry
-(``telem += rounds - 1``).
+ceil(count_s / batch)`` engine rounds (JAX's ``pmax``, from the buckets
+the interning read), padding-only rounds included, so that every
+replica's PRNG cursor advances in lockstep.  The route stage's extra drain
+rounds are added to the carried telemetry (``int32[n_dev]``, one entry a
+position: ``telem += rounds - 1``).
 
-**Replica layout.**  The replicas are one stacked
+**Replica layout.**  Each position's replicas are one stacked
 :class:`~repro_torch.core.engine.state.EngineState` and one stacked
-:class:`InternState`, every leaf with a leading ``[R, ...]`` axis: the
-JAX package's layout, which :func:`sharded_state_from_numpy` /
-:func:`sharded_state_to_numpy` load and save without a copy per row.
-``replica_exec`` picks how the engine rounds step it, as in the JAX
-package, and both modes are leaf-bitwise equal:
+:class:`InternState`, every leaf with a leading ``[n_loc, ...]`` axis:
+the JAX package's layout, which :func:`sharded_state_from_numpy` /
+:func:`sharded_blocks_from_numpy` / :func:`sharded_state_to_numpy` load
+and save in shard order.  ``replica_exec`` picks how the engine rounds
+step a position's stack, as in the JAX package, and both modes are
+leaf-bitwise equal:
 
 * ``"vmap"`` steps the stacked state once per round
-  (:func:`~repro_torch.core.engine.trial.step_fn` over ``[R, B]``
-  changes): each probe is one launch of R jobs and each branch point of
-  the step one host read for all R replicas.  The default on a CUDA
-  device, as JAX's on an accelerator backend.
+  (:func:`~repro_torch.core.engine.trial.step_fn` over ``[n_loc, B]``
+  changes): each probe is one launch of ``n_loc`` jobs and each branch
+  point of the step one host read for the position's replicas.  The
+  default on a CUDA device, as JAX's on an accelerator backend.
 * ``"map"`` steps each replica's row in turn (R = 1 views): the
   reference that ``"vmap"`` is held to, and the default on the CPU, as
   JAX's on its CPU backend, so that the port and the JAX package run the
@@ -49,19 +68,20 @@ package, and both modes are leaf-bitwise equal:
 Interning works on the rows of the stacked intern state, which the
 router writes in place.
 
-**Interning.**  One probe launch resolves the ``2 R`` pre-lookups of a
-chunk (u and v of every replica, prehashed, against the tables at chunk
-entry), and one host read brings back the buckets, the pre-lookups and
-the counters.  The host then walks the endpoints that were not found, in
-order: the first occurrence of a key takes the next id and is inserted
-(one insert-mode probe launch and the writes, no sync), a repeat within
-the call gets the id just given.  The insert order is the table layout,
-so ``h2l`` matches JAX's slot for slot.
+**Interning.**  One probe launch a position resolves the ``2 n_loc``
+pre-lookups of a chunk (u and v of every replica, prehashed, against the
+tables at chunk entry), and one host read brings back the buckets, the
+pre-lookups and the counters.  The host then walks the endpoints that
+were not found, in order: the first occurrence of a key takes the next id
+and is inserted (one insert-mode probe launch and the writes, no sync), a
+repeat within the call gets the id just given.  The insert order is the
+table layout, so ``h2l`` matches JAX's slot for slot.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -74,6 +94,7 @@ from repro_torch.core.engine.state import (EngineConfig, EngineState,
                                            state_from_numpy, state_rows,
                                            state_to_numpy)
 from repro_torch.core.engine.trial import step_fn
+from repro_torch.device import at_position
 
 INVALID = -1
 
@@ -100,6 +121,18 @@ def check_replica_exec(replica_exec: Optional[str], device="cpu") -> str:
         raise ValueError(f"replica_exec must be one of "
                          f"{REPLICA_EXEC_MODES}: {replica_exec}")
     return replica_exec
+
+
+def for_positions(fn: Callable[[int], object],
+                  devices: Sequence[torch.device]) -> List[object]:
+    """``[fn(d) for d in range(n_dev)]``, in turn, each call under
+    position ``d`` (its device current, the counters counting under
+    ``d``: :func:`repro_torch.device.at_position`)."""
+    out = []
+    for d, dev in enumerate(devices):
+        with at_position(d, dev):
+            out.append(fn(d))
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -136,13 +169,14 @@ def intern_new(cfg: EngineConfig, device) -> InternState:
 
 
 def drain_telemetry_new(n_dev: int, device) -> torch.Tensor:
-    """Fresh drain-round telemetry carry (``int32[n_dev]``)."""
+    """Fresh drain-round telemetry carry (``int32[n_dev]``, one entry a
+    position, held on ``device``)."""
     return torch.zeros((n_dev,), dtype=torch.int32, device=device)
 
 
 def drain_telemetry_restore(saved, n_dev: int, device) -> torch.Tensor:
-    """A saved (device-uniform) drain-round vector re-broadcast onto
-    ``n_dev`` devices."""
+    """A saved (position-uniform) drain-round vector, saved at any number
+    of positions, re-broadcast onto ``n_dev`` positions."""
     count = int(np.max(np.asarray(saved))) if np.size(saved) else 0
     return torch.full((n_dev,), count, dtype=torch.int32, device=device)
 
@@ -278,15 +312,24 @@ def _step_rounds(est: EngineState, u: np.ndarray, v: np.ndarray,
 
 def make_bucketed_step(cfg: EngineConfig, replica_exec: str):
     """The step over host-bucketed ``[n_shards, batch]`` hash-word rounds:
-    ``(est, ists, uh, ul, vh, vl, ins)`` with the stacked engine state,
-    the intern rows and numpy arrays, states updated in place.  Each
-    replica interns its round, then steps once."""
+    ``(ests, ists, uh, ul, vh, vl, ins)`` with each
+    position's stacked engine state (``ests[d]``, ``n_loc`` rows), its
+    intern rows (``ists[d]``) and numpy arrays, states updated in place.
+    Each position copies its shards' rows to its device, interns its round
+    and steps once (:func:`for_positions`)."""
 
-    def bucketed(est, ists, uh, ul, vh, vl, ins) -> None:
+    def bucketed(ests, ists, uh, ul, vh, vl, ins) -> None:
         host = np.stack([uh, ul, vh, vl, ins], -1).astype(np.int32)
-        buckets = torch.from_numpy(host).to(est.device)
-        u, v, _ = intern_buckets(ists, buckets, cfg.n_cap)
-        _step_rounds(est, u, v, np.asarray(ins), 1, cfg, replica_exec)
+        ins = np.asarray(ins)
+        n_loc = len(ists[0])
+
+        def position(d: int) -> None:
+            rows = slice(d * n_loc, (d + 1) * n_loc)
+            buckets = torch.from_numpy(host[rows]).to(ests[d].device)
+            u, v, _ = intern_buckets(ists[d], buckets, cfg.n_cap)
+            _step_rounds(ests[d], u, v, ins[rows], 1, cfg, replica_exec)
+
+        for_positions(position, [e.device for e in ests])
 
     return bucketed
 
@@ -346,69 +389,100 @@ def router_geometry(n_dev: int, n_shards: int, chunk: int, lane_cap: int,
         drain_guaranteed=max_drain_rounds >= full_drain)
 
 
-def make_route_step(n_shards: int, chunk: int, lane_cap: int,
+def make_route_step(n_dev: int, n_shards: int, chunk: int, lane_cap: int,
                     max_drain_rounds: Optional[int] = None):
-    """The state-independent routing stage on one device.
+    """The state-independent routing stage over ``n_dev`` positions.
 
-    Returns ``(route, geometry)``; ``route(uh, ul, vh, vl, ins)`` takes
-    flat ``int32[chunk]`` hash-word change tensors (``-1`` padded) and
-    returns ``(buckets, counts, delivered, rounds)``: ``buckets`` is
-    ``int32[n_shards, acc_cap, 5]``, each shard's ``(uh, ul, vh, vl, ins)``
-    rows in stream order, ``-1`` padded (the JAX package returns the five
-    columns as separate arrays); ``counts`` is ``int32[n_shards]``;
-    ``delivered`` is the first stream position not routed when
-    ``max_drain_rounds`` ran out (``chunk`` when all was delivered) and
-    ``rounds`` the number of rounds run, both host ints.
+    Returns ``(route, geometry)``.  ``route(words)`` takes one
+    ``int32[5, n_in]`` tensor a position, on its device: the rows
+    ``(uh, ul, vh, vl, ins)`` of its slice of the ``-1``-padded chunk.  It
+    returns ``(buckets, counts, delivered, rounds)``: ``buckets[d]`` is
+    ``int32[n_loc, acc_cap, 5]`` on position ``d``'s device, the ``(uh,
+    ul, vh, vl, ins)`` rows of its shards in stream order, ``-1`` padded
+    (the JAX package returns the five columns of all ``n_shards`` shards
+    as separate arrays); ``counts[d]`` is its shards' ``int32[n_loc]``
+    delivered counts; ``delivered`` is the first stream position not
+    routed when ``max_drain_rounds`` ran out (``chunk`` when all was
+    delivered; JAX's is the same value at every device) and ``rounds``
+    the number of rounds run, both host ints.
     """
-    geom = router_geometry(1, n_shards, chunk, lane_cap, max_drain_rounds)
+    geom = router_geometry(n_dev, n_shards, chunk, lane_cap,
+                           max_drain_rounds)
+    n_loc, n_in = geom.n_loc, geom.n_in
     lane_cap, acc_cap = geom.lane_cap, geom.acc_cap
 
-    def route(uh, ul, vh, vl, ins):
-        dev = uh.device
-        i64 = dict(dtype=torch.int64, device=dev)
-        valid = (uh >= 0) & (vh >= 0)
-        dest = torch.where(valid, shard_key(uh, ul, vh, vl, n_shards),
-                           n_shards).to(torch.int64)
-        pos = torch.arange(chunk, **i64)
-        payload = torch.stack([uh, ul, vh, vl, ins.to(torch.int32)], -1)
-        sid = torch.arange(n_shards, **i64)
-        rows = sid[:, None]
-        # one spare lane row and bucket column take the dropped writes
-        # (JAX's scatter mode="drop")
-        acc = torch.full((n_shards, acc_cap + 1, 5), -1, dtype=torch.int32,
-                         device=dev)
-        counts = torch.zeros(n_shards, **i64)
+    def route(words: Sequence[torch.Tensor]):
+        if len(words) != n_dev or any(
+                tuple(w.shape) != (5, n_in) for w in words):
+            raise ValueError(f"route takes {n_dev} position slices of "
+                             f"[5, {n_in}]: "
+                             f"{[tuple(w.shape) for w in words]}")
+        devs = [w.device for w in words]
+        sid = [torch.arange(n_shards, dtype=torch.int64, device=dev)
+               for dev in devs]
+        rows = [s[:n_loc, None] for s in sid]   # each position's shards
+        dest, pos, payload, valid, acc, counts = [], [], [], [], [], []
+        for d, (w, dev) in enumerate(zip(words, devs)):
+            uh, ul, vh, vl, ins = w.unbind(0)
+            ok = (uh >= 0) & (vh >= 0)
+            valid.append(ok)
+            dest.append(torch.where(ok, shard_key(uh, ul, vh, vl, n_shards),
+                                    n_shards).to(torch.int64))
+            pos.append(torch.arange(d * n_in, (d + 1) * n_in,
+                                    dtype=torch.int64, device=dev))
+            payload.append(torch.stack([uh, ul, vh, vl,
+                                        ins.to(torch.int32)], -1))
+            # one spare bucket column takes the dropped writes (JAX's
+            # scatter mode="drop")
+            acc.append(torch.full((n_loc, acc_cap + 1, 5), -1,
+                                  dtype=torch.int32, device=dev))
+            counts.append(torch.zeros(n_loc, dtype=torch.int64, device=dev))
         delivered = rounds = 0
         while delivered < chunk and rounds < geom.max_drain_rounds:
-            pending = valid & (pos >= delivered)
-            # stable rank of each pending change within its shard's lane
-            onehot = (dest[:, None] == sid) & pending[:, None]
-            cum = onehot.to(torch.int64).cumsum(0)
-            lane = dest.clamp(0, n_shards - 1)[:, None]
-            rank = cum.gather(1, lane)[:, 0] - 1
-            if geom.static_no_overflow:
-                first = chunk
-            else:
-                over = pending & (rank >= lane_cap)
-                first = host_read(torch.where(over, pos, chunk).min()
-                                  .reshape(1))[0]
-            keep = pending & (rank < lane_cap) & (pos < first)
-            # the lanes [n_shards, lane_cap]; with one device the
-            # all_to_all hands every lane to this device unchanged
-            send = torch.full((n_shards + 1, lane_cap, 5), -1,
-                              dtype=torch.int32, device=dev)
-            send[torch.where(keep, dest, n_shards),
-                 torch.where(keep, rank, 0)] = payload
-            recv = send[:n_shards]
-            # stable compaction, appended at each shard's watermark
-            rvalid = recv[..., 0] >= 0
-            cpos = rvalid.to(torch.int64).cumsum(1) - 1
-            acc[rows, torch.where(rvalid, counts[:, None] + cpos,
-                                  acc_cap)] = recv
-            counts += rvalid.sum(1)
+            ranks, firsts = [], []
+            for d in range(n_dev):
+                pending = valid[d] & (pos[d] >= delivered)
+                # stable rank of each pending change within its lane
+                onehot = (dest[d][:, None] == sid[d]) & pending[:, None]
+                cum = onehot.to(torch.int64).cumsum(0)
+                lane = dest[d].clamp(0, n_shards - 1)[:, None]
+                rank = cum.gather(1, lane)[:, 0] - 1
+                ranks.append((pending, rank))
+                if not geom.static_no_overflow:
+                    over = pending & (rank >= lane_cap)
+                    firsts.append(torch.where(over, pos[d], chunk).min()
+                                  .reshape(1).to(devs[0], non_blocking=True))
+            # JAX's pmin: every position's first overflow, in one read
+            first = (chunk if geom.static_no_overflow else min(host_read(
+                firsts[0] if n_dev == 1 else torch.cat(firsts))))
+            sends = []
+            for d, (pending, rank) in enumerate(ranks):
+                keep = pending & (rank < lane_cap) & (pos[d] < first)
+                # the lanes [n_shards, lane_cap] in shard order, so that
+                # position j's are rows [j n_loc, (j+1) n_loc); one spare
+                # row for the changes not kept
+                send = torch.full((n_shards + 1, lane_cap, 5), -1,
+                                  dtype=torch.int32, device=devs[d])
+                send[torch.where(keep, dest[d], n_shards),
+                     torch.where(keep, rank, 0)] = payload[d]
+                sends.append(send)
+            for j, dev in enumerate(devs):
+                # the exchange: source d's lanes for position j, copied to
+                # j's device (JAX's all_to_all), laid side by side
+                # source-major; one position keeps its lanes as they are
+                parts = [sends[d][j * n_loc:(j + 1) * n_loc]
+                         .to(dev, non_blocking=True) for d in range(n_dev)]
+                recv = parts[0] if n_dev == 1 else torch.cat(parts, 1)
+                # stable compaction, appended at each shard's watermark
+                rvalid = recv[..., 0] >= 0
+                cpos = rvalid.to(torch.int64).cumsum(1) - 1
+                acc[j][rows[j],
+                       torch.where(rvalid, counts[j][:, None] + cpos,
+                                   acc_cap)] = recv
+                counts[j] += rvalid.sum(1)
             delivered, rounds = first, rounds + 1
-        return (acc[:, :acc_cap].contiguous(), counts.to(torch.int32),
-                delivered, rounds)
+        return ([a[:, :acc_cap].contiguous() for a in acc],
+                [c.to(torch.int32) for c in counts], delivered, rounds)
 
     return route, geom
 
@@ -421,26 +495,39 @@ def make_route_step(n_shards: int, chunk: int, lane_cap: int,
 def make_engine_step(cfg: EngineConfig, n_shards: int, acc_cap: int,
                      replica_exec: str):
     """The state-carrying engine stage for routed buckets:
-    ``(est, ists, telem, buckets, rounds)`` with the stacked engine state
-    and the intern rows, in place.  Interns each shard's
-    ``int32[n_shards, acc_cap, 5]`` bucket, then runs ``max_s
-    ceil(count_s / batch)`` engine rounds on every replica, and adds the
-    route stage's extra drain rounds to ``telem``."""
+    ``(ests, ists, telem, buckets, rounds)`` with each
+    position's stacked engine state and intern rows, in place.  Every
+    position interns its ``int32[n_loc, acc_cap, 5]`` buckets, then every
+    replica runs ``max_s ceil(count_s / batch)`` engine rounds, the
+    maximum over all ``n_shards`` shards (JAX's ``pmax``); the positions
+    run in turn (:func:`for_positions`).
+    Adds the route stage's extra drain rounds to ``telem``."""
     b = cfg.batch
 
-    def engine(est, ists, telem, buckets, rounds: int) -> None:
-        if tuple(buckets.shape) != (n_shards, acc_cap, 5):
-            raise ValueError(f"buckets must be [{n_shards}, {acc_cap}, 5]: "
-                             f"{tuple(buckets.shape)}")
-        u, v, host = intern_buckets(ists, buckets, cfg.n_cap)
-        counts = (host[..., 0] >= 0).sum(1)
+    def engine(ests, ists, telem, buckets, rounds: int) -> None:
+        n_loc = n_shards // len(buckets)
+        for blk in buckets:
+            if tuple(blk.shape) != (n_loc, acc_cap, 5):
+                raise ValueError(f"buckets must be [{n_loc}, {acc_cap}, 5] "
+                                 f"a position: {tuple(blk.shape)}")
+        devices = [blk.device for blk in buckets]
+        interned = for_positions(
+            lambda d: intern_buckets(ists[d], buckets[d], cfg.n_cap),
+            devices)
+        counts = np.concatenate([(host[..., 0] >= 0).sum(1)
+                                 for _, _, host in interned])
         erounds = int((-(-counts // b)).max())
         # one spare round of padding, so a round's slice never runs short
-        pad = np.full((n_shards, b), INVALID, np.int32)
-        _step_rounds(est, np.concatenate([u, pad], 1),
-                     np.concatenate([v, pad], 1),
-                     np.concatenate([host[..., 4], np.zeros_like(pad)], 1),
-                     erounds, cfg, replica_exec)
+        pad = np.full((n_loc, b), INVALID, np.int32)
+
+        def step(d: int) -> None:
+            u, v, host = interned[d]
+            _step_rounds(ests[d], np.concatenate([u, pad], 1),
+                         np.concatenate([v, pad], 1),
+                         np.concatenate([host[..., 4], np.zeros_like(pad)],
+                                        1), erounds, cfg, replica_exec)
+
+        for_positions(step, devices)
         telem += rounds - 1
 
     return engine
@@ -474,13 +561,62 @@ def sharded_state_from_numpy(est: Mapping[str, object],
         n_dropped=t(ist["n_dropped"]))
 
 
-def sharded_state_to_numpy(est: EngineState, ist: InternState,
+def _leaf_rows(tree: Mapping[str, object], rows: slice) -> dict:
+    """The rows ``rows`` of every numpy leaf of a stacked tree (a table
+    leaf as a ``k1``/``k2``/``val`` dict)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping) or hasattr(v, "k1"):
+            out[k] = {w: np.asarray(x)[rows]
+                      for w, x in zip(("k1", "k2", "val"), _table_words(v))}
+        else:
+            out[k] = np.asarray(v)[rows]
+    return out
+
+
+def sharded_blocks_from_numpy(est: Mapping[str, object],
+                              ist: Mapping[str, object],
+                              devices: Sequence[torch.device],
+                              ) -> Tuple[List[EngineState],
+                                         List[InternState]]:
+    """:func:`sharded_state_from_numpy` split over the positions of a
+    mesh: position ``d`` gets the stacked rows ``[d n_loc, (d+1) n_loc)``
+    on ``devices[d]``, whatever number of positions wrote the leaves."""
+    n_rows = len(np.asarray(est["phi"]))
+    if n_rows % len(devices):
+        raise ValueError(f"{n_rows} replicas do not split over "
+                         f"{len(devices)} positions")
+    n_loc = n_rows // len(devices)
+    blocks = [sharded_state_from_numpy(
+        _leaf_rows(est, slice(d * n_loc, (d + 1) * n_loc)),
+        _leaf_rows(ist, slice(d * n_loc, (d + 1) * n_loc)), dev)
+        for d, dev in enumerate(devices)]
+    return [e for e, _ in blocks], [i for _, i in blocks]
+
+
+def _concat_leaves(parts: Sequence[Dict[str, object]]) -> Dict[str, object]:
+    """Numpy leaf trees of consecutive row blocks as one tree."""
+    if len(parts) == 1:
+        return parts[0]
+    return {k: ({w: np.concatenate([p[k][w] for p in parts])
+                 for w in ("k1", "k2", "val")}
+                if isinstance(v, dict)
+                else np.concatenate([p[k] for p in parts]))
+            for k, v in parts[0].items()}
+
+
+def sharded_state_to_numpy(ests: Sequence[EngineState],
+                           ists: Sequence[InternState],
                            ) -> Tuple[Dict[str, object], Dict[str, object]]:
     """Stacked numpy leaves with the JAX package's types (int32, ``step_no``
     uint32, tables as ``k1``/``k2``/``val`` dicts), copies on the host:
-    the inverse of :func:`sharded_state_from_numpy`."""
-    return (state_to_numpy(copy_state(est, "cpu")),
-            state_to_numpy(copy_state(ist, "cpu")))
+    the inverse of :func:`sharded_blocks_from_numpy`.  ``ests`` and
+    ``ists`` are the stacked blocks of a mesh's positions (``[est]`` for
+    one), gathered in shard order."""
+    return (_concat_leaves([state_to_numpy(copy_state(e, "cpu"))
+                            for e in ests]),
+            _concat_leaves([state_to_numpy(copy_state(i, "cpu"))
+                            for i in ists]))
 
 
 def shard_step_no(seed: int, shard: int) -> int:

@@ -6,8 +6,10 @@ kernel or the call raises; nothing falls back.  Each kernel counts its
 launches in a plain integer attribute of its wrapper, set where the
 wrapper launches it and nowhere else: ``ht_probe.launches`` (with
 ``ht_probe.jobs``, the probe batches those launches served, and
-``ht_probe.by_batch`` by each job's ``(mode, lanes)``; :func:`ht_probe`
-and :func:`ht_probe_many` share the three), ``ht_rebuild.launches``,
+``ht_probe.by_batch`` by each job's ``(mode, lanes)`` and
+``ht_probe.by_position`` by the current mesh position;
+:func:`ht_probe` and :func:`ht_probe_many` share them),
+``ht_rebuild.launches``,
 ``segment_reduce.launches``
 (incremented by :func:`segment_reduce_csr`, forward and backward, the one
 place that launches the CSR kernel; ``segment_reduce.backward_launches``
@@ -28,6 +30,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from repro_torch.device import current_position
 from repro_torch.kernels import ref
 from repro_torch.kernels.csr_segment import (build_csr, csr_segment_cuda,
                                              csr_segment_plain)
@@ -78,6 +81,7 @@ def ht_probe_many(jobs: Sequence[ProbeJob]) -> List[Probe]:
         return ht_probe_many_plain(jobs)
     out, launches = ht_probe_many_cuda(jobs)
     ht_probe.launches += launches
+    ht_probe.by_position[current_position()] += launches
     for job in jobs:
         rows = job[0].shape[0] if job[0].dim() == 2 else 1
         ht_probe.jobs += rows
@@ -88,6 +92,7 @@ def ht_probe_many(jobs: Sequence[ProbeJob]) -> List[Probe]:
 ht_probe.launches = 0
 ht_probe.jobs = 0
 ht_probe.by_batch = Counter()
+ht_probe.by_position = Counter()
 
 
 def ht_rebuild(k1: torch.Tensor, k2: torch.Tensor, val: torch.Tensor, *,
@@ -343,6 +348,7 @@ def reset_counts() -> None:
     ht_probe.launches = 0
     ht_probe.jobs = 0
     ht_probe.by_batch = Counter()
+    ht_probe.by_position = Counter()
     ht_rebuild.launches = 0
     segment_reduce.launches = 0
     segment_reduce.backward_launches = 0

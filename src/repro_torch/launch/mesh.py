@@ -73,11 +73,20 @@ def make_host_mesh():
 
 
 class EngineMesh:
-    """A 1-D ('shard',) layout of summarization engines over local cards:
-    the ShardedSummarizer lays one or more engine replicas on each."""
+    """A 1-D ('shard',) layout of summarization engines: the
+    ShardedSummarizer lays one or more engine replicas at each position.
+
+    A position is what a device is in the JAX package's engine mesh.  A
+    device may stand at several positions: ``EngineMesh(["cuda:0"] * 4)``
+    runs a four-position mesh on one card, and ``EngineMesh(["cpu"] * 8)``
+    is the counterpart of JAX's
+    ``--xla_force_host_platform_device_count=8`` in the CPU tests.  A
+    CUDA device that this host does not have raises here."""
 
     def __init__(self, devices):
-        self.devices = list(devices)
+        self.devices = [_present(torch.device(d)) for d in devices]
+        if not self.devices:
+            raise ValueError("an engine mesh needs at least one position")
         self.mesh_dim_names = ("shard",)
         self.shape = (len(self.devices),)
 
@@ -85,9 +94,24 @@ class EngineMesh:
         return len(self.devices)
 
 
+def _present(device: torch.device) -> torch.device:
+    """``device`` with its CUDA index made explicit; raises for a CUDA
+    device that is not there."""
+    if device.type != "cuda":
+        return device
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    index = device.index
+    if index is None and n:
+        index = torch.cuda.current_device()
+    if index is None or not 0 <= index < n:
+        raise ValueError(f"mesh device {device} is not present: this host "
+                         f"has {n} CUDA devices")
+    return torch.device("cuda", index)
+
+
 def make_engine_mesh(n_devices: Optional[int] = None) -> EngineMesh:
     """The first ``n_devices`` local CUDA devices (all of them by
-    default)."""
+    default), one position each."""
     avail = torch.cuda.device_count()
     n = avail if n_devices is None else n_devices
     if not 1 <= n <= avail:

@@ -6,7 +6,8 @@ consumes the change stream chunk by chunk while ``neighbors``/``degree``/
 (:mod:`repro_torch.serve.query`).  On the pipelined router a snapshot
 trails the write head by the one routed chunk whose engine stage has not
 run; the ``epoch lag`` histogram shows it.  ``--device`` picks where the
-replicas run (default ``cuda``).
+replicas run (default ``cuda``: JAX's default mesh, the first
+``gcd(--shards, cards)`` cards, every card without ``--shards``).
 
 ``--verify`` checks every sampled read against the host ground truth of
 the snapshot's OWN epoch prefix, not the write head's.
@@ -130,7 +131,10 @@ def main(argv=None) -> None:
     ap.add_argument("--beta", type=float, default=0.7)
     ap.add_argument("--fully-dynamic", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--shards", type=int, default=None)
+    ap.add_argument("--shards", type=int, default=None,
+                    help="engine replicas (default: one per position of "
+                         "the default mesh, i.e. every card on cuda, 1 on "
+                         "cpu)")
     ap.add_argument("--router-chunk", type=int, default=256)
     ap.add_argument("--no-pipeline", action="store_true",
                     help="serial route/engine dispatch: every snapshot "

@@ -2,9 +2,12 @@
 
 Port of ``repro/launch/stream.py``: summarize a synthetic dynamic graph
 stream with :class:`BatchedSummarizer` (the default), the
-edge-partitioned :class:`ShardedSummarizer` (``--shards`` replicas on one
-device, routed on the device by default, ``--routing host`` for host
-bucketing) or the faithful Tier-A reference (``--engine reference
+edge-partitioned :class:`ShardedSummarizer` (``--shards`` replicas over
+JAX's default mesh: the first ``gcd(shards, cards)`` cards, one shard a
+card without ``--shards``, one position on the CPU; routed on the
+devices by default, ``--routing host`` for host bucketing; on a host of
+several cards ``--device cuda:0`` takes less time a change, ``PERF.md``
+§6) or the faithful Tier-A reference (``--engine reference
 --algo ...``, host Python), and report phi, the compression ratio (Eq. 3)
 and the time per change.  The search and batch defaults come from the
 port's ``EngineConfig``.  ``--device`` picks where the engine runs
@@ -94,7 +97,9 @@ def main(argv=None) -> None:
     ap.add_argument("--engine", choices=["reference", "batched", "sharded"],
                     default="batched")
     ap.add_argument("--shards", type=int, default=None,
-                    help="sharded: engine replicas on the device (default 1)")
+                    help="sharded: engine replicas (default: one per "
+                         "position of the default mesh, i.e. every card on "
+                         "cuda, 1 on cpu)")
     ap.add_argument("--routing", choices=["device", "host"], default="device",
                     help="sharded: device-side router or host bucketing")
     ap.add_argument("--router-chunk", type=int, default=1024,

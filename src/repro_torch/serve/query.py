@@ -15,11 +15,12 @@ The point probes (``eab``, ``epos``, the slot lists) are batched probe
 launches, through the same kernel as the write path.
 
 **Sharded reads.**  A query label is hashed (``labelhash``) and resolved
-against every shard's intern table in one probe launch
-(:func:`_intern_resolve`); edge partitioning is a vertex cut, so every
-shard that knows the node answers, and the answers merge by union
-(neighbors), sum (degree) or any (has_edge: only the pair's owner shard
-can hold it).
+at every position of the summarizer's mesh, on its device, against its
+shards' intern tables in one probe launch (:func:`_intern_resolve`), as
+JAX's ``shard_map`` query kernels resolve per device; edge partitioning
+is a vertex cut, so every shard that knows the node answers there, and
+the host merges the answers by union (neighbors), sum (degree) or any
+(has_edge: only the pair's owner shard can hold it).
 
 **Snapshots.**  The engine updates its tensors in place, so both views
 copy the state when they are created: their answers stay those of
@@ -241,18 +242,24 @@ class ShardedSummaryQuery:
 
     Does not flush the dispatch pipeline: on the pipelined router the
     snapshot is the state after ``epoch`` engine stages, one routed chunk
-    behind ``process``.  It holds one copy of the stacked engine and
-    intern states, whichever ``replica_exec`` steps them (the engine
-    writes in place, so a view without a copy would change under the next
-    ``process``); ``copy`` is taken for the JAX package's signature and
-    changes nothing.  The snapshot's
-    ``n_dropped`` counters are checked on the first answer.
+    behind ``process``.  It holds one copy of each mesh position's
+    stacked engine and intern states, on that position's device,
+    whichever ``replica_exec`` steps them (the engine writes in place, so
+    a view without a copy would change under the next ``process``);
+    ``copy`` is taken for the JAX package's signature and changes
+    nothing.  The snapshot's ``n_dropped`` counters are checked on the
+    first answer.
     """
 
     def __init__(self, summarizer, copy: bool = False) -> None:
-        # one clone of the stacked replicas; the rows are its views
-        self._est = state_rows(copy_state(summarizer._est))
-        self._ist = state_rows(copy_state(summarizer._ist))
+        # one clone of each position's stacked replicas; the rows are its
+        # views, in shard order
+        self._blocks = [(state_rows(copy_state(est)),
+                         state_rows(copy_state(ist)))
+                        for est, ist in zip(summarizer._est,
+                                            summarizer._ist)]
+        self._est = [row for rows, _ in self._blocks for row in rows]
+        self._ist = [row for _, rows in self._blocks for row in rows]
         self._summ = summarizer
         self._rev_cache: dict = {}
         self._intern_host = None
@@ -266,18 +273,29 @@ class ShardedSummaryQuery:
     # lineage's
     _check_pin = SummaryQuery._check_pin
 
+    def _gather(self, parts: Sequence[torch.Tensor]) -> list:
+        """Each position's ``[n_loc, ...]`` answer, stacked in shard order
+        on the first position's device and read in one host read."""
+        dev = self._est[0].device
+        return host_read(torch.cat([p.to(dev, non_blocking=True)
+                                    for p in parts]))
+
     def _resolve(self, labels: Sequence[object],
-                 ) -> Tuple[torch.Tensor, np.ndarray]:
-        """``(nid, found)`` per shard and label: nids as an ``[R, Q]``
-        device tensor (``Q`` padded to a power of two), ``found`` on the
-        host; raises ``LookupError`` for a label no shard has seen."""
+                 ) -> Tuple[List[torch.Tensor], np.ndarray]:
+        """``(nid, found)`` per shard and label: ``nid[s]`` an ``int32[Q]``
+        tensor on shard ``s``'s device (``Q`` padded to a power of two),
+        ``found`` ``bool[n_shards, Q]`` on the host; raises
+        ``LookupError`` for a label no shard has seen."""
         self._check_pin()
         hi, lo = labelhash.hash_words(list(labels))
-        dev = self._est[0].device
-        nid, found = _intern_resolve(
-            self._ist, torch.from_numpy(_pad_pow2(hi, -1)).to(dev),
-            torch.from_numpy(_pad_pow2(lo, -1)).to(dev))
-        found = np.array(host_read(found), bool)
+        hi, lo = (torch.from_numpy(_pad_pow2(w, -1)) for w in (hi, lo))
+        nids, founds = [], []
+        for _, ists in self._blocks:
+            dev = ists[0].l2h.device
+            nid, found = _intern_resolve(ists, hi.to(dev), lo.to(dev))
+            nids.extend(nid)
+            founds.append(found)
+        found = np.array(self._gather(founds), bool)
         self._snapshot_intern()
         seen = found.any(axis=0)
         for i, lab in enumerate(labels):
@@ -285,14 +303,15 @@ class ShardedSummaryQuery:
                 raise LookupError(
                     f"query: label {lab!r} has not been streamed "
                     f"(as of epoch {self.epoch})")
-        return nid, found
+        return nids, found
 
     def _snapshot_intern(self):
-        """Host copy of the snapshot's reverse maps (one read, memoized);
-        also the capacity tripwire for every answer this view serves."""
+        """Host copy of the snapshot's reverse maps (one read a position,
+        memoized); also the capacity tripwire for every answer this view
+        serves."""
         if self._intern_host is None:
-            n_dropped = int(torch.stack([i.n_dropped for i in self._ist])
-                            .sum())
+            n_dropped = sum(int(torch.stack([i.n_dropped for i in ists])
+                                .sum()) for _, ists in self._blocks)
             self._summ._raise_if_dropped(n_dropped)
             self._intern_host = ([i.l2h.cpu().numpy() for i in self._ist],
                                  [int(i.n_nodes) for i in self._ist])
@@ -328,7 +347,7 @@ class ShardedSummaryQuery:
         for q in range(len(labels)):
             acc: Set[object] = set()
             for s in np.flatnonzero(found[:, q]):
-                mask, _ = _neighbors_one(self._est[s], nid[s, q:q + 1])
+                mask, _ = _neighbors_one(self._est[s], nid[s][q:q + 1])
                 hits = torch.nonzero(mask).flatten().tolist()
                 if hits:
                     rev = self._rev(int(s))
@@ -341,9 +360,17 @@ class ShardedSummaryQuery:
 
     def degree_batch(self, labels: Sequence[object]) -> List[int]:
         nid, _ = self._resolve(labels)
-        # per-shard edge partitions are disjoint, so degrees add exactly
-        d = sum(_degree_core(st, nid[s])[0]
-                for s, st in enumerate(self._est))
+        # per-shard edge partitions are disjoint, so degrees add exactly:
+        # each position sums its shards, the first position's device the
+        # positions
+        dev = self._est[0].device
+        d, s = 0, 0
+        for rows, _ in self._blocks:
+            part = 0
+            for st in rows:
+                part = part + _degree_core(st, nid[s])[0]
+                s += 1
+            d = d + part.to(dev)
         return d[:len(labels)].tolist()
 
     def degree(self, label: object) -> int:
@@ -355,9 +382,13 @@ class ShardedSummaryQuery:
         most one True per column, the pair's ``shard_key`` owner."""
         nu, _ = self._resolve([p[0] for p in pairs])
         nv, _ = self._resolve([p[1] for p in pairs])
-        present = torch.stack([_has_edge_core(st, nu[s], nv[s])[0]
-                               for s, st in enumerate(self._est)])
-        return np.array(host_read(present), bool)[:, :len(pairs)]
+        parts, s = [], 0
+        for rows, _ in self._blocks:
+            parts.append(torch.stack([
+                _has_edge_core(st, nu[s + r], nv[s + r])[0]
+                for r, st in enumerate(rows)]))
+            s += len(rows)
+        return np.array(self._gather(parts), bool)[:, :len(pairs)]
 
     def has_edge_batch(self, pairs: Sequence[Tuple[object, object]],
                        ) -> List[bool]:

@@ -53,6 +53,29 @@ def test_port_imports_nothing_of_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_chip_smoke_imports_nothing_of_jax_or_repro():
+    """``chip_smoke.py`` runs where there is no JAX: every import in it,
+    at any depth and in the code it hands to subprocesses, is of torch,
+    the port or the standard library and numpy."""
+    import ast
+    import re
+    path = SRC.parent / "chip_smoke.py"
+    text = path.read_text()
+    names = set()
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    assert "repro_torch.launch.mesh" in names
+    bad = sorted(n for n in names
+                 if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, bad
+    # code in strings (the subprocesses' programs)
+    assert not re.findall(r"\b(?:from|import)\s+(?:jax|jaxlib|repro)\b"
+                          r"(?!_torch)", text)
+
+
 def test_summarizer_raises_without_a_card_unless_asked_for_the_cpu():
     code = ("from repro_torch.core.engine import BatchedSummarizer, "
             "EngineConfig\n"

@@ -163,12 +163,12 @@ def test_route_stage_equals_jax(geometry):
     p = ShardedSummarizer(EngineConfig(**CFG), device="cpu",
                           n_shards=SHARDS, router_chunk=chunk)
     words = p._pack_chunk(stream, pad_to=chunk)
-    route, geom = router.make_route_step(SHARDS, chunk, lane_cap, mdr)
+    route, geom = router.make_route_step(1, SHARDS, chunk, lane_cap, mdr)
     jroute, jgeom = jax_router.make_route_step(make_engine_mesh(1), SHARDS,
                                                chunk, lane_cap, mdr)
     assert tuple(geom) == tuple(jgeom)
-    buckets, counts, delivered, rounds = route(
-        *torch.from_numpy(np.stack(words)))
+    (buckets,), (counts,), delivered, rounds = route(
+        [torch.from_numpy(np.stack(words))])
     *jb, jcounts, jdelivered, jrounds = jroute(*words)
     for k in range(5):
         np.testing.assert_array_equal(buckets[..., k].numpy(),
@@ -215,7 +215,7 @@ def test_converters_round_trip_and_initial_replicas_equal_jax():
                    trial_backend="xla", replica_exec="map")
     est, ist = jax_leaves(j.state), jax_leaves(j.intern)
     ests, ists = router.sharded_state_from_numpy(est, ist, "cpu")
-    got_e, got_i = router.sharded_state_to_numpy(ests, ists)
+    got_e, got_i = router.sharded_state_to_numpy([ests], [ists])
     assert_leaves_equal(got_e, est, "round trip engine")
     assert_leaves_equal(got_i, ist, "round trip intern")
     p = ShardedSummarizer(EngineConfig(**dict(CFG, seed=7)), device="cpu",
