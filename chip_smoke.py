@@ -83,7 +83,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 11. sharded path: ``ShardedSummarizer(full_config(), device="cuda:0",
    n_shards=4)`` (one card on any host; device routing, ``router_chunk``
    1024, the card's default ``replica_exec="vmap"``: one stacked step)
-   over the first ``SHARDED_CHANGES`` (two router chunks) of phase 3's
+   over the first ``SHARDED_CHANGES`` (one router chunk) of phase 3's
    stream, cut to keep the script inside its time limit; the probe
    kernel's launch count must move, ``phi == phi_recomputed()``, the
    merged lossless decode and ``live_edges()``
@@ -105,22 +105,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    verify=True)`` on the card;
 13. batched crash consistency at full width:
    ``BatchedSummarizer(full_config(), checkpoint_dir=...)`` over the first
-   512 changes of phase 3's stream (2 chunks of 256: one chunk and the
-   chunk a recovery replays; cut from 5, then 3, by the script's time
-   limit).  Run A is uninterrupted with a ``save()`` after every chunk
-   (``tools/recovery_check.py`` also times each chunk beside the same
-   chunk unjournaled); its directory is copied at chunk boundary 2,
-   before the last save, which is what a kill there leaves on disk
+   288 changes of phase 3's stream (2 chunks: one of 256 and the stream's
+   tail of 32, the chunk a recovery replays; cut from 5, then 3 chunks,
+   then the tail from 256 changes, by the script's time limit).  Run A is
+   uninterrupted with a ``save()`` after every chunk
+   (``tools/recovery_check.py`` also times each chunk beside the same chunk
+   unjournaled); its directory is copied at chunk boundary 2, before the
+   last save, which is what a kill there leaves on disk
    (``ft.inject.drive`` with ``kill_at_chunk=2``, as the CPU tests and
-   phase 14(b) kill, without processing the chunks again), and a
-   fresh summarizer ``recover()``s that copy (epoch 1 + 1 journaled
+   phase 14(b) kill, without processing the chunks again), and a fresh
+   summarizer ``recover()``s that copy (epoch 1 + 1 journaled
    chunk): every leaf bitwise, ``stats()`` (less ``stream_retries``) and
    degree / has_edge / neighbors reads equal A's; then A's newest
    checkpoint is corrupted and ``recover()`` must
    fall back one epoch and land bitwise.  Seconds per ``save()`` by phase
    (host copy, ``np.savez``, fsync, sha256), bytes on disk, ms per journal
    append, seconds per ``restore()`` and ``recover()``, us per change
-   journaled beside phase 3's over the same changes;
+   journaled over the first chunk beside phase 3's first step;
 14. sharded crash consistency: (a) one ``save()`` of phase 11's live
    4 x ``full_config()`` summarizer (~5.6 GiB) restored into a fresh one
    is cut from this script by its time limit (``tools/recovery_check.py``
@@ -207,10 +208,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    configuration: the predicted bytes of the parameters, the AdamW state
    and the inputs (the engine state, for mosso) equal the bytes of the
    tensors phases 16(c), 16(b) and 3 held on the card, and the predicted
-   FLOPs ``FlopCounterMode`` over one of their steps on the card (GraphSAGE
-   and SASRec; the engine's step reads the host and is not traced), the
-   predicted peak beside ``max_memory_allocated()`` and the roofline's time
-   beside the measured step, with their ratios; (b) ``compressed_psum``
+   FLOPs ``FlopCounterMode`` over one of their steps on the card (for
+   mosso, one dense step at the dry-run's one trip a loop from a fresh
+   ``full_config()`` state over phase 3's first batch: 0), the
+   predicted peak beside ``max_memory_allocated()`` (mosso: over that
+   step) and the roofline's time beside the measured step, with their
+   ratios; (b) ``compressed_psum``
    over an NCCL group of one rank equal to ``int8_dequantize(
    *int8_quantize(x))`` bitwise and within ``scale / 2`` of ``x`` (plus
    two float32 ulps of ``max |x|``: the quantizer rounds in float32); (c) in a
@@ -219,10 +222,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    process group of 256 ranks), each rank's GB beside the card's 80;
 19. ``replica_exec``, after phase 11: ``ShardedSummarizer(
    full_config(), device="cuda:0", n_shards=4)`` under ``"map"`` and
-   ``"vmap"`` side by side over the first 512 changes of phase 11's
-   stream, in ``process`` calls of 256 (the router chunk), every replica
-   and intern leaf equal on the card after each call and after the
-   flush, and ``stats()`` equal; per mode us per change, probe launches
+   ``"vmap"`` side by side over the first 256 changes of phase 11's
+   stream, in one ``process`` call (the router chunk; cut from 1,024,
+   then 512, by the script's time limit), every replica and intern leaf
+   equal on the card after the call and after the flush, and ``stats()`` equal; per mode us per change, probe launches
    and jobs per change, host syncs per change, the replicas' bytes, the
    peak above them while stepping and a ``query()`` snapshot's bytes.
    The ``"vmap"`` run's replicas after each call and the flush are kept
@@ -244,7 +247,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    engine's size; at ``full_config()`` the two runs took 40 s on an
    H100), which
    must take at least two drain rounds, leaf-bitwise to the same chunk
-   at one position.
+   at one position;
+21. the dense step (``step_fn(..., dense=True)``, JAX's masked data
+   flow) and the branching step on the card at ``full_config()``: the
+   first 256 changes of phase 3's stream by the branching step, then
+   each form from that state over the next ``DENSE_CHANGES`` changes as
+   one batch (a whole batch would run thousands of live trials, each
+   through ``apply_move``'s masked neighbour slots): every state leaf
+   equal, or the phase fails; per form host reads a step, probe launches
+   and jobs a change, us a change, live trials and accepted moves.
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -277,13 +288,15 @@ TINY_CAPS = (8, 16, 32)
 STACKED = (4, 1 << 20, 16384)     # replicas, cap, lanes of the stacked form
 NODES = 600                       # BA nodes of the main path's stream
 SHARDS = 4                        # replicas of the sharded path (phase 11)
-SHARDED_CHANGES = 1280            # phase 11: the first changes of the stream
-MODES_CHANGES = 512               # phases 19-20: map and vmap on these changes
+SHARDED_CHANGES = 1024            # phase 11: the first changes (one chunk)
+MODES_CHANGES = 256               # phases 19-20: map and vmap on these changes
 MODES_CHUNK = 256                 # phases 19-20: router chunk = process call
 MESH_POSITIONS = 4                # phase 20: mesh positions (one per shard)
 HUB_LEAVES = 90                   # phase 20: the hub chunk's star
 HUB_CHUNK = 128                   # phase 20: its router chunk
-RECOVERY_CHUNKS = 2               # phase 13: chunks of phase 3's stream
+RECOVERY_CHUNKS = 2               # phase 13: chunks of phase 3's stream,
+RECOVERY_TAIL = 32                # the last of them this many changes
+DENSE_CHANGES = 8                 # phase 21: changes after the first batch
 REBUILD_TINY_CAPS = (8, 16, 32)   # phase 15(a): tables with wrapped runs
 REBUILD_CAPS = (1 << 16, 1 << 20)  # phase 15(a): at 53% and 70%
 REBUILD_BIG = 1 << 22             # phase 15(a): at 70%, the host fold timed
@@ -1632,9 +1645,10 @@ def batched_recovery(stream, phase3_step_s, seed: int,
                      twin: bool = False) -> dict:
     """Phase 13: ``BatchedSummarizer(full_config(), checkpoint_dir=...)``
     on the card over the first ``RECOVERY_CHUNKS`` chunks of phase 3's
-    stream.  Run A: uninterrupted, ``save()`` after every chunk; with
-    ``twin``, each chunk is also
-    fed to a summarizer without a checkpoint directory, in alternating
+    stream, the last of them ``RECOVERY_TAIL`` changes (a stream's tail:
+    the chunk each recovery replays).  Run A: uninterrupted, ``save()``
+    after every chunk; with ``twin``, each chunk is also fed to a
+    summarizer without a checkpoint directory, in alternating
     order, and both are timed (the two must end bitwise equal; it adds
     ``RECOVERY_CHUNKS`` chunks to the phase).  Run B: run A's directory
     as a kill at the last chunk boundary leaves it (copied after the last
@@ -1658,13 +1672,14 @@ def batched_recovery(stream, phase3_step_s, seed: int,
 
     cfg = full_config()
     b = cfg.batch
-    prefix = stream[:RECOVERY_CHUNKS * b]
+    prefix = stream[:(RECOVERY_CHUNKS - 1) * b + RECOVERY_TAIL]
     root = CKPT_ROOT / "batched"
     shutil.rmtree(root, ignore_errors=True)
     CKPT_ROOT.mkdir(parents=True, exist_ok=True)
     dir_a, dir_b = str(root / "a"), str(root / "b")
     log(f"batched recovery: full_config over the first {len(prefix)} "
-        f"changes of phase 3's stream ({RECOVERY_CHUNKS} chunks of {b}); "
+        f"changes of phase 3's stream ({RECOVERY_CHUNKS} chunks of up to "
+        f"{b}, the last {RECOVERY_TAIL}); "
         f"checkpoints under {root}; free disk "
         f"{shutil.disk_usage(CKPT_ROOT).free / 2**30:.1f} GiB")
 
@@ -1774,9 +1789,11 @@ def batched_recovery(stream, phase3_step_s, seed: int,
         shutil.rmtree(root, ignore_errors=True)
 
     n = len(prefix)
-    journaled_us = 1e6 * sum(step_s) / n
-    plain_us = 1e6 * sum(plain_s) / n if twin else None
-    phase3_us = 1e6 * sum(phase3_step_s[:RECOVERY_CHUNKS]) / n
+    # per change over the first chunk, the same changes as phase 3's
+    # first step
+    journaled_us = 1e6 * step_s[0] / b
+    plain_us = 1e6 * plain_s[0] / b if twin else None
+    phase3_us = 1e6 * phase3_step_s[0] / b
     res = dict(changes=n, chunks=RECOVERY_CHUNKS, saves=saves,
                restore_s=restore_s, recover_s=recover_s,
                fallback_recover_s=fallback_s, fallback_info=fb_info,
@@ -1798,12 +1815,13 @@ def batched_recovery(stream, phase3_step_s, seed: int,
         f"{recover_s:.3f} s (restore + 1 replayed chunk), fallback "
         f"recover() {fallback_s:.3f} s (epoch {fb_info['epoch']} + "
         f"{fb_info['replayed_chunks']} chunk); journal append "
-        f"{res['journal_append_ms']:.3f} ms per {b}-change chunk "
-        f"({n_appends} appends); {journaled_us:.1f} us/change journaled"
+        f"{res['journal_append_ms']:.3f} ms per chunk "
+        f"({n_appends} appends); {journaled_us:.1f} us/change journaled "
+        f"over the first chunk"
         + (f" against {plain_us:.1f} not journaled (chunks alternating: "
            + ", ".join(f"{x:.2f}/{y:.2f}" for x, y in zip(step_s, plain_s))
            + " s; the two runs bitwise equal)" if twin else "")
-        + f" and phase 3's {phase3_us:.1f} over the same changes; probe "
+        + f" and phase 3's first step {phase3_us:.1f}; probe "
         f"launches {launches_a} (run A{' and its twin' if twin else ''}), "
         f"{launches_b} (recovery + rest)")
     return res
@@ -3651,6 +3669,132 @@ print("RESULT " + json.dumps([dryrun.run_cell(a, "train_4k", verbose=False)
 """
 
 
+def _batch(changes, cfg, ids: dict):
+    """``changes`` as one padded batch of engine ids, interned in
+    encounter order into ``ids`` as ``BatchedSummarizer`` interns."""
+    import numpy as np
+    pad = cfg.batch - len(changes)
+    u = [ids.setdefault(x, len(ids)) for (x, _, _) in changes]
+    v = [ids.setdefault(y, len(ids)) for (_, y, _) in changes]
+    return (np.array(u + [-1] * pad, np.int32),
+            np.array(v + [-1] * pad, np.int32),
+            np.array([i for (_, _, i) in changes] + [False] * pad))
+
+
+def dense_step_forms(stream) -> dict:
+    """Phase 21: the dense step (``trial.step_fn(..., dense=True)``, JAX's
+    masked data flow) beside the branching step on the card at
+    ``full_config()``: a fresh state takes the first batch of phase 3's
+    stream (256 changes) by the branching step, then each form steps a
+    copy of that state over the next ``DENSE_CHANGES`` changes as one
+    batch (padded to ``batch``): every state leaf equal on the card
+    after the step, or the phase fails.  Per form: host reads a step,
+    probe launches and jobs a change, us a change (the step and a device
+    sync), the live trials, accepted moves and skips of the step.  The
+    counts are set to 0 just before each form and read just after; the
+    dense form must launch the probe kernel."""
+    import torch
+    from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.core.engine.ops import host_read, reset_host_reads
+    from repro_torch.core.engine.state import copy_state, new_state
+    from repro_torch.core.engine.trial import step_fn
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    cfg = full_config()
+    b, n = cfg.batch, DENSE_CHANGES
+    ids = {}
+    first = _batch(stream[:b], cfg, ids)
+    u, v, ins = _batch(stream[b:b + n], cfg, ids)
+    log(f"phase 21: the dense step and the branching step at full_config "
+        f"(d_cap={cfg.d_cap}, c={cfg.c}, batch={b}) over changes {b}-"
+        f"{b + n - 1} of phase 3's stream as one batch, each from the "
+        f"state after its first {b} (stepped by the branching step)")
+    st0 = new_state(cfg, "cuda")
+    step_fn(st0, *first, cfg)
+    counters = ("n_trials", "n_accept", "n_skipped")
+    before = {k: int(getattr(st0, k)) for k in counters}
+    states, res = {}, dict(changes=n, start=b)
+    for form, dense in (("branching", False), ("dense", True)):
+        st = copy_state(st0)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        reset_host_reads()
+        t = time.perf_counter()
+        step_fn(st, u, v, ins, cfg, dense=dense)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches, jobs, reads = (ops.ht_probe.launches, ops.ht_probe.jobs,
+                                 host_read.count)
+        if launches == 0:
+            raise AssertionError(f"phase 21 {form}: no probe launch")
+        states[form] = st
+        step = {k: int(getattr(st, k)) - before[k] for k in counters}
+        res[form] = dict(seconds=seconds, us_per_change=1e6 * seconds / n,
+                         host_reads=reads, probe_launches=launches,
+                         launches_per_change=launches / n,
+                         jobs_per_change=jobs / n, trials=step["n_trials"],
+                         accepted=step["n_accept"],
+                         skipped=step["n_skipped"])
+    for (k, a), (_, c) in zip(_leaf_items(states["dense"]),
+                              _leaf_items(states["branching"])):
+        if a.dtype != c.dtype or not torch.equal(a, c):
+            raise AssertionError(f"phase 21: dense vs branching leaf {k} "
+                                 f"differs")
+    d, br = res["dense"], res["branching"]
+    res["dense_over_branching_us"] = d["us_per_change"] / br["us_per_change"]
+    res["seconds"] = time.perf_counter() - t0
+    for form in ("branching", "dense"):
+        r = res[form]
+        log(f"phase 21 {form}: {r['us_per_change']:.1f} us/change, "
+            f"{r['host_reads']} host reads a step, probe launches "
+            f"{r['launches_per_change']:.2f}/change serving "
+            f"{r['jobs_per_change']:.2f} jobs/change; {r['trials']} live "
+            f"trials, {r['accepted']} accepted, {r['skipped']} skipped")
+    log(f"phase 21: dense == branching, every state leaf on the card; "
+        f"dense / branching us per change "
+        f"{res['dense_over_branching_us']:.2f}; {res['seconds']:.1f} s")
+    del states, st0
+    torch.cuda.empty_cache()
+    return res
+
+
+def dense_one_trip(stream) -> dict:
+    """Phase 18(a)'s measurement of the mosso cell: one dense step at
+    ``full_config()`` on a fresh state on the card, at the dry-run's trip
+    setting (``trial.ONE_TRIP``: its first change, one trial, one
+    neighbour slot) over the first batch of phase 3's stream: the peak of
+    ``max_memory_allocated()`` above what the card held before the state
+    (the state, the batch and the step's temporaries; the dry-run's peak
+    at 1 rank), the step's ms, and ``FlopCounterMode``'s FLOPs over the
+    same step from another fresh state."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.core.engine.state import new_state
+    from repro_torch.core.engine.trial import ONE_TRIP, step_fn
+
+    cfg = full_config()
+    u, v, ins = _batch(stream[:cfg.batch], cfg, {})
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    st = new_state(cfg, "cuda")
+    tu, tv, tins = (torch.from_numpy(x).to("cuda") for x in (u, v, ins))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    step_fn(st, tu, tv, tins, cfg, dense=True, trips=ONE_TRIP)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() - base
+    st = new_state(cfg, "cuda")
+    with FlopCounterMode(display=False) as fc:
+        step_fn(st, tu, tv, tins, cfg, dense=True, trips=ONE_TRIP)
+    del st, tu, tv, tins
+    torch.cuda.empty_cache()
+    return dict(peak_gb=peak / 1e9, ms=ms, flops=fc.get_total_flops())
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as sock:
@@ -3658,9 +3802,10 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def dryrun_card(path_res: dict, sage_train: dict, sasrec_train: dict) -> dict:
+def dryrun_card(path_res: dict, sage_train: dict, sasrec_train: dict,
+                dense: dict) -> dict:
     """What phases 3, 16(c) and 16(b) held and measured on the card, by
-    phase 18(a)'s cell."""
+    phase 18(a)'s cell (``dense``: :func:`dense_one_trip`)."""
     return {
         "graphsage-reddit/minibatch_lg": dict(
             sage_train["held"], peak_gb=sage_train["peak_gb"],
@@ -3669,8 +3814,7 @@ def dryrun_card(path_res: dict, sage_train: dict, sasrec_train: dict) -> dict:
             sasrec_train["held"], peak_gb=sasrec_train["peak_gb"],
             ms=sasrec_train["ms_per_step"]),
         "mosso-stream/stream_batch": dict(
-            state=path_res["state_tensor_bytes"],
-            peak_gb=path_res["peak_bytes"] / 1e9)}
+            state=path_res["state_tensor_bytes"], **dense)}
 
 
 def dryrun_vs_card(card: dict, seed: int) -> dict:
@@ -3717,8 +3861,7 @@ def dryrun_vs_card(card: dict, seed: int) -> dict:
                     else {"params": mem["params_bytes"],
                           "opt_state": mem["opt_state_bytes"],
                           "inputs": mem["inputs_bytes"]})
-            if arch != "mosso-stream":
-                pred["flops"] = int(rec["cost"]["flops"])
+            pred["flops"] = int(rec["cost"]["flops"])
             for k, v in pred.items():
                 if v != held[k]:
                     raise AssertionError(
@@ -3731,25 +3874,22 @@ def dryrun_vs_card(card: dict, seed: int) -> dict:
             row["peak_ratio"] = row["card_peak_gb"] / row[
                 "predicted_peak_gb"]
             terms = rec["roofline"]
-            if terms:
-                row["roofline_ms"] = 1e3 * max(terms["t_compute"],
-                                               terms["t_memory"],
-                                               terms["t_collective"])
-                row["dominant"] = terms["dominant"]
-                row["card_ms"] = held["ms"]
-                row["time_ratio"] = row["card_ms"] / row["roofline_ms"]
+            row["roofline_ms"] = 1e3 * max(terms["t_compute"],
+                                           terms["t_memory"],
+                                           terms["t_collective"])
+            row["dominant"] = terms["dominant"]
+            row["card_ms"] = held["ms"]
+            row["time_ratio"] = row["card_ms"] / row["roofline_ms"]
             res["cells"][key] = row
             log(f"phase 18(a) {key} at 1 rank: predicted == the card's "
                 + ", ".join(f"{k} {v}" for k, v in pred.items())
                 + f"; peak predicted {row['predicted_peak_gb']:.3f} GB, "
                 f"card {row['card_peak_gb']:.3f} GB (card / predicted "
                 f"{row['peak_ratio']:.3f})"
-                + (f"; roofline {row['roofline_ms']:.3f} ms "
-                   f"({row['dominant']}), card {row['card_ms']:.3f} ms per "
-                   f"step (card / roofline {row['time_ratio']:.2f})"
-                   if terms else "; FLOPs not traced (the engine's step "
-                   "reads the host)")
-                + f"; traced in {row['trace_s']:.1f} s")
+                + f"; roofline {row['roofline_ms']:.3f} ms "
+                f"({row['dominant']}), card {row['card_ms']:.3f} ms per "
+                f"step (card / roofline {row['time_ratio']:.2f}); traced "
+                f"in {row['trace_s']:.1f} s")
         dist.destroy_process_group()
 
         # (b) compressed_psum over NCCL, one rank
@@ -3887,8 +4027,8 @@ def main() -> int:
     # just before it)
     rebuild_d = compact_live_summarizer(bs, truth, seed)
     del bs
-    # key_averages() takes ~0.7 ms per event: 8 changes are ~60k kernels
-    prof_res = profile_step(stream, 8)
+    # key_averages() takes ~0.9 ms per event: 4 changes are ~34k kernels
+    prof_res = profile_step(stream, 4)
     # 5. the smoke configuration on the card and on the CPU; 15(c). again
     # with maybe_compact after batch 2 and mid-stream
     cuda_vs_cpu(seed)
@@ -3958,8 +4098,8 @@ def main() -> int:
     # 18. the dry-run against the card: the bytes and FLOPs phases 16(c),
     # 16(b) and 3 held and ran, compressed_psum over NCCL, and the
     # full-width train_4k cells at 16 x 16
-    dryrun_res = dryrun_vs_card(dryrun_card(path_res, sage_train,
-                                            sasrec_train), seed)
+    dryrun_res = dryrun_vs_card(dryrun_card(
+        path_res, sage_train, sasrec_train, dense_one_trip(stream)), seed)
 
     # 9. the flash-attention kernel vs plain, and its times at the layer
     # shape
@@ -4003,6 +4143,9 @@ def main() -> int:
     recovery = batched_recovery(stream, path_res["step_s"], seed)
     kill_bar = sharded_kill_bar(seed)
     driver = summarize_stream_driver()
+    # 21. the dense step beside the branching step (counts set to 0 just
+    # before each, read just after)
+    dense = dense_step_forms(stream)
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -4021,8 +4164,8 @@ def main() -> int:
         rebuild_full_size=rebuild_b,
         rebuild_live_summarizer=rebuild_d, csr_backward=csr_bwd,
         sasrec_training=sasrec_train, graphsage_training=sage_train,
-        train_launcher=launcher, mla=mla, dryrun=dryrun_res),
-        indent=1))
+        train_launcher=launcher, mla=mla, dryrun=dryrun_res,
+        dense_step=dense), indent=1))
 
     entry = dict(name="ht_probe", route="cuda",
                  source="src/repro_torch/csrc/ht_probe.cu",
@@ -4048,6 +4191,7 @@ def main() -> int:
                      for mode in ("map", "vmap")},
                  sharded_max_lanes_per_job=sharded["max_lanes_per_job"],
                  recovery_launches=recovery["recovery_probe_launches"],
+                 dense_step_launches=dense["dense"]["probe_launches"],
                  sharded_recovery_launches=kill_bar["cuda"]["probe_launches"])
     k = sage["kernel"]
     csr_entry = dict(name="csr_segment", route="cuda",

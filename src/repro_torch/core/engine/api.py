@@ -25,7 +25,7 @@ from repro_torch.core.engine.state import (EngineConfig, EngineState,
                                            copy_state, new_state,
                                            stack_states, state_from_numpy,
                                            state_rows, state_to_numpy)
-from repro_torch.core.engine.trial import step_fn
+from repro_torch.core.engine.trial import probe_backend, step_fn
 from repro_torch.core.summary import (ShardedSummaryOutput, SummaryOutput,
                                       encoding_cost, host_node_weight,
                                       is_superedge, pair_key)
@@ -160,12 +160,6 @@ def state_phi_recomputed(state: EngineState,
 # --------------------------------------------------------------------------- #
 # crash consistency (shared by both front-ends)
 # --------------------------------------------------------------------------- #
-
-
-def _probe_backend(device: torch.device) -> str:
-    """The probe route a device's state takes: the CUDA kernel or its
-    plain version (recorded in a checkpoint's manifest, not pinned)."""
-    return "cuda" if device.type == "cuda" else "plain"
 
 
 def _numpy_tree(leaves: dict) -> dict:
@@ -433,7 +427,7 @@ class BatchedSummarizer(_CrashConsistency):
 
     def _ckpt_manifest(self) -> dict:
         return {"tier": "batched", "config": self.cfg.manifest(),
-                "trial_backend": _probe_backend(self.device)}
+                "trial_backend": probe_backend(self.device)}
 
     @staticmethod
     def _ckpt_pins() -> tuple:
@@ -1050,7 +1044,7 @@ class ShardedSummarizer(_CrashConsistency):
                                    [self.lane_cap, self.max_drain_rounds]),
                 "routing": self.routing,
                 "replica_exec": self.replica_exec,
-                "trial_backend": _probe_backend(self.device),
+                "trial_backend": probe_backend(self.device),
                 "n_devices": len(self.devices)}
 
     @staticmethod

@@ -26,7 +26,12 @@ masked-off op leaves every other value bitwise the same.  Where an op
 needs a value on the host to branch on (``pair_count_add``'s 0 <->
 nonzero transitions, the trip count of ``apply_move``), it reads all R
 replicas' values at once through :func:`host_read`, which counts the
-syncs, and runs the branch masked to the replicas that take it.
+syncs, and runs the branch masked to the replicas that take it.  The
+dense step (``trial.step_fn(..., dense=True)``) passes masks only and
+reads nothing: ``pair_count_add(..., dense=True)`` runs its four
+slot-list updates under their transition masks on every call, and
+``apply_move(..., trips=n)`` its first ``n`` neighbour slots under
+``i < n_upd`` masks, as JAX does.
 
 **Shared probe launches.**  Where JAX probes two tables one after the
 other with no write to either between the probes (the slot-list pairs of
@@ -39,7 +44,7 @@ R rows of a stacked table is one launch of R jobs.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Callable, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -272,12 +277,14 @@ def _sn_remove(st: EngineState, x: torch.Tensor, y: torch.Tensor,
 
 
 def pair_count_add(st: EngineState, a: torch.Tensor, b: torch.Tensor,
-                   delta: int, ok: Pred = True) -> EngineState:
+                   delta: int, ok: Pred = True,
+                   dense: bool = False) -> EngineState:
     """E_AB += delta, maintaining the SN slot lists on 0<->nonzero edges.
 
     Every replica's transitions are read on the host in one sync, and the
     slot-list updates run when one happens, masked to the replicas where
-    it did; JAX runs them masked on every call.
+    it did.  ``dense`` runs them as JAX does: all four on every call,
+    each under its transition mask, with no read.
     """
     if ok is False:
         return st
@@ -288,6 +295,13 @@ def pair_count_add(st: EngineState, a: torch.Tensor, b: torch.Tensor,
     removed = (new == 0) & (old != 0)
     if ok is not True:
         created, removed = created & ok, removed & ok
+    if dense:
+        differ = ca != cb
+        _sn_insert(st, ca, cb, created)
+        _sn_insert(st, cb, ca, created & differ)
+        _sn_remove(st, ca, cb, removed)
+        _sn_remove(st, cb, ca, removed & differ)
+        return st
     same = ca == cb
     n = same.shape[0]
     flags = host_read(torch.cat([created, removed, same]))
@@ -381,7 +395,8 @@ def _phi_add(st: EngineState, d: torch.Tensor, ok: Pred) -> None:
 
 
 def insert_edge(st: EngineState, u: torch.Tensor, v: torch.Tensor,
-                cfg: EngineConfig, ok: Pred = True) -> EngineState:
+                cfg: EngineConfig, ok: Pred = True,
+                dense: bool = False) -> EngineState:
     if ok is False:
         return st
     if ok is not True:
@@ -400,7 +415,7 @@ def insert_edge(st: EngineState, u: torch.Tensor, v: torch.Tensor,
         e = ht_lookup(st.eab, ca, cb)
         t = t_of(at(st.ssize, a), at(st.ssize, b), a == b)
         _phi_add(st, cost(e + 1, t) - cost(e, t), ok)
-    pair_count_add(st, a, b, 1, ok)
+    pair_count_add(st, a, b, 1, ok, dense)
     _adj_append(st, u, v, ok)
     _adj_append(st, v, u, ok)
     # min with INT32_MAX is the identity, so a masked call leaves minh alone
@@ -413,7 +428,8 @@ def insert_edge(st: EngineState, u: torch.Tensor, v: torch.Tensor,
 
 
 def delete_edge(st: EngineState, u: torch.Tensor, v: torch.Tensor,
-                cfg: EngineConfig, ok: Pred = True) -> EngineState:
+                cfg: EngineConfig, ok: Pred = True,
+                dense: bool = False) -> EngineState:
     if ok is False:
         return st
     if ok is not True:
@@ -430,7 +446,7 @@ def delete_edge(st: EngineState, u: torch.Tensor, v: torch.Tensor,
         e = ht_lookup(st.eab, ca, cb)
         t = t_of(at(st.ssize, a), at(st.ssize, b), a == b)
         _phi_add(st, cost(e - 1, t) - cost(e, t), ok)
-    pair_count_add(st, a, b, -1, ok)
+    pair_count_add(st, a, b, -1, ok, dense)
     _adj_remove(st, u, v, ok)
     _adj_remove(st, v, u, ok)
     st.num_edges -= _masked(ok, 1)
@@ -593,27 +609,46 @@ def delta_phi_move_weighted(st: EngineState, y: torch.Tensor,
 
 def apply_move(st: EngineState, y: torch.Tensor, target: torch.Tensor,
                dphi: torch.Tensor, nbrs: torch.Tensor, nvalid: torch.Tensor,
-               cfg: EngineConfig, ok: Pred = True) -> EngineState:
+               cfg: EngineConfig, ok: Pred = True,
+               trips: Optional[int] = None) -> EngineState:
     """Commit the move (target sid already allocated by the caller) in
     the replicas where ``ok`` holds.
 
     ``nvalid`` is a prefix mask (slot < deg): every replica's trip count
     is read in one sync, and neighbor slot ``i`` runs for the replicas
     with more than ``i`` neighbors, as many times as the largest count.
+    With ``trips`` given (the dense step's slot count, at most ``d_cap``)
+    there is no read: slots ``0 .. trips - 1`` run for every replica
+    under ``i < n_upd`` masks, their slot-list updates masked too
+    (``pair_count_add``'s ``dense``), and masked lanes take JAX's
+    sanitized ids.
     """
     if ok is False:
         return st
-    a = at(st.n2s, y)
+    dense = trips is not None
+    if dense and ok is not True:
+        y, target = torch.where(ok, y, 0), torch.where(ok, target, 0)
+        a = torch.where(ok, at(st.n2s, y), 0)
+    else:
+        a = at(st.n2s, y)
     weighted = cfg.objective == "weighted"
     wy = node_weight(y, cfg)
     n_upd = _masked(ok, nvalid.sum(dim=-1))
-    counts = host_read(n_upd)
-    for i in range(max(counts)):
-        w_ok = pred([i < n for n in counts], lambda: i < n_upd)
-        w = nbrs[:, i]
+    if dense:
+        slots = range(min(trips, nvalid.shape[-1]))
+    else:
+        counts = host_read(n_upd)
+        slots = range(max(counts))
+    for i in slots:
+        if dense:
+            w_ok = i < n_upd
+            w = torch.where(w_ok, nbrs[:, i], 0)
+        else:
+            w_ok = pred([i < n for n in counts], lambda: i < n_upd)
+            w = nbrs[:, i]
         sw = at(st.n2s, w)
-        pair_count_add(st, a, sw, -1, w_ok)
-        pair_count_add(st, target, sw, 1, w_ok)
+        pair_count_add(st, a, sw, -1, w_ok, dense)
+        pair_count_add(st, target, sw, 1, w_ok, dense)
         if weighted:
             wyv = wy * node_weight(w, cfg)
             pair_weight_add(st, a, sw, -wyv, w_ok)

@@ -32,6 +32,20 @@ and masks the region to the replicas where it holds (``ops.pred``):
 * masked, with no sync: ``ensure_node``'s ``need``, ``delete_edge``'s
   min-hash fix-ups, the free-stack push of ``apply_move``.
 
+**The dense step: JAX's masked data flow.**  ``step_fn(..., dense=True)``
+(:func:`make_step`'s ``dense``) is the lowering JAX's
+``_pregion(dense=True)`` names: both change regions of every change run
+under their masks, and every live-order trial runs ``plan``,
+``eval_phi`` (a masked trial scores the move ``a -> a``, JAX's
+``tgt_s``) and the commit tail under ``live``/``ok``/``commit`` masks,
+``apply_move`` over a fixed number of neighbour slots and each
+``pair_count_add`` with its four slot-list updates masked.  The step
+reads the host at most once, for its trip counts (:class:`Trips`), and
+not at all when the caller gives them, so it runs on ``meta`` tensors
+(the dry-run's mosso cell).  Masked work costs launches: every trial step
+runs the commit tail, where the branching step runs it at the
+acceptance rate.
+
 **Trials in live order.**  JAX's vmapped step runs trial ``(g, k)`` of
 every replica in lock step, each region iff any replica's trial there is
 live.  The TN filter keeps a sample with probability 1/deg, so live
@@ -52,7 +66,8 @@ runs; the values are the ones each group would read in turn.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from functools import lru_cache
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,19 +82,13 @@ from repro_torch.core.engine.state import (EngineConfig, EngineState,
                                            stacked_view)
 
 
-def _trial_step(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
-                tp_minh: torch.Tensor, seed: torch.Tensor, live: Pred,
-                cfg: EngineConfig) -> Tuple[List[bool], torch.Tensor]:
-    """Steps 3-5 of Alg. 1 for one trial of every replica where ``live``
-    holds: testing node ``y[r]`` with its group's TP samples ``tp[r]``
-    and seed ``seed[r]``.  Returns ``cap_ok`` on the host and on the
-    device (False counts as a skip)."""
+def _plan(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
+          tp_minh: torch.Tensor, seed: torch.Tensor, live: Pred,
+          cfg: EngineConfig):
+    """Candidate selection of one trial of every replica (JAX's ``plan``):
+    ``(a, esc, target, ok, cap_ok)``, ``ok`` False where ``live`` is."""
     propose = policies.PROPOSALS[cfg.proposal]
-    objective = policies.OBJECTIVES[cfg.objective]
-    accept = policies.COMMIT_RULES[cfg.commit]
-
-    # plan: candidate selection (proposal policy; counters 4.. are
-    # reserved for the proposal's own draws)
+    # counters 4.. are reserved for the proposal's own draws
     a = at(st.n2s, y)
     # float32 compare against the float32 escape, as in JAX
     esc = rnd_u01(seed, 3) <= float(np.float32(cfg.escape))
@@ -93,6 +102,20 @@ def _trial_step(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
               & (~esc | (top > 0)))
     ok = _masked(live, cap_ok & torch.where(esc, at(st.ssize, a) > 1,
                                             cand_ok), False)
+    return a, esc, target, ok, cap_ok
+
+
+def _trial_step(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
+                tp_minh: torch.Tensor, seed: torch.Tensor, live: Pred,
+                cfg: EngineConfig) -> Tuple[List[bool], torch.Tensor]:
+    """Steps 3-5 of Alg. 1 for one trial of every replica where ``live``
+    holds: testing node ``y[r]`` with its group's TP samples ``tp[r]``
+    and seed ``seed[r]``.  Returns ``cap_ok`` on the host and on the
+    device (False counts as a skip)."""
+    objective = policies.OBJECTIVES[cfg.objective]
+    accept = policies.COMMIT_RULES[cfg.commit]
+
+    _, esc, target, ok, cap_ok = _plan(st, y, tp, tp_minh, seed, live, cfg)
     n = y.shape[0]
     flags = host_read(torch.cat([ok, cap_ok, esc]))
     ok_h, cap_h, esc_h = flags[:n], flags[n:2 * n], flags[2 * n:]
@@ -117,8 +140,52 @@ def _trial_step(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
     return cap_h, cap_ok
 
 
-def _trial_phase(st: EngineState, nodes: torch.Tensor,
-                 cfg: EngineConfig) -> None:
+def _dense_trial_step(st: EngineState, y: torch.Tensor, tp: torch.Tensor,
+                      tp_minh: torch.Tensor, seed: torch.Tensor,
+                      live: torch.Tensor, cfg: EngineConfig,
+                      slots: int) -> torch.Tensor:
+    """:func:`_trial_step` as masked data flow (JAX's ``_one_trial`` with
+    its ``pwhen`` regions run unconditionally): plan, ``eval_phi`` and the
+    commit tail run for every replica under ``live``/``ok``/``commit``,
+    with no read.  Returns the skip mask (``live & ~cap_ok``)."""
+    objective = policies.OBJECTIVES[cfg.objective]
+    accept = policies.COMMIT_RULES[cfg.commit]
+
+    a, esc, target, ok, cap_ok = _plan(st, y, tp, tp_minh, seed, live, cfg)
+    # a masked trial scores the move a -> a, so every gather stays in
+    # bounds (JAX's eval_phi)
+    dphi, nbrs, nvalid = objective(
+        st, y, torch.where(ok, target, a).clamp(min=0), esc, cfg)
+    commit = ok & accept(dphi, cfg)
+    alloc_sid(st, ok=commit & esc)
+    apply_move(st, y, target, dphi, nbrs, nvalid, cfg, ok=commit,
+               trips=slots)
+    st.n_accept += commit.to(torch.int32)
+    return live & ~cap_ok
+
+
+class Trips(NamedTuple):
+    """Trip counts of the dense step's loops, each ``None`` for the
+    step's own: ``changes`` applied of the batch (all of them);
+    ``trials``, live trials a replica; ``slots``, ``apply_move``'s
+    neighbour slots.  With ``trials`` unset the step makes its one host
+    read, of the largest live-trial count over the replicas and of the
+    largest degree a move of this step can carry (which sets ``slots``
+    unless given); with ``trials`` given it reads nothing and ``slots``
+    defaults to ``d_cap``.  A count at or above what the data needs runs
+    masked no-ops beyond it and keeps the bits; one below stops early and
+    does not: the dry-run's convention of one trip a loop,
+    :data:`ONE_TRIP`."""
+    changes: Optional[int] = None
+    trials: Optional[int] = None
+    slots: Optional[int] = None
+
+
+ONE_TRIP = Trips(1, 1, 1)
+
+
+def _trial_phase(st: EngineState, nodes: torch.Tensor, cfg: EngineConfig,
+                 dense: bool = False, trips: Trips = Trips()) -> None:
     """Steps 1-5 of Alg. 1 for every input node of every replica
     (``int32[R, 2B]``, -1 = pad)."""
     dev = st.device
@@ -137,12 +204,27 @@ def _trial_phase(st: EngineState, nodes: torch.Tensor,
     tp_minh = take(st.minh, tp)
     # 2. TN filter: testing prob 1/deg(w)
     tseed = rnd_u32(seeds[..., None], ks + 100)
-    keep = rnd_u01(tseed, 2) * take(st.deg, tp).to(torch.float32) <= 1.0
+    deg_tp = take(st.deg, tp)
+    keep = rnd_u01(tseed, 2) * deg_tp.to(torch.float32) <= 1.0
     live = (valid[..., None] & keep).reshape(n_rep, n_groups * c)
     n_live = live.sum(dim=-1)
-    counts = host_read(n_live)
-    n_steps = max(counts)
     st.n_trials += n_live
+    if dense:
+        n_steps, slots = trips.trials, trips.slots
+        if n_steps is None:
+            # the one read: the most live trials of a replica, and the
+            # most neighbour slots a move of this step can take (a move
+            # needs deg(y) <= d_cap, and no trial changes a degree)
+            movable = live & (deg_tp <= cfg.d_cap).reshape(n_rep, -1)
+            n_steps, most = host_read(torch.stack([
+                n_live.max(), torch.where(movable, deg_tp.reshape(
+                    n_rep, -1), 0).max().to(n_live.dtype)]))
+            slots = most if slots is None else slots
+        n_steps = min(n_steps, n_groups * c)
+        slots = cfg.d_cap if slots is None else slots
+    else:
+        counts = host_read(n_live)
+        n_steps = max(counts)
     if not n_steps:
         return
 
@@ -155,6 +237,15 @@ def _trial_phase(st: EngineState, nodes: torch.Tensor,
     tp_minhs = tp_minh.gather(1, grp)
     tseeds = tseed.reshape(n_rep, -1).gather(-1, pos)
     on = torch.arange(n_steps, device=dev) < n_live[:, None]
+
+    if dense:
+        skipped = torch.zeros_like(st.n_skipped)
+        for i in range(n_steps):
+            skipped += _dense_trial_step(st, ys[:, i], tps[:, i],
+                                         tp_minhs[:, i], tseeds[:, i],
+                                         on[:, i], cfg, slots)
+        st.n_skipped += skipped
+        return
 
     skipped = [0] * n_rep
     skipped_dev = None
@@ -174,31 +265,104 @@ def _trial_phase(st: EngineState, nodes: torch.Tensor,
                          else skipped_dev)
 
 
-def step_fn(st: EngineState, u, v, ins, cfg: EngineConfig) -> EngineState:
+def _changes(u, v, ins, n_rep: int, device) -> torch.Tensor:
+    """The batch as ``int32[R, B, 3]`` ``(u, v, ins)`` on ``device``, from
+    host arrays or from tensors (which stay where they are until the
+    copy)."""
+    if all(isinstance(x, torch.Tensor) for x in (u, v, ins)):
+        return torch.stack([x.reshape(n_rep, -1).to(device=device,
+                                                    dtype=torch.int32)
+                            for x in (u, v, ins)], -1)
+    cols = [np.asarray(x).astype(np.int32).reshape(n_rep, -1)
+            for x in (u, v, ins)]
+    return torch.from_numpy(np.stack(cols, -1)).to(device)
+
+
+def step_fn(st: EngineState, u, v, ins, cfg: EngineConfig,
+            dense: bool = False, trips: Optional[Trips] = None,
+            ) -> EngineState:
     """One engine step over a padded batch of changes, in place.
 
-    ``st`` is one engine's state, with ``u``/``v`` int32[B] host arrays
-    (``-1`` = padding) and ``ins`` bool[B], or a stacked state of R
-    replicas with ``[R, B]`` arrays, replica ``r`` stepping on row ``r``.
-    Batch semantics: all changes apply first, then trial groups run for
-    every endpoint in stream order.
+    ``st`` is one engine's state, with ``u``/``v`` int32[B] (``-1`` =
+    padding) and ``ins`` bool[B], or a stacked state of R replicas with
+    ``[R, B]`` arrays, replica ``r`` stepping on row ``r``.  Batch
+    semantics: all changes apply first, then trial groups run for every
+    endpoint in stream order.
+
+    ``dense=False`` branches on the host at each decision point (the
+    module docstring); the changes are host arrays.  ``dense=True`` is
+    JAX's cond-free lowering: every change region and every trial phase
+    runs under its mask, and the step reads the host at most once (the
+    largest live-trial count, unless ``trips.trials`` gives it); the
+    changes may be tensors on any device, ``meta`` included.  Both give
+    the same bits.
     """
+    if trips is not None and not dense:
+        raise ValueError("trips sets the dense step's loops: pass "
+                         "dense=True")
+    trips = trips or Trips()
     if st.phi.dim() == 0:
         st = stacked_view(st)
     n_rep = st.phi.shape[0]
-    u = np.asarray(u, np.int32).reshape(n_rep, -1)
-    v = np.asarray(v, np.int32).reshape(n_rep, -1)
-    ins = np.asarray(ins, bool).reshape(n_rep, -1)
-    uvi = torch.from_numpy(np.stack([u, v, ins], -1).astype(np.int32)
-                           ).to(st.device)
-    do_ins, do_del = (u >= 0) & ins, (u >= 0) & ~ins
-    for j in range(u.shape[1]):
-        for change, do, flag in ((insert_edge, do_ins, 1),
-                                 (delete_edge, do_del, 0)):
-            ok = pred(do[:, j], lambda: (uvi[:, j, 0] >= 0)
-                      & (uvi[:, j, 2] == flag))
-            if ok is not False:
-                change(st, uvi[:, j, 0], uvi[:, j, 1], cfg, ok)
-    _trial_phase(st, uvi[..., :2].reshape(n_rep, -1), cfg)
+    if dense:
+        uvi = _changes(u, v, ins, n_rep, st.device)
+        n_ch = uvi.shape[1]
+        if trips.changes is not None:
+            n_ch = min(n_ch, trips.changes)
+        for j in range(n_ch):
+            valid = uvi[:, j, 0] >= 0
+            flag = uvi[:, j, 2] != 0
+            insert_edge(st, uvi[:, j, 0], uvi[:, j, 1], cfg, valid & flag,
+                        dense=True)
+            delete_edge(st, uvi[:, j, 0], uvi[:, j, 1], cfg, valid & ~flag,
+                        dense=True)
+    else:
+        u = np.asarray(u, np.int32).reshape(n_rep, -1)
+        v = np.asarray(v, np.int32).reshape(n_rep, -1)
+        ins = np.asarray(ins, bool).reshape(n_rep, -1)
+        uvi = _changes(u, v, ins, n_rep, st.device)
+        do_ins, do_del = (u >= 0) & ins, (u >= 0) & ~ins
+        for j in range(u.shape[1]):
+            for change, do, flag in ((insert_edge, do_ins, 1),
+                                     (delete_edge, do_del, 0)):
+                ok = pred(do[:, j], lambda: (uvi[:, j, 0] >= 0)
+                          & (uvi[:, j, 2] == flag))
+                if ok is not False:
+                    change(st, uvi[:, j, 0], uvi[:, j, 1], cfg, ok)
+    _trial_phase(st, uvi[..., :2].reshape(n_rep, -1), cfg, dense, trips)
     st.step_no.copy_((st.step_no + 1) & M32)
     return st
+
+
+TRIAL_BACKENDS = ("cuda", "plain")
+
+
+def probe_backend(device: torch.device) -> str:
+    """The probe route a device's state takes: the CUDA kernel or its
+    plain version (a checkpoint's manifest records it, unpinned)."""
+    return "cuda" if device.type == "cuda" else "plain"
+
+
+@lru_cache(maxsize=None)
+def _make_step(cfg: EngineConfig, dense: bool, trial_backend: Optional[str]):
+    def stepped(st, u, v, ins, trips: Optional[Trips] = None):
+        got = probe_backend(st.device)
+        if trial_backend is not None and got != trial_backend:
+            raise ValueError(f"this step probes by {trial_backend!r}; a "
+                             f"state on {st.device} probes by {got!r}")
+        return step_fn(st, u, v, ins, cfg, dense, trips)
+    return stepped
+
+
+def make_step(cfg: EngineConfig, dense: bool = False,
+              trial_backend: Optional[str] = None):
+    """The engine step for a fixed config and lowering, as JAX's
+    ``make_step``: ``step(st, u, v, ins, trips=None)``, memoized on
+    ``(cfg, dense, trial_backend)``.  The probe route follows the state's
+    device (``"cuda"``: the probe kernel; ``"plain"``: its plain version,
+    on the CPU or on ``meta``); a ``trial_backend`` given pins it, and a
+    state elsewhere raises."""
+    if trial_backend is not None and trial_backend not in TRIAL_BACKENDS:
+        raise ValueError(f"trial backend must be one of {TRIAL_BACKENDS}: "
+                         f"{trial_backend!r}")
+    return _make_step(cfg, dense, trial_backend)

@@ -66,6 +66,26 @@
 
 namespace {
 
+// Raises `kernel`'s dynamic shared memory to `bytes` on the current device,
+// once per device: CUDA keeps the attribute per device, so a second card
+// in the same process needs its own call.  `done` is the kernel's flag per
+// device.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
+
 constexpr int kWarps = 8;          // warps a block of 32 rows
 constexpr int kDepth = 8;          // most gathered rows in flight a warp
 constexpr int kRingBytes = 4096;   // a warp's ring of them in shared memory
@@ -432,20 +452,23 @@ csr_narrow_kernel(const Args a) {
 }
 
 template <int R, int V, int C>
-void wide(const Args& a, dim3 grid, cudaStream_t st) {
+cudaError_t wide(const Args& a, dim3 grid, cudaStream_t st) {
   constexpr int smem = ring_bytes<V, C>();
   if constexpr (smem > 48 * 1024) {
-    static const cudaError_t set = cudaFuncSetAttribute(
-        csr_wide_kernel<R, V, C>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    (void)set;
+    static bool configured[kMaxDevices] = {};   // this instantiation's
+    const cudaError_t err = allow_smem(csr_wide_kernel<R, V, C>, smem,
+                                       configured);
+    if (err != cudaSuccess) return err;
   }
   csr_wide_kernel<R, V, C><<<grid, 32 * kWarps, smem, st>>>(a);
+  return cudaSuccess;
 }
 
+// cudaErrorInvalidValue for a plan the build does not hold, else the
+// error of raising a wide ring's shared memory (cudaSuccess once launched)
 template <int R, int V>
-bool launch_vec(const Args& a, int slots, int lanes, dim3 grid,
-                cudaStream_t st) {
+cudaError_t launch_vec(const Args& a, int slots, int lanes, dim3 grid,
+                       cudaStream_t st) {
   const dim3 block(32 * kWarps);
   switch (lanes) {
     case 1: csr_narrow_kernel<R, V, 1><<<grid, block, 0, st>>>(a); break;
@@ -454,30 +477,30 @@ bool launch_vec(const Args& a, int slots, int lanes, dim3 grid,
     case 8: csr_narrow_kernel<R, V, 8><<<grid, block, 0, st>>>(a); break;
     case 16: csr_narrow_kernel<R, V, 16><<<grid, block, 0, st>>>(a); break;
     case 32: break;
-    default: return false;
+    default: return cudaErrorInvalidValue;
   }
-  if (lanes < 32) return true;
+  if (lanes < 32) return cudaSuccess;
   switch (slots) {
-    case 1: wide<R, V, 1>(a, grid, st); return true;
-    case 2: wide<R, V, 2>(a, grid, st); return true;
-    case 3: wide<R, V, 3>(a, grid, st); return true;
-    case 4: wide<R, V, 4>(a, grid, st); return true;
-    case 6: wide<R, V, 6>(a, grid, st); return true;
-    case 8: wide<R, V, 8>(a, grid, st); return true;
-    case 10: wide<R, V, 10>(a, grid, st); return true;
-    case 12: wide<R, V, 12>(a, grid, st); return true;
-    default: return false;
+    case 1: return wide<R, V, 1>(a, grid, st);
+    case 2: return wide<R, V, 2>(a, grid, st);
+    case 3: return wide<R, V, 3>(a, grid, st);
+    case 4: return wide<R, V, 4>(a, grid, st);
+    case 6: return wide<R, V, 6>(a, grid, st);
+    case 8: return wide<R, V, 8>(a, grid, st);
+    case 10: return wide<R, V, 10>(a, grid, st);
+    case 12: return wide<R, V, 12>(a, grid, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 template <int R>
-bool launch_reduce(const Args& a, int vec, int slots, int lanes, dim3 grid,
-                   cudaStream_t st) {
+cudaError_t launch_reduce(const Args& a, int vec, int slots, int lanes,
+                          dim3 grid, cudaStream_t st) {
   switch (vec) {
     case 1: return launch_vec<R, 1>(a, slots, lanes, grid, st);
     case 2: return launch_vec<R, 2>(a, slots, lanes, grid, st);
     case 4: return launch_vec<R, 4>(a, slots, lanes, grid, st);
-    default: return false;
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -485,7 +508,8 @@ bool launch_reduce(const Args& a, int vec, int slots, int lanes, dim3 grid,
 
 // Launches on `stream` without synchronising; returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unknown reduce, a plan the build does not
-// hold or the pointers do not allow, or a grid too large; 0 when there is
+// hold or the pointers do not allow, or a grid too large; the error of
+// raising a wide ring's shared memory on this device; 0 when there is
 // nothing to launch).  The plan (kernels/csr_segment.py::launch_plan):
 // `vec` floats a load, `lanes` lanes an edge (32: a wide row, `slots`
 // vectors a lane in each grid column).  A block covers 32 rows.
@@ -511,13 +535,19 @@ extern "C" int csr_segment_launch(const void* senders, const void* row_off,
                static_cast<const float*>(x), static_cast<float*>(out),
                n_out, n_src, n_edges, f};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok = false;
+  cudaError_t err = cudaErrorInvalidValue;
   switch (reduce) {
-    case kSum: ok = launch_reduce<kSum>(a, vec, slots, lanes, grid, st); break;
-    case kMin: ok = launch_reduce<kMin>(a, vec, slots, lanes, grid, st); break;
-    case kMax: ok = launch_reduce<kMax>(a, vec, slots, lanes, grid, st); break;
+    case kSum:
+      err = launch_reduce<kSum>(a, vec, slots, lanes, grid, st);
+      break;
+    case kMin:
+      err = launch_reduce<kMin>(a, vec, slots, lanes, grid, st);
+      break;
+    case kMax:
+      err = launch_reduce<kMax>(a, vec, slots, lanes, grid, st);
+      break;
     default: break;
   }
-  if (!ok) return cudaErrorInvalidValue;
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,7 +56,7 @@
 // are addressed through the caller's batch, head and row strides (the last
 // dimension contiguous, the base and every stride 16-byte aligned: what a
 // TMA tensor map takes), so a transposed view needs no copy.  Tiles above
-// 48 KB of shared memory take cudaFuncSetAttribute.
+// 48 KB of shared memory take cudaFuncSetAttribute, once per device.
 //
 // flash_attention_kernel and flash_attention_mma_kernel give one block one
 // (batch, head, 64-row query tile); their global loads are 16 bytes a
@@ -87,6 +87,26 @@ constexpr int kRows = kBQ / 16;        // query rows per thread
 constexpr int kKeys = kBK / 16;        // keys per thread per tile
 constexpr float kNegInf = -1e30f;      // the TPU kernel's mask value
 constexpr unsigned kFull = 0xffffffffu;
+
+// Raises `kernel`'s dynamic shared memory to `bytes` on the current device,
+// once per device: CUDA keeps the attribute per device, so a second card
+// in the same process needs its own call.  `done` is the kernel's flag per
+// device.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
 
 template <int D, int DV>
 struct Smem {
@@ -354,14 +374,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int hkv, int tq, int tk, const long long* st, int causal,
            float sm_scale, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, D, DV>;
-  static bool configured = false;   // once per instantiation (one device)
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Smem<D, DV>::kBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};   // this instantiation's
+  const cudaError_t err = allow_smem(kernel, Smem<D, DV>::kBytes, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((tq + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, Smem<D, DV>::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -657,14 +672,9 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
                int h, int hkv, int tq, int tk, const long long* st,
                int causal, float sm_scale, cudaStream_t stream) {
   auto kernel = flash_attention_mma_kernel<D>;
-  static bool configured = false;   // once per instantiation (one device)
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MmaSmem<D>::kBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};   // this instantiation's
+  const cudaError_t err = allow_smem(kernel, MmaSmem<D>::kBytes, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((tq + kMmaBQ - 1) / kMmaBQ, h, b);
   kernel<<<grid, kMmaThreads, MmaSmem<D>::kBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -971,14 +981,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     if (err) return err;
   }
   auto kernel = flash_attention_wgmma_kernel<D>;
-  static bool configured = false;   // once per instantiation (one device)
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        WgSmem<D>::kBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};   // this instantiation's
+  const cudaError_t err = allow_smem(kernel, WgSmem<D>::kBytes, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(tq / kWgBQ, h, b);
   kernel<<<grid, kWgThreads, WgSmem<D>::kBytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), h, h / hkv,
@@ -1277,14 +1282,10 @@ int launch_mla_kernel(const CUtensorMap (&maps)[3], void* o, int b, int h,
                       int hkv, int tq, int tk, int causal, float scale_log2,
                       cudaStream_t stream) {
   auto kernel = flash_attention_mla_kernel<kShared>;
-  static bool configured = false;   // once per instantiation (one device)
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MlaSmem<kShared>::kBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};   // this instantiation's
+  const cudaError_t err =
+      allow_smem(kernel, MlaSmem<kShared>::kBytes, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(tq / kWgBQ, h, b);
   kernel<<<grid, kMlaThreads, MlaSmem<kShared>::kBytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), h, h / hkv,

@@ -26,6 +26,10 @@ is bitwise: the probe sequence is the table layout.
   rows in one loop), and
   :func:`ht_probe_many_plain` a loop of it over the jobs.  The CPU tests
   run them, and ``chip_smoke.py`` holds the kernel to them on the card.
+* :func:`probe_op` is the probe as a ``torch.library.custom_op`` with a
+  fake implementation: its chain loop reads the host each round, so on
+  ``meta`` tensors (the dry-run) the probe is this one op, whose bytes
+  :func:`probe_bytes` gives as the kernel reads them.
 
 Nothing here imports a GPU toolchain at import time: the CPU tests import
 this module.
@@ -33,6 +37,7 @@ this module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import struct
 from typing import List, NamedTuple, Sequence, Tuple
 
@@ -169,6 +174,49 @@ def ht_probe_many_plain(jobs: Sequence[ProbeJob]) -> List[Probe]:
     """:func:`ht_probe_plain` of each job, in order."""
     return [ht_probe_plain(*job[:5], prehashed=job[5], mode=job[6])
             for job in jobs]
+
+
+# --------------------------------------------------------------------- #
+# the probe as one op, for tracers and meta tensors
+# --------------------------------------------------------------------- #
+
+WINDOW = 8             # slots a lane reads a round: csrc/ht_probe.cu's tile
+_SCHEMA = ("(Tensor tk1, Tensor tk2, Tensor tval, Tensor q1, Tensor q2, "
+           "bool prehashed, bool insert) -> (Tensor, Tensor, Tensor)")
+
+
+@functools.lru_cache(maxsize=None)
+def probe_op():
+    """The probe as the custom op ``repro_torch::ht_probe``, registered at
+    first use: one op, as the kernel is one launch, for a dispatch mode to
+    see whole, with :func:`ht_probe_plain` as its implementation and a
+    fake one that gives the outputs' shapes, so that it runs on ``meta``
+    tensors (the plain version's chain loop reads the host each round).
+    ``kernels/ops.py::ht_probe_many`` routes meta tensors, and CPU ones
+    under a dispatch mode, through it; CUDA tensors never."""
+    def impl(tk1, tk2, tval, q1, q2, prehashed, insert):
+        return ht_probe_plain(tk1, tk2, tval, q1, q2, prehashed=prehashed,
+                              mode=MODES[insert])
+
+    op = torch.library.custom_op("repro_torch::ht_probe", impl,
+                                 mutates_args=(), schema=_SCHEMA)
+
+    @op.register_fake
+    def _(tk1, tk2, tval, q1, q2, prehashed, insert):
+        check_args(tk1, tk2, tval, q1, q2, MODES[insert])
+        return (torch.empty_like(q1), torch.empty_like(q1, dtype=torch.bool),
+                torch.empty_like(q1))
+
+    return op
+
+
+def probe_bytes(lanes: int) -> int:
+    """The bytes one probe of ``lanes`` lanes moves as the kernel reads
+    them, one round: the two query words and the three outputs (slot,
+    found, val) once, and one ``WINDOW``-slot window of the table's three
+    words a lane (a chain that ends in its first window, as in a sparse
+    table), not the whole table."""
+    return lanes * (4 + 4 + 4 + 1 + 4 + WINDOW * 3 * 4)
 
 
 # --------------------------------------------------------------------- #

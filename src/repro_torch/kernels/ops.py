@@ -29,6 +29,7 @@ from collections import Counter
 from typing import List, Optional, Sequence
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.device import current_position
 from repro_torch.kernels import ref
@@ -38,7 +39,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain,
                                                  kernel_variant)
 from repro_torch.kernels.ht_probe import (Probe, ProbeJob, ht_probe_many_cuda,
-                                          ht_probe_many_plain)
+                                          ht_probe_many_plain, probe_op)
 from repro_torch.kernels.ht_rebuild import (Table, ht_rebuild_cuda,
                                             ht_rebuild_plain)
 
@@ -70,14 +71,25 @@ def ht_probe_many(jobs: Sequence[ProbeJob]) -> List[Probe]:
     ProbeJob` ``(tk1, tk2, tval, q1, q2, prehashed, mode)`` on its own
     table, cap and mode: ``(slot, found, val)`` per job.  On the card they
     share one launch (one per ``MAX_JOBS`` kernel jobs; a stacked ``[R,
-    cap]`` job is R of them, and ``ht_probe.jobs`` counts R)."""
+    cap]`` job is R of them, and ``ht_probe.jobs`` counts R).  On the
+    CPU each job runs the plain version; on ``meta`` tensors, and on CPU
+    ones under a dispatch mode (the dry-run's tracer), each job is one
+    call of the custom op ``repro_torch::ht_probe``
+    (:func:`~repro_torch.kernels.ht_probe.probe_op`), no launch counted."""
     if not jobs:
         return []
     if not _route(jobs[0][0], "ht_probe"):
+        where = jobs[0][0].device.type
         for job in jobs:
-            if job[0].device.type != "cpu":
+            if job[0].device.type != where:
+                name = "CPU" if where == "cpu" else "meta device"
                 raise ValueError(f"every job of one call must lie on the "
-                                 f"CPU: {job[0].device}")
+                                 f"{name}: {job[0].device}")
+        if where == "meta" or _get_current_dispatch_mode() is not None:
+            # one op a job: a tracer sees the probe whole, as a launch
+            op = probe_op()
+            return [op(*job[:5], bool(job[5]), job[6] == "insert")
+                    for job in jobs]
         return ht_probe_many_plain(jobs)
     out, launches = ht_probe_many_cuda(jobs)
     ht_probe.launches += launches

@@ -19,10 +19,11 @@ The step traced is the plain path that the CPU runs (as JAX's host
 dry-run lowers the reference off a TPU): the hand-written kernels take
 CUDA tensors only.  Attention takes the card's route, and the kernel
 route's plain version visits the causal tiles the kernel visits, so the
-cell's ``note`` says which.  The mosso cell's step reads the host (the
-engine's trial loop), so it is not traced: its state bytes are exact and
-its one ``phi`` all-reduce is counted, its FLOPs are reported as not
-traced.
+cell's ``note`` says which.  The mosso cell traces the engine's dense
+step (masked data flow, no host read) on each rank's own replica, its
+loops for one trip each, and its ``phi`` all-reduce; the probe counts as
+one op (``kernels/ht_probe.py::probe_op``) with the bytes the kernel
+reads.
 
 Results are written incrementally under ``build/dryrun/`` so the sweep is
 resumable.
@@ -48,8 +49,8 @@ import torch
 
 from repro_torch.configs import ASSIGNED, REGISTRY
 from repro_torch.launch.mesh import chips, make_production_mesh
-from repro_torch.launch.roofline import (LocalStepMode, no_collectives,
-                                         roofline_terms)
+from repro_torch.kernels.ht_probe import probe_bytes
+from repro_torch.launch.roofline import LocalStepMode, roofline_terms
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
@@ -57,9 +58,13 @@ ATTENTION_NOTE = ("attention traced on the card's route: the reference "
                   "under autograd, with a bias or at T not a multiple of "
                   "128 (every score), else the kernel's plain version, "
                   "which visits the causal tiles the kernel visits")
-MOSSO_NOTE = ("FLOPs not traced: the engine's step reads the host (its "
-              "trial loop), so it cannot run on meta tensors; the state "
-              "bytes are exact and the one phi all-reduce is counted")
+ENGINE_NOTE = ("the engine's dense step, each loop (changes, trials, "
+               "neighbour slots, probe rounds) traced for one trip, as "
+               "XLA's cost analysis counts a loop's body once; a probe "
+               f"moves {probe_bytes(1)} bytes a lane as the kernel reads "
+               "it (its queries, its outputs and one 8-slot window of the "
+               "table), not the whole table; FLOPs 0: the step has no "
+               "matrix product")
 
 
 def _tensors(tree) -> list:
@@ -188,46 +193,41 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False,
     depth = None
     if spec.family == "lm" and not smoke:
         depth = spec.make_config().n_layers
-    if spec.family == "mosso" or (depth is not None and depth > 2):
+    if depth is not None and depth > 2:
         _, args, in_specs, _ = build(spec, cell, mesh, smoke)
         dargs = tuple(shd.distribute(a, s, mesh)
                       for a, s in zip(args, in_specs))
         mem = _memory(spec, cell, dargs, None, None)
         del args, dargs
     fallback = {}
-    if spec.family == "mosso":
-        # the one phi all-reduce: an int32 scalar per rank
-        coll = dict(no_collectives(), **{"all-reduce": 4})
-        cost = dict(flops=None, bytes_accessed=None)
-        terms = None
-        notes.append(MOSSO_NOTE)
+    if depth is not None and depth > 2:
+        traced = []
+        for n in (1, 2):
+            c, m = _trace(spec, cell, mesh, smoke, n_layers=n)
+            traced.append(_counted(c, m))
+            for k, v in c.fallback_ops.items():
+                fallback[k] = fallback.get(k, 0) + v
+        got = _extrapolate(traced[0], traced[1], depth)
+        mem["peak_bytes"] = got["peak"]
+        mem["temp_size_in_bytes"] = got["peak"] - \
+            mem["argument_size_in_bytes"]
+        mem["output_size_in_bytes"] = got["out"]
+        notes.append(f"counts extrapolated to {depth} layers from "
+                     f"traces at 1 and 2")
     else:
-        if depth is not None and depth > 2:
-            traced = []
-            for n in (1, 2):
-                c, m = _trace(spec, cell, mesh, smoke, n_layers=n)
-                traced.append(_counted(c, m))
-                for k, v in c.fallback_ops.items():
-                    fallback[k] = fallback.get(k, 0) + v
-            got = _extrapolate(traced[0], traced[1], depth)
-            mem["peak_bytes"] = got["peak"]
-            mem["temp_size_in_bytes"] = got["peak"] - \
-                mem["argument_size_in_bytes"]
-            mem["output_size_in_bytes"] = got["out"]
-            notes.append(f"counts extrapolated to {depth} layers from "
-                         f"traces at 1 and 2")
-        else:
-            c, mem = _trace(spec, cell, mesh, smoke)
-            got = _counted(c, mem)
-            fallback = dict(c.fallback_ops)
-        coll = got["collectives"]
-        cost = dict(flops=float(got["flops"]),
-                    bytes_accessed=float(got["bytes_accessed"]))
-        terms = roofline_terms({"flops": cost["flops"],
-                                "bytes accessed": cost["bytes_accessed"]},
-                               coll, chips(mesh))
-        if spec.family in ("lm", "recsys"):
-            notes.append(ATTENTION_NOTE)
+        c, mem = _trace(spec, cell, mesh, smoke)
+        got = _counted(c, mem)
+        fallback = dict(c.fallback_ops)
+    coll = got["collectives"]
+    cost = dict(flops=float(got["flops"]),
+                bytes_accessed=float(got["bytes_accessed"]))
+    terms = roofline_terms({"flops": cost["flops"],
+                            "bytes accessed": cost["bytes_accessed"]},
+                           coll, chips(mesh))
+    if spec.family in ("lm", "recsys"):
+        notes.append(ATTENTION_NOTE)
+    if spec.family == "mosso":
+        notes.append(ENGINE_NOTE)
     t_trace = time.time() - t0
 
     res = dict(arch=arch, shape=shape, multi_pod=multi_pod, status="ok",
@@ -236,11 +236,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False,
                replicated_ops=fallback, note="; ".join(notes))
     if verbose:
         per_dev = mem.get("peak_bytes", mem["argument_size_in_bytes"]) / 1e9
-        dom = terms["dominant"] if terms else "n/a"
         print(f"[{tag}] ok trace={t_trace:.0f}s mem/rank={per_dev:.2f}GB "
-              f"dominant={dom}"
-              + (f" t=({terms['t_compute']:.2e},{terms['t_memory']:.2e},"
-                 f"{terms['t_collective']:.2e})s" if terms else ""),
+              f"dominant={terms['dominant']} t=({terms['t_compute']:.2e},"
+              f"{terms['t_memory']:.2e},{terms['t_collective']:.2e})s",
               flush=True)
     return res
 

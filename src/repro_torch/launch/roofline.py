@@ -20,7 +20,9 @@ one rank runs while the step executes under DTensor on ``meta`` tensors:
   rank and a sharded one only its shard;
 * bytes accessed: each local op's tensor inputs and outputs, once per op
   (the counterpart of XLA's "bytes accessed"; views, metadata ops and
-  collectives move nothing here);
+  collectives move nothing here); the engine's probe
+  (``repro_torch::ht_probe``) the bytes its kernel reads
+  (``kernels/ht_probe.py::probe_bytes``);
 * collective bytes: each collective's output bytes on the rank, by kind,
   which is the proxy JAX's count takes from the HLO (exact for
   all-reduce, the whole gathered tensor for all-gather, the shard for
@@ -145,6 +147,10 @@ class _Counter(TorchDispatchMode):
         kind = _COLLECTIVES.get(name)
         if kind is not None and "c10d" in func._schema.name:
             self.c.collectives[kind] += sum(_nbytes(t) for t in outs)
+        elif func._schema.name == "repro_torch::ht_probe":
+            # a probe moves what the kernel reads, not its whole table
+            from repro_torch.kernels.ht_probe import probe_bytes
+            self.c.bytes_accessed += probe_bytes(args[3].numel())
         elif not func.is_view and outs:
             from torch.utils.flop_counter import flop_registry
             fn = flop_registry.get(func._overloadpacket)

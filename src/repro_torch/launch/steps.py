@@ -7,8 +7,9 @@ is allocated), ``in_specs`` the spec tree that lays the args out on the
 mesh (``dist/sharding.py``; ``sharding.distribute`` makes them DTensors),
 ``out_specs`` the layout the outputs are brought back to (``None``: as
 they come).  The step is the port's own function (``train/step.py``,
-``models/*``), the plain path that the CPU runs: the hand-written kernels
-take CUDA tensors only, so a meta or DTensor never reaches one.
+``models/*``, the engine's dense step), the plain path that the CPU runs:
+the hand-written kernels take CUDA tensors only, so a meta or DTensor
+never reaches one.
 """
 from __future__ import annotations
 
@@ -220,15 +221,37 @@ def state_leaves(st) -> Dict[str, torch.Tensor]:
     return out
 
 
+def state_from_leaves(leaves: Dict[str, torch.Tensor]):
+    """The ``EngineState`` whose :func:`state_leaves` are ``leaves`` (the
+    tensors themselves, no copy)."""
+    from repro_torch.core.engine.hashtable import HashTable
+    from repro_torch.core.engine.state import EngineState
+    out = {}
+    for f in dataclasses.fields(EngineState):
+        if f.name in leaves:
+            out[f.name] = leaves[f.name]
+        else:
+            out[f.name] = HashTable(*(leaves[f"{f.name}.{w}"]
+                                      for w in ("k1", "k2", "val")))
+    return EngineState(**out)
+
+
 def build_mosso(spec: ArchSpec, cell: ShapeCell, mesh, smoke: bool = False):
-    """Each rank steps one engine replica over its own batch of changes,
-    then the ranks sum ``phi`` (JAX's ``shard_map`` of ``step_fn`` with one
-    ``psum``).  The args are the replicas stacked on a leading rank dim,
-    sharded over every mesh axis, so each rank holds one state.  The
-    engine's step reads the host (its trial loop) and cannot run on meta
-    tensors, so no step comes back (``fn`` is ``None``): the dry-run
-    reports the state's bytes and the one all-reduce."""
+    """Each rank steps its own engine replica over its own batch of
+    changes with the dense step (``trial.step_fn(..., dense=True)``) on
+    its local shard, then the ranks sum ``phi`` in one all-reduce, which
+    the tracer counts: JAX's ``shard_map`` of ``step_fn`` with one
+    ``psum``, and no gather of the state.  The args are the replicas
+    stacked on a leading rank dim, sharded over every mesh axis, so each
+    rank holds one state; the step updates it in place and hands it back
+    as it lies.  Every loop of the step is traced for one trip
+    (``trial.ONE_TRIP``), as XLA's cost analysis counts a loop's body
+    once."""
+    from torch.distributed import group
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
     from repro_torch.core.engine.state import new_state
+    from repro_torch.core.engine.trial import ONE_TRIP, step_fn
 
     cfg = spec.make_smoke_config() if smoke else spec.make_config()
     inputs = cell.inputs(cfg)
@@ -244,7 +267,23 @@ def build_mosso(spec: ArchSpec, cell: ShapeCell, mesh, smoke: bool = False):
     ch = tuple(torch.empty((n_dev, *inputs[k].shape), dtype=inputs[k].dtype,
                            device="meta") for k in ("u", "v", "ins"))
     ch_specs = tuple(shd.guard_spec((lead,), c.shape, mesh) for c in ch)
-    return None, (stacked,) + ch, (st_specs,) + ch_specs, \
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def step(st, u, v, ins):
+        est = state_from_leaves({k: local(t) for k, t in st.items()})
+        step_fn(est, local(u), local(v), local(ins), cfg, dense=True,
+                trips=ONE_TRIP)
+        # phi stays local; the sum over the ranks is what the cell returns
+        phi = funcol.wait_tensor(funcol.all_reduce(est.phi, "sum",
+                                                   group.WORLD))
+        if isinstance(u, DTensor):
+            phi = DTensor.from_local(phi, mesh, u.placements,
+                                     run_check=False)
+        return st, phi
+
+    return step, (stacked,) + ch, (st_specs,) + ch_specs, \
         (st_specs, ch_specs[0])
 
 

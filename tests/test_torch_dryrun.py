@@ -6,11 +6,15 @@
 * one full-width cell per family traced at the 16 x 16 production mesh in
   a subprocess (fake process group of 256 ranks): the record has JAX's
   fields, each rank's parameter bytes equal the shards of JAX's specs, the
-  mosso cell's state bytes equal JAX's ``new_state``;
+  mosso cell's state bytes equal JAX's ``new_state`` (4 more: the port's
+  ``step_no`` is an int64) and its dense step is traced: FLOPs 0, bytes,
+  a peak, one 4-byte all-reduce;
 * at a 1-rank mesh the traced FLOPs equal ``FlopCounterMode`` over the
   same step run on real CPU tensors (GraphSAGE, SASRec), and the
   predicted bytes equal the real tensors' (the CPU form of
-  ``chip_smoke.py`` phase 18(a)).
+  ``chip_smoke.py`` phase 18(a)); the mosso cell's traced bytes, peak
+  and collectives equal the tracer's counts over its step on real CPU
+  tensors.
 """
 import json
 import os
@@ -31,6 +35,7 @@ import repro.configs as jax_configs  # noqa: E402
 from repro.configs import REGISTRY as JAX_REGISTRY  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.configs import REGISTRY  # noqa: E402
+from repro_torch.launch.roofline import no_collectives  # noqa: E402
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -141,8 +146,15 @@ def test_full_width_cell_per_family(full_width, cell):
         # arithmetic on the CPU): 4 bytes more
         assert st.step_no.dtype == jnp.uint32
         assert mem["state_bytes"] == want + 4
-        assert r["cost"]["flops"] is None and "not traced" in r["note"]
-        assert r["collectives"]["all-reduce"] == 4
+        # the dense step traced on each rank's replica: no matrix product,
+        # bytes moved, the state updated in place (the peak at least the
+        # arguments), and one all-reduce of the int32 phi
+        assert r["cost"]["flops"] == 0.0
+        assert r["cost"]["bytes_accessed"] > mem["argument_size_in_bytes"]
+        assert mem["peak_bytes"] >= mem["argument_size_in_bytes"]
+        assert r["collectives"] == dict(no_collectives(), **{"all-reduce": 4})
+        assert r["roofline"]["dominant"] == "memory"
+        assert "one trip" in r["note"] and "8-slot window" in r["note"]
         return
     assert mem["params_bytes"] == _shard_bytes(arch)
     assert mem["peak_bytes"] >= mem["argument_size_in_bytes"] > 0
@@ -211,3 +223,61 @@ def test_one_rank_trace_equals_the_real_step(arch, shape):
     assert rec["cost"]["flops"] == out["flops"] > 0
     assert rec["memory"]["argument_size_in_bytes"] == out["nbytes"]
     assert sum(rec["collectives"].values()) == 0
+
+
+_MOSSO_ONE_RANK = r"""
+import json
+import torch
+from repro_torch.configs import REGISTRY
+from repro_torch.core.engine.state import new_state
+from repro_torch.dist import sharding as shd
+from repro_torch.launch import dryrun, mesh as M
+from repro_torch.launch.roofline import LocalStepMode
+from repro_torch.launch.steps import build, state_leaves
+mesh = M.make_host_mesh()
+spec = REGISTRY["mosso-stream"]
+cell = spec.cell("stream_batch")
+rec = dryrun.run_cell("mosso-stream", "stream_batch", mesh=mesh, smoke=True,
+                      verbose=False)
+fn, args, in_specs, _ = build(spec, cell, mesh, smoke=True)
+cfg = spec.make_smoke_config()
+b = cfg.batch
+u = torch.arange(b, dtype=torch.int32)[None]
+state = {k: v[None].clone()
+         for k, v in state_leaves(new_state(cfg, "cpu")).items()}
+real = (state, u, u + b, torch.ones((1, b), dtype=torch.bool))
+dargs = tuple(shd.distribute(a, s, mesh) for a, s in zip(real, in_specs))
+mode = LocalStepMode()
+mode.track(dargs)
+with torch.no_grad(), mode:
+    fn(*dargs)
+c = mode.counts
+print("RESULT " + json.dumps(dict(rec=rec, bytes=c.bytes_accessed,
+                                  flops=c.flops, peak=c.peak,
+                                  collectives=c.collectives,
+                                  phi=int(state["phi"][0]),
+                                  edges=int(state["num_edges"][0]))))
+"""
+
+
+def test_mosso_one_rank_trace_equals_the_dense_step_on_cpu_tensors():
+    """At a 1-rank mesh the mosso cell's traced bytes, FLOPs, peak and
+    collectives equal the same counter over the same step (the dense step
+    at ``ONE_TRIP``, then the all-reduce) run on real CPU tensors, whose
+    probe runs the plain version through the same op: the trace on meta
+    tensors is the step's."""
+    proc = subprocess.run([sys.executable, "-c", _MOSSO_ONE_RANK],
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(SRC)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads([l for l in proc.stdout.splitlines()
+                      if l.startswith("RESULT ")][-1][len("RESULT "):])
+    rec = out["rec"]
+    assert rec["chips"] == 1 and rec["status"] == "ok"
+    assert rec["cost"]["bytes_accessed"] == out["bytes"] > 0
+    assert rec["cost"]["flops"] == out["flops"] == 0
+    assert rec["memory"]["peak_bytes"] == out["peak"]
+    assert rec["collectives"] == out["collectives"]
+    assert rec["collectives"]["all-reduce"] == 4
+    # one trip of the change loop: the first insert went in, alone
+    assert out["edges"] == 1 and out["phi"] == 1

@@ -8,8 +8,9 @@ dry-run to: phase 3's ``BatchedSummarizer(full_config())`` over a BA
 stream of ``--nodes`` nodes (default 100: the state's bytes do not depend
 on the stream), phase 7 (one graphsage-reddit request, whose padded batch
 16(c) trains on), 16(b) (SASRec ``full_config()`` training) and 16(c)
-(GraphSAGE), then phase 18: (a) the dry-run at a 1-rank mesh against
-those phases' bytes and FLOPs, (b) ``compressed_psum`` over NCCL, (c) the
+(GraphSAGE) and the one-trip dense engine step of phase 18(a)'s mosso
+cell, then phase 18: (a) the dry-run at a 1-rank mesh against those
+phases' bytes, FLOPs and peaks, (b) ``compressed_psum`` over NCCL, (c) the
 full-width ``train_4k`` cells at 16 x 16 in a subprocess.  Each fails the
 run as it does there; the results go to ``build/dryrun_check.json``.
 """
@@ -43,7 +44,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     chip_smoke.log(f"card: {smi}; torch {torch.__version__}")
     _build.build_all([ht_probe.SOURCE, csr_segment.SOURCE])
-    path_res, bs, *_ = chip_smoke.main_path(args.nodes, 4, 0)
+    path_res, bs, _, _, stream = chip_smoke.main_path(args.nodes, 4, 0)
     del bs
     torch.cuda.empty_cache()
     _, batch = chip_smoke.graphsage_request(0)
@@ -53,7 +54,8 @@ def main() -> int:
     del batch
     torch.cuda.empty_cache()
     out = dict(card=smi, dryrun=chip_smoke.dryrun_vs_card(
-        chip_smoke.dryrun_card(path_res, sage, sasrec), 0))
+        chip_smoke.dryrun_card(path_res, sage, sasrec,
+                               chip_smoke.dense_one_trip(stream)), 0))
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "dryrun_check.json").write_text(
         json.dumps(out, indent=1, default=str))
