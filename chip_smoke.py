@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. card: name and power limit, torch/CUDA versions; the four kernels
+1. card: name and power limit, torch/CUDA versions; the five kernels
    built at once (one ``nvcc`` per source in ``src/repro_torch/csrc/``, into
    ``build/``), with ``nvcc``'s register and spill lines;
 2. probe kernel vs plain: the CUDA probe kernel against its plain torch
@@ -94,8 +94,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    snapshot, ``stats()``; then the probe kernel bitwise against its plain
    version at this path's shapes: 4 prehashed 2^22-slot intern tables
    holding ``n_cap`` keys each, both modes at every lane count the path
-   sent, and one ``ht_probe_many`` each of the pre-lookup's 8 jobs and a
-   read's 4;
+   sent, and one ``ht_probe_many`` of a read's 4 resolve jobs (the only
+   probe of the intern tables left: the chunk's interning is the intern
+   kernel's, phase 22);
 12. the router's paths at ``smoke_config()`` with 3 shards: device
    routing, host routing, key skew at ``lane_cap=2`` and a bounded drain
    budget, each on the card (``"vmap"``, its default) and on the CPU
@@ -129,7 +130,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (b) the kill-at-every-chunk-boundary
    bar at ``smoke_config()``, 3 shards, ``router_chunk`` 32, on the card
    and on the CPU, every leaf bitwise the uninterrupted run's and card ==
-   CPU; (c) ``python -m repro_torch.launch.summarize_stream 60
+   CPU, the card's recoveries launching the probe and intern kernels;
+   (c) ``python -m repro_torch.launch.summarize_stream 60
    --router-chunk 64`` on the card, by its own assertions.  Checkpoints
    go under ``build/chip_smoke_ckpt/`` and are removed after each phase;
 15. ``ht_rebuild`` on the card (its parts run where their inputs live):
@@ -249,13 +251,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    must take at least two drain rounds, leaf-bitwise to the same chunk
    at one position;
 21. the dense step (``step_fn(..., dense=True)``, JAX's masked data
-   flow) and the branching step on the card at ``full_config()``: the
-   first 256 changes of phase 3's stream by the branching step, then
-   each form from that state over the next ``DENSE_CHANGES`` changes as
-   one batch (a whole batch would run thousands of live trials, each
-   through ``apply_move``'s masked neighbour slots): every state leaf
-   equal, or the phase fails; per form host reads a step, probe launches
-   and jobs a change, us a change, live trials and accepted moves.
+   flow) and the branching step on the card at ``full_config()``: from
+   phase 3's state after its first batch (256 changes; a host copy), each
+   form over the next ``DENSE_CHANGES`` changes as one batch (a whole
+   batch would run thousands of live trials, each through
+   ``apply_move``'s masked neighbour slots): every state leaf equal, or
+   the phase fails; per form host reads a step, probe launches
+   and jobs a change, us a change, live trials and accepted moves;
+22. the intern kernel (``csrc/intern.cu``, the router's interning; after
+   phase 11, whose run must launch it): (a) against its plain version,
+   bitwise in the ids and every intern leaf, on 4 stacked intern tables of
+   2^22 slots holding 2^19 keys each, at 1, 256, 1,024 and 2,048 changes
+   a row of hits only, misses only and repeats; a drop case at ``n_cap``
+   1,536; phase 11's first chunk routed to its 4 shards on fresh intern
+   states; at 256 and 1,024 changes and the chunk, the device time, a
+   call from Python and the plain version beside the byte bound and the
+   ordered tail's dependent steps; (b), the router's engine stage under
+   JAX's dense lowering beside the port's, is ``tools/intern_check.py
+   --router``'s, not this script's; (c) phase 11's probe launches and
+   host reads a change beside the router's with its host intern loop
+   (``HOST_LOOP_COUNTS``).
 
 Matrix products run in full float32 (TF32 off).  It prints one JSON line
 of kernels, the card's name and power limit, and as its last line
@@ -296,7 +311,14 @@ HUB_LEAVES = 90                   # phase 20: the hub chunk's star
 HUB_CHUNK = 128                   # phase 20: its router chunk
 RECOVERY_CHUNKS = 2               # phase 13: chunks of phase 3's stream,
 RECOVERY_TAIL = 32                # the last of them this many changes
-DENSE_CHANGES = 8                 # phase 21: changes after the first batch
+DENSE_CHANGES = 4                 # phase 21: changes after the first batch
+                                  # (cut from 8 by the time limit)
+INTERN_LANES = (1, 256, 1024, 2048)  # phase 22(a): changes a row of a call
+INTERN_DROP_CAP = 1536            # phase 22(a): the drop case's n_cap
+# phase 22(c): phase 11's probe launches and host reads a change when the
+# router interned on the host (a pre-lookup launch, a host read, an insert
+# launch a new key), by the number of changes phase 11 ran then
+HOST_LOOP_COUNTS = {1280: (34.40, 20.38), 1024: (34.35, 18.65)}
 REBUILD_TINY_CAPS = (8, 16, 32)   # phase 15(a): tables with wrapped runs
 REBUILD_CAPS = (1 << 16, 1 << 20)  # phase 15(a): at 53% and 70%
 REBUILD_BIG = 1 << 22             # phase 15(a): at 70%, the host fold timed
@@ -743,15 +765,20 @@ def live_edges(stream):
     return live
 
 
-def main_path(nodes: int, deg: int, seed: int) -> dict:
+def main_path(nodes: int, deg: int, seed: int,
+              keep_first: bool = False) -> dict:
     """Drive ``full_config()`` on the card over a BA stream of ``nodes``
     nodes; the stream's scale is far below the configuration's
     ``n_cap``/``m_cap``, so the tables stay nearly empty (their load is
-    printed) while their capacity is full size."""
+    printed) while their capacity is full size.  With ``keep_first`` the
+    result's ``"first_batch"`` holds a host copy of the state and the
+    label ids after the first batch (phase 21 starts there), taken
+    outside the timed steps."""
     import torch
     from repro_torch.configs.mosso_stream import full_config
     from repro_torch.core.engine import BatchedSummarizer
     from repro_torch.core.engine.ops import host_read
+    from repro_torch.core.engine.state import copy_state
     from repro_torch.core.summary import pair_key
     from repro_torch.launch.steps import state_leaves
     from repro_torch.graph.streams import (barabasi_albert_edges,
@@ -779,12 +806,17 @@ def main_path(nodes: int, deg: int, seed: int) -> dict:
     ops.reset_counts()
     host_read.count = 0
     step_s = []
+    first = None
     t0 = time.perf_counter()
     for off in range(0, len(stream), cfg.batch):
         t = time.perf_counter()
         bs.process(stream[off:off + cfg.batch])
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
+        if keep_first and first is None:
+            t = time.perf_counter()
+            first = (copy_state(bs.state, "cpu"), dict(bs._ids))
+            t0 += time.perf_counter() - t     # not a step's time
     elapsed = time.perf_counter() - t0
     launches = ops.ht_probe.launches
     jobs = ops.ht_probe.jobs
@@ -826,6 +858,8 @@ def main_path(nodes: int, deg: int, seed: int) -> dict:
                stats=bs.stats(), phi=phi, live_edges=len(truth),
                by_batch={f"{m}:{b}": c for (m, b), c in
                          sorted(by_batch.items(), key=lambda x: -x[1])})
+    if keep_first:
+        res["first_batch"] = first
     log(f"main path: {n} changes in {elapsed:.3f} s = "
         f"{res['us_per_change']:.1f} us/change; probe launches "
         f"{launches} ({res['launches_per_change']:.2f}/change, "
@@ -1039,10 +1073,12 @@ def sharded_path(nodes: int, deg: int, seed: int) -> dict:
     call_s.append(time.perf_counter() - t)
     elapsed = time.perf_counter() - t0
     launches, jobs = ops.ht_probe.launches, ops.ht_probe.jobs
+    interns = ops.intern.launches
     by_batch = dict(ops.ht_probe.by_batch)
     syncs = host_read.count
-    if launches == 0:
-        raise AssertionError("the sharded path launched no probe kernel")
+    if launches == 0 or interns == 0:
+        raise AssertionError(f"the sharded path launched no probe kernel "
+                             f"({launches}) or no intern kernel ({interns})")
     peak = torch.cuda.max_memory_allocated() - base
     stats = ss.stats()
     if stats["router_host_dict_ops"] or stats["router_syncs"]:
@@ -1114,6 +1150,7 @@ def sharded_path(nodes: int, deg: int, seed: int) -> dict:
                later_us_per_change=later_us,
                probe_launches=launches, launches_per_change=launches / n,
                probe_jobs=jobs, jobs_per_change=jobs / n,
+               intern_launches=interns,
                host_syncs=syncs, syncs_per_change=syncs / n,
                max_lanes_per_job=max_lanes,
                by_batch={f"{m}:{b}": c for (m, b), c in
@@ -1129,7 +1166,8 @@ def sharded_path(nodes: int, deg: int, seed: int) -> dict:
         + ", ".join(f"{x:.2f}" for x in call_s)
         + f" s; later calls {res['later_us_per_change']:.1f} us/change); "
         f"probe launches {launches} ({launches / n:.2f}/change) serving "
-        f"{jobs} jobs ({jobs / n:.2f}/change); host reads {syncs} "
+        f"{jobs} jobs ({jobs / n:.2f}/change); intern launches {interns}; "
+        f"host reads {syncs} "
         f"({syncs / n:.2f}/change); largest job {max_lanes} lanes "
         f"(a one-thread-per-lane probe wins from 2^14-2^16 lanes, by load); "
         f"phi={phi} |E|={len(truth)}")
@@ -1460,9 +1498,9 @@ def intern_vs_plain(sharded: dict, gen) -> int:
     slots holding ``n_cap`` keys (a full intern table: ~25% load, no
     tombstones), probed in both modes at every lane count that phase 11
     sent (the stream and the reads); then one ``ops.ht_probe_many`` of
-    the ``2 * SHARDS`` prehashed ``acc_cap``-lane find jobs of a chunk's
-    pre-lookup, and one of the ``SHARDS`` jobs of a read's resolve at
-    the largest read batch.  Returns the max |error| (0)."""
+    the ``SHARDS`` jobs of a read's resolve at the largest read batch, the
+    one probe of the intern tables that phase 11 still sends (the chunk's
+    interning is the intern kernel's).  Returns the max |error| (0)."""
     import torch
     from repro_torch.configs.mosso_stream import full_config
     from repro_torch.dist.router import intern_cap
@@ -1478,22 +1516,20 @@ def intern_vs_plain(sharded: dict, gen) -> int:
     _, max_err = kernel_vs_plain({("25%", True): tables[0]}, lanes, gen,
                                  time_it=False)
     read_lanes = max(int(k.split(":")[1]) for k in sharded["read_by_batch"])
-    for per_table, n_lanes in ((2, sharded["acc_cap"]), (1, read_lanes)):
-        jobs = [ProbeJob(*tab, *queries(tab, n_lanes, gen), True, "find")
-                for tab in tables for _ in range(per_table)]
-        before = ops.ht_probe.launches
-        got = ops.ht_probe_many(jobs)
-        if ops.ht_probe.launches - before != 1:
-            raise AssertionError(f"{len(jobs)} intern jobs took "
-                                 f"{ops.ht_probe.launches - before} launches")
-        for j, (g, w) in enumerate(zip(got, ht_probe_many_plain(jobs))):
-            max_err = max(max_err, check_equal(
-                g, w, f"intern job {j} of {len(jobs)} x {n_lanes} lanes"))
+    jobs = [ProbeJob(*tab, *queries(tab, read_lanes, gen), True, "find")
+            for tab in tables]
+    before = ops.ht_probe.launches
+    got = ops.ht_probe_many(jobs)
+    if ops.ht_probe.launches - before != 1:
+        raise AssertionError(f"{len(jobs)} resolve jobs took "
+                             f"{ops.ht_probe.launches - before} launches")
+    for j, (g, w) in enumerate(zip(got, ht_probe_many_plain(jobs))):
+        max_err = max(max_err, check_equal(
+            g, w, f"resolve job {j} of {len(jobs)} x {read_lanes} lanes"))
     log(f"kernel vs plain: bitwise equal on {SHARDS} prehashed cap=2^"
         f"{cap.bit_length() - 1} intern tables of {cfg.n_cap} keys (built "
         f"in {build_s:.1f} s) in find/insert at phase 11's lanes {lanes}; "
-        f"one ht_probe_many of {2 * SHARDS} x {sharded['acc_cap']} lanes "
-        f"and one of {SHARDS} x {read_lanes} lanes, one launch each")
+        f"one ht_probe_many of {SHARDS} x {read_lanes} lanes, one launch")
     del tables
     torch.cuda.empty_cache()
     return max_err
@@ -1916,7 +1952,8 @@ def sharded_kill_bar(seed: int) -> dict:
     boundary (checkpoint every 2 chunks) and recovered by a fresh
     summarizer, then continued; every leaf, the host closure and
     ``stats()`` equal the uninterrupted run's, and the card's equal the
-    CPU's."""
+    CPU's.  The card's kills, recoveries and continuations must launch
+    the probe and intern kernels (counts set to 0 just before them)."""
     import shutil
     import numpy as np
     from repro_torch.configs.mosso_stream import smoke_config
@@ -1973,9 +2010,12 @@ def sharded_kill_bar(seed: int) -> dict:
                                          f"stats differ")
             out[dev] = dict(kills=n_chunks + 1,
                             seconds=time.perf_counter() - t,
-                            probe_launches=ops.ht_probe.launches)
-        if out["cuda"]["probe_launches"] == 0:
-            raise AssertionError("the card's recoveries launched no probe")
+                            probe_launches=ops.ht_probe.launches,
+                            intern_launches=ops.intern.launches)
+        if out["cuda"]["probe_launches"] == 0 or \
+                out["cuda"]["intern_launches"] == 0:
+            raise AssertionError(f"the card's recoveries launched no probe "
+                                 f"or no intern: {out['cuda']}")
         _check_flat(finals["cuda"][0], finals["cpu"][0], "card vs cpu")
         if finals["cuda"][1:] != finals["cpu"][1:]:
             raise AssertionError("card vs cpu: host closure or stats differ")
@@ -1986,7 +2026,8 @@ def sharded_kill_bar(seed: int) -> dict:
         f"{n_chunks + 1} boundaries and recovered, every leaf, the host "
         f"closure and stats() bitwise the uninterrupted run's, on the card "
         f"({out['cuda']['seconds']:.1f} s, {out['cuda']['probe_launches']} "
-        f"probe launches) and on the CPU ({out['cpu']['seconds']:.1f} s); "
+        f"probe and {out['cuda']['intern_launches']} intern launches) and "
+        f"on the CPU ({out['cpu']['seconds']:.1f} s); "
         f"card == cpu")
     return out
 
@@ -3681,16 +3722,18 @@ def _batch(changes, cfg, ids: dict):
             np.array([i for (_, _, i) in changes] + [False] * pad))
 
 
-def dense_step_forms(stream) -> dict:
+def dense_step_forms(stream, first=None) -> dict:
     """Phase 21: the dense step (``trial.step_fn(..., dense=True)``, JAX's
     masked data flow) beside the branching step on the card at
-    ``full_config()``: a fresh state takes the first batch of phase 3's
-    stream (256 changes) by the branching step, then each form steps a
-    copy of that state over the next ``DENSE_CHANGES`` changes as one
-    batch (padded to ``batch``): every state leaf equal on the card
-    after the step, or the phase fails.  Per form: host reads a step,
-    probe launches and jobs a change, us a change (the step and a device
-    sync), the live trials, accepted moves and skips of the step.  The
+    ``full_config()``: from the state after the first batch of phase 3's
+    stream (256 changes; ``first``, phase 3's host copy of its state and
+    label ids, or else a fresh state stepped over that batch by the
+    branching step), each form steps a copy of that state over the next
+    ``DENSE_CHANGES`` changes as one batch (padded to ``batch``): every
+    state leaf equal on the card after the step, or the phase fails.  Per
+    form: host reads a step, probe launches and jobs a change, us a change
+    (the step and a device sync), the live trials, accepted moves and
+    skips of the step.  The
     counts are set to 0 just before each form and read just after; the
     dense form must launch the probe kernel."""
     import torch
@@ -3703,15 +3746,19 @@ def dense_step_forms(stream) -> dict:
     t0 = time.perf_counter()
     cfg = full_config()
     b, n = cfg.batch, DENSE_CHANGES
-    ids = {}
-    first = _batch(stream[:b], cfg, ids)
+    if first is None:
+        ids = {}
+        st0 = new_state(cfg, "cuda")
+        step_fn(st0, *_batch(stream[:b], cfg, ids), cfg)
+    else:
+        st0, ids = copy_state(first[0], "cuda"), dict(first[1])
     u, v, ins = _batch(stream[b:b + n], cfg, ids)
     log(f"phase 21: the dense step and the branching step at full_config "
         f"(d_cap={cfg.d_cap}, c={cfg.c}, batch={b}) over changes {b}-"
         f"{b + n - 1} of phase 3's stream as one batch, each from the "
-        f"state after its first {b} (stepped by the branching step)")
-    st0 = new_state(cfg, "cuda")
-    step_fn(st0, *first, cfg)
+        f"state after its first {b} ("
+        + ("phase 3's" if first is not None else "stepped by the branching "
+           "step") + ")")
     counters = ("n_trials", "n_accept", "n_skipped")
     before = {k: int(getattr(st0, k)) for k in counters}
     states, res = {}, dict(changes=n, start=b)
@@ -3793,6 +3840,248 @@ def dense_one_trip(stream) -> dict:
     del st, tu, tv, tins
     torch.cuda.empty_cache()
     return dict(peak_gb=peak / 1e9, ms=ms, flops=fc.get_total_flops())
+
+
+# --------------------------------------------------------------------- #
+# phase 22: the intern kernel
+# --------------------------------------------------------------------- #
+
+
+def _intern_block(cfg, keys: int, gen, n_cap=None):
+    """``SHARDS`` stacked intern states of ``intern_cap(cfg)`` slots on
+    the card, each table holding ``keys`` prehashed keys (phase 2's bulk
+    build; ids 0..keys-1, ``n_nodes`` = keys), ``l2h`` of ``n_cap`` rows
+    (default ``cfg.n_cap``)."""
+    import torch
+    from repro_torch.core.engine.hashtable import HashTable
+    from repro_torch.dist.router import InternState, intern_cap
+    tables = [bulk_table(intern_cap(cfg), keys, 0, True, gen)[0]
+              for _ in range(SHARDS)]
+    k1, k2, val = (torch.stack([t[w] for t in tables]) for w in range(3))
+    val -= (k1 >= 0).to(torch.int32)           # bulk ids start at 1
+    n_cap = cfg.n_cap if n_cap is None else n_cap
+    i32 = dict(dtype=torch.int32, device="cuda")
+    return InternState(h2l=HashTable(k1, k2, val),
+                       l2h=torch.full((SHARDS, n_cap, 2), -1, **i32),
+                       n_nodes=torch.full((SHARDS,), keys, **i32),
+                       n_dropped=torch.zeros(SHARDS, **i32))
+
+
+def _intern_buckets(ist, lanes: int, kind: str, gen):
+    """``int32[SHARDS, lanes, 5]`` buckets on the card: ``"hits"`` both
+    endpoints keys of the row's table, ``"misses"`` keys no table holds,
+    all distinct, ``"repeats"`` keys no table holds drawn from a pool of
+    ``lanes // 4 + 1`` a row (each novel key interned once, then found)."""
+    import torch
+    dev = "cuda"
+    r = torch.arange(SHARDS, device=dev)[:, None, None]
+    if kind == "hits":
+        live = [(ist.h2l.k1[i] >= 0).nonzero().flatten()
+                for i in range(SHARDS)]
+        pick = torch.stack([lv[torch.randint(0, lv.numel(), (lanes, 2),
+                                             generator=gen, device=dev)]
+                            for lv in live])
+        hi, lo = ist.h2l.k1[r, pick], ist.h2l.k2[r, pick]
+    else:
+        pool = 2 * lanes if kind == "misses" else lanes // 4 + 1
+        phi = torch.randint(0, (1 << 31) - 1, (SHARDS, pool), generator=gen,
+                            device=dev, dtype=torch.int32)
+        # bulk keys have k2 < 2^20: a k2 of 2^30 and up is absent
+        plo = (1 << 30) + torch.arange(pool, device=dev, dtype=torch.int32)
+        plo = plo.expand(SHARDS, pool)
+        if kind == "misses":
+            pick = torch.arange(2 * lanes, device=dev).reshape(lanes, 2)
+            pick = pick.expand(SHARDS, lanes, 2)
+        else:
+            pick = torch.randint(0, pool, (SHARDS, lanes, 2), generator=gen,
+                                 device=dev)
+        hi, lo = phi[r, pick], plo[r, pick]
+    ins = torch.ones((SHARDS, lanes, 1), dtype=torch.int32, device=dev)
+    return torch.cat([hi[..., :1], lo[..., :1], hi[..., 1:], lo[..., 1:],
+                      ins], -1).contiguous()
+
+
+def _intern_args(ist, buckets):
+    return ((ist.h2l.k1, ist.h2l.k2, ist.h2l.val), ist.l2h, ist.n_nodes,
+            ist.n_dropped, tuple(buckets[..., k] for k in range(4)))
+
+
+def intern_case(base, buckets, n_cap: int, name: str, time_it: bool):
+    """One phase 22(a) case: the kernel on a copy of ``base`` against the
+    plain version on a host copy, bitwise (ids and every leaf); with
+    ``time_it`` the kernel's device time (after a spin kernel, so the
+    host's launch is hidden), a call from Python, the plain version, the
+    byte bound and the ordered tail's dependent steps."""
+    import torch
+    from repro_torch.core.engine.state import copy_state
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ht_probe import ProbeJob, ht_probe_many_plain
+    from repro_torch.kernels.intern import intern_plain
+    n_rep, lanes = buckets.shape[:2]
+    host_base, host_b = copy_state(base, "cpu"), buckets.cpu()
+    st = copy_state(base)
+    u, v = ops.intern(*_intern_args(st, buckets), n_cap)
+    plain = copy_state(host_base)
+    t = time.perf_counter()
+    pu, pv = intern_plain(*_intern_args(plain, host_b), n_cap)
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    got = copy_state(st, "cpu")
+    err = 0
+    for what, a, b in (("u", u.cpu(), pu), ("v", v.cpu(), pv),
+                       *((k, getattr(got.h2l, k), getattr(plain.h2l, k))
+                         for k in ("k1", "k2", "val")),
+                       *((k, getattr(got, k), getattr(plain, k))
+                         for k in ("l2h", "n_nodes", "n_dropped"))):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"phase 22(a) {name}: intern kernel vs "
+                                 f"plain, {what} differs")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    valid = int(((host_b[..., 0] >= 0) & (host_b[..., 2] >= 0)).sum())
+    inserts = int((plain.n_nodes - host_base.n_nodes).sum())
+    dropped = int((plain.n_dropped - host_base.n_dropped).sum())
+    res = dict(case=name, rows=n_rep, lanes=lanes, changes=valid,
+               inserts=inserts, dropped=dropped, plain_ms=plain_ms,
+               max_abs_err=err)
+    if not time_it:
+        return res
+    # the ordered tail: endpoints of valid changes not found at entry
+    q = torch.stack([host_b[..., 0], host_b[..., 2]], -1).reshape(n_rep, -1)
+    q2 = torch.stack([host_b[..., 1], host_b[..., 3]], -1).reshape(n_rep, -1)
+    ok = ((host_b[..., 0] >= 0) & (host_b[..., 2] >= 0))
+    ok = ok.repeat_interleave(2, 1)
+    (_, found, _), = ht_probe_many_plain([ProbeJob(
+        host_base.h2l.k1, host_base.h2l.k2, host_base.h2l.val,
+        torch.where(ok, q, 0), torch.where(ok, q2, 0), True, "find")])
+    tail = int((ok & ~found).sum(1).max())
+    nbytes = (16 + 8) * n_rep * lanes + 12 * 2 * valid + 20 * inserts \
+        + 16 * n_rep
+    work = copy_state(base)
+
+    def restore():
+        for a, b in zip(_flat_intern(work), _flat_intern(base)):
+            a.copy_(b)
+
+    reps = 10
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    dev_ms = call_ms = 0.0
+    for _ in range(reps):
+        restore()
+        torch.cuda._sleep(2_000_000)     # keeps the card busy meanwhile
+        start.record()
+        ops.intern(*_intern_args(work, buckets), n_cap)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms += start.elapsed_time(end) / reps
+        restore()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ops.intern(*_intern_args(work, buckets), n_cap)
+        torch.cuda.synchronize()
+        call_ms += 1e3 * (time.perf_counter() - t) / reps
+    res.update(ms=dev_ms, call_ms=call_ms,
+               bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_bytes=nbytes,
+               tail_steps=tail)
+    del work, st
+    return res
+
+
+def _flat_intern(ist):
+    return (ist.h2l.k1, ist.h2l.k2, ist.h2l.val, ist.l2h, ist.n_nodes,
+            ist.n_dropped)
+
+
+def chunk_buckets(stream, cfg):
+    """Phase 11's first chunk routed to its ``SHARDS`` shards as the
+    sharded path routes it: fresh stacked intern states on the card and
+    the ``int32[SHARDS, acc_cap, 5]`` buckets."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine.state import stack_states
+    from repro_torch.dist import labelhash, router
+    chunk = stream[:SHARDED_CHANGES]
+    uh, ul = labelhash.hash_words([c[0] for c in chunk])
+    vh, vl = labelhash.hash_words([c[1] for c in chunk])
+    fl = np.array([c[2] for c in chunk], np.int32)
+    pad = SHARDED_CHANGES - len(chunk)
+    words = np.stack([np.concatenate([w, np.full(pad, f, np.int32)])
+                      for w, f in ((uh, -1), (ul, -1), (vh, -1), (vl, -1),
+                                   (fl, 0))])
+    route, _ = router.make_route_step(
+        1, SHARDS, SHARDED_CHANGES,
+        router.default_lane_cap(SHARDED_CHANGES, 1, SHARDS, cfg.batch))
+    (buckets,), _, _, _ = route([torch.from_numpy(words).to("cuda")])
+    return stack_states([router.intern_new(cfg, "cuda")] * SHARDS), buckets
+
+
+def intern_kernel_vs_plain(stream, gen) -> dict:
+    """Phase 22(a): the intern kernel against its plain version, bitwise,
+    on ``SHARDS`` stacked intern tables of ``intern_cap(full_config())``
+    slots (2^22), each holding ``n_cap / 2`` keys: at 1, 256, 1,024 and
+    2,048 changes a row of hits only, misses only and repeats; a drop
+    case at ``n_cap`` 1,536 (1,024 keys held, 2,048 changes of repeats);
+    and phase 11's first chunk (routed to its 4 shards: 1,024 lanes a
+    row) on fresh intern states, the mix the sharded path interns first.
+    At 256 and 1,024 changes and at the mix: the kernel's device time, a
+    call from Python and the plain version's time beside the byte bound
+    and the ordered tail's dependent steps (the largest row's endpoints
+    not found at entry) at the time a step costs, fitted from the
+    misses-only times at 256 and 1,024 changes."""
+    import torch
+    from repro_torch.configs.mosso_stream import full_config
+
+    t0 = time.perf_counter()
+    cfg = full_config()
+    base = _intern_block(cfg, cfg.n_cap // 2, gen)
+    rows = []
+    for lanes in INTERN_LANES:
+        for kind in ("hits", "misses", "repeats"):
+            rows.append(intern_case(
+                base, _intern_buckets(base, lanes, kind, gen), cfg.n_cap,
+                f"{kind} x{lanes}", time_it=lanes in (256, 1024)))
+    del base
+    small = _intern_block(cfg, 1024, gen, n_cap=INTERN_DROP_CAP)
+    drop = intern_case(small, _intern_buckets(small, 2048, "repeats", gen),
+                       INTERN_DROP_CAP, "drops x2048", time_it=False)
+    if drop["dropped"] == 0 or drop["inserts"] != SHARDS * (
+            INTERN_DROP_CAP - 1024):
+        raise AssertionError(f"phase 22(a): the drop case dropped nothing "
+                             f"or filled no row: {drop}")
+    rows.append(drop)
+    del small
+    fresh, buckets = chunk_buckets(stream, cfg)
+    mix = intern_case(fresh, buckets, cfg.n_cap, f"phase 11 chunk 1 "
+                      f"x{buckets.shape[1]}", time_it=True)
+    rows.append(mix)
+    del fresh, buckets
+    torch.cuda.empty_cache()
+    at = {r["case"]: r for r in rows}
+    m256, m1024 = at["misses x256"], at["misses x1024"]
+    step_us = 1e3 * (m1024["ms"] - m256["ms"]) / max(
+        1, m1024["tail_steps"] - m256["tail_steps"])
+    for r in rows:
+        if "tail_steps" in r:
+            r["latency_scale_ms"] = r["tail_steps"] * step_us / 1e3
+    for r in rows:
+        line = (f"phase 22(a) intern {r['case']:>22s}: kernel == plain "
+                f"(changes {r['changes']}, inserts {r['inserts']}, dropped "
+                f"{r['dropped']}); plain {r['plain_ms']:.2f} ms")
+        if "ms" in r:
+            line += (f"; kernel {1e3 * r['ms']:.2f} us (call "
+                     f"{1e3 * r['call_ms']:.2f} us), bytes bound "
+                     f"{1e3 * r['bound_ms']:.3f} us, ordered tail "
+                     f"{r['tail_steps']} steps = "
+                     f"{1e3 * r['latency_scale_ms']:.2f} us at "
+                     f"{step_us:.4f} us a step")
+        log(line)
+    res = dict(rows=rows, us_per_tail_step=step_us, mix=mix,
+               max_abs_err=max(r["max_abs_err"] for r in rows),
+               seconds=time.perf_counter() - t0)
+    log(f"phase 22(a): the intern kernel equals its plain version bitwise "
+        f"in {len(rows)} cases; no PyTorch call interns keys in order, so "
+        f"library_ms is null; {res['seconds']:.1f} s")
+    return res
 
 
 def _free_port() -> int:
@@ -3969,7 +4258,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     load_rates()
     from repro_torch.kernels import (_build, csr_segment, flash_attention,
-                                     ht_probe, ht_rebuild)
+                                     ht_probe, ht_rebuild, intern)
     # full float32 matrix products on the card, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3984,7 +4273,8 @@ def main() -> int:
         f" python {sys.version.split()[0]}")
     t = time.perf_counter()
     built = _build.build_all([ht_probe.SOURCE, csr_segment.SOURCE,
-                              flash_attention.SOURCE, ht_rebuild.SOURCE])
+                              flash_attention.SOURCE, ht_rebuild.SOURCE,
+                              intern.SOURCE])
     build_s = time.perf_counter() - t
     log(f"build: {', '.join(p.name for p, _ in built.values())} in "
         f"{build_s:.2f} s (one nvcc per source, started together)")
@@ -4017,8 +4307,11 @@ def main() -> int:
     stacked = stacked_vs_plain(gen)
     max_err = max(max_err, multi["max_abs_err"], stacked["max_abs_err"])
 
-    # 3. main path (counts set to 0 just before, read just after)
-    path_res, bs, truth, by_batch, stream = main_path(NODES, 4, seed)
+    # 3. main path (counts set to 0 just before, read just after); the
+    # state after its first batch kept on the host for phase 21
+    path_res, bs, truth, by_batch, stream = main_path(NODES, 4, seed,
+                                                      keep_first=True)
+    first_batch = path_res.pop("first_batch")
     # 4. reads
     read_res = reads(bs, truth, 256, seed)
     #    and the graph ops over the live summary (counts set to 0 inside)
@@ -4136,16 +4429,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     #     the probe kernel at phase 11's shapes on full-size intern tables
     max_err = max(max_err, intern_vs_plain(sharded, gen))
+    # 22(a). the intern kernel vs plain at full size, timed; (c) phase 11's
+    # counts beside the host intern loop's
+    intern_res = intern_kernel_vs_plain(sharded_stream, gen)
+    log(f"phase 22(c): phase 11 probe launches "
+        f"{sharded['launches_per_change']:.2f}/change, host reads "
+        f"{sharded['syncs_per_change']:.2f}/change, intern launches "
+        f"{sharded['intern_launches']} ("
+        f"{sharded['intern_launches'] / sharded['changes']:.4f}/change); "
+        f"with the host intern loop: "
+        + "; ".join(f"{p:.2f} and {r:.2f} over {n} changes"
+                    for n, (p, r) in HOST_LOOP_COUNTS.items()))
     router_paths = sharded_router_paths(seed)
     # 13. batched crash consistency at full width (counts set to 0 inside,
     # just before each run); 14(b). the kill-at-every-boundary bar, card
-    # and CPU; 14(c). the recovering stream driver
+    # and CPU (counts set to 0 inside, just before the card's kills);
+    # 14(c). the recovering stream driver
     recovery = batched_recovery(stream, path_res["step_s"], seed)
     kill_bar = sharded_kill_bar(seed)
     driver = summarize_stream_driver()
-    # 21. the dense step beside the branching step (counts set to 0 just
-    # before each, read just after)
-    dense = dense_step_forms(stream)
+    # 21. the dense step beside the branching step, from phase 3's state
+    # after its first batch (counts set to 0 just before each, read just
+    # after)
+    dense = dense_step_forms(stream, first_batch)
+    del first_batch
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -4165,7 +4472,8 @@ def main() -> int:
         rebuild_live_summarizer=rebuild_d, csr_backward=csr_bwd,
         sasrec_training=sasrec_train, graphsage_training=sage_train,
         train_launcher=launcher, mla=mla, dryrun=dryrun_res,
-        dense_step=dense), indent=1))
+        dense_step=dense, intern=intern_res),
+        indent=1))
 
     entry = dict(name="ht_probe", route="cuda",
                  source="src/repro_torch/csrc/ht_probe.cu",
@@ -4191,8 +4499,8 @@ def main() -> int:
                      for mode in ("map", "vmap")},
                  sharded_max_lanes_per_job=sharded["max_lanes_per_job"],
                  recovery_launches=recovery["recovery_probe_launches"],
-                 dense_step_launches=dense["dense"]["probe_launches"],
-                 sharded_recovery_launches=kill_bar["cuda"]["probe_launches"])
+                 sharded_recovery_launches=kill_bar["cuda"]["probe_launches"],
+                 dense_step_launches=dense["dense"]["probe_launches"])
     k = sage["kernel"]
     csr_entry = dict(name="csr_segment", route="cuda",
                      source="src/repro_torch/csrc/csr_segment.cu",
@@ -4268,8 +4576,29 @@ def main() -> int:
                                  "call_ms", "bound_ms", "longest_run")}
                              for r in rebuild_b],
                          plain_s_2p22=rebuild_a["plain_s_2p22"])
+    mix = intern_res["mix"]
+    intern_entry = dict(name="intern", route="cuda",
+                        source="src/repro_torch/csrc/intern.cu",
+                        replaces="src/repro/dist/router.py:305",
+                        launches=sharded["intern_launches"],
+                        max_abs_err=intern_res["max_abs_err"], ms=mix["ms"],
+                        call_ms=mix["call_ms"],
+                        plain_ms=mix["plain_ms"], bound_ms=mix["bound_ms"],
+                        bound_by="bytes", library_ms=None,
+                        latency_scale_ms=mix["latency_scale_ms"],
+                        tail_steps=mix["tail_steps"],
+                        sharded_recovery_launches=kill_bar["cuda"][
+                            "intern_launches"],
+                        shape=f"phase 11's first chunk: {SHARDS} rows of "
+                              f"{mix['lanes']} changes on fresh 2^22-slot "
+                              f"intern tables",
+                        cases=[{k: r.get(k) for k in (
+                            "case", "ms", "call_ms", "plain_ms",
+                            "bound_ms", "latency_scale_ms", "inserts",
+                            "dropped")}
+                            for r in intern_res["rows"]])
     print(json.dumps({"kernels": [entry, csr_entry, attn_entry,
-                                  rebuild_entry]}))
+                                  rebuild_entry, intern_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -567,9 +567,10 @@ class ShardedSummarizer(_CrashConsistency):
     ``materialize``/...) raises ``RuntimeError``.
 
     **Device.**  Each position's replicas live on its device; every table
-    probe, the intern pre-lookups and inserts included, runs the probe
-    kernel there.  With no CUDA device visible the constructor raises
-    unless ``device="cpu"`` (or a mesh of CPU positions) is passed.
+    probe runs the probe kernel there, and each chunk's interning one
+    launch of the intern kernel.  With no CUDA device visible the
+    constructor raises unless ``device="cpu"`` (or a mesh of CPU
+    positions) is passed.
 
     **Crash consistency.**  With ``checkpoint_dir`` every ``router_chunk``
     slice is journaled before it is routed; ``save()`` flushes the
@@ -671,11 +672,10 @@ class ShardedSummarizer(_CrashConsistency):
         ``_ist[d]``) and their rows in shard order (``states`` and
         ``interns``: views, which every write of the engine shows)."""
         self._est, self._ist = list(ests), list(ists)
-        self._intern_rows = [state_rows(i) for i in self._ist]
         self.states: List[EngineState] = [
             row for est in self._est for row in state_rows(est)]
         self.interns: List[router.InternState] = [
-            row for rows in self._intern_rows for row in rows]
+            row for ist in self._ist for row in state_rows(ist)]
 
     # ------------------------------------------------------------------ ids
     def _pack_chunk(self, chunk: Sequence[Change], pad_to: int = 0):
@@ -839,8 +839,7 @@ class ShardedSummarizer(_CrashConsistency):
                     buh[s, :k], bul[s, :k] = uh[sel], ul[sel]
                     bvh[s, :k], bvl[s, :k] = vh[sel], vl[sel]
                     bfl[s, :k] = fl[sel]
-            self._bucketed(self._est, self._intern_rows, buh, bul, bvh, bvl,
-                           bfl)
+            self._bucketed(self._est, self._ist, buh, bul, bvh, bvl, bfl)
         self._epoch += 1
         self._host_cache = None
         if len(self._label_buf) >= 128:
@@ -874,8 +873,7 @@ class ShardedSummarizer(_CrashConsistency):
             self._process_chunk_host(chunk[delivered:])
 
     def _run_engine(self, routed) -> None:
-        self._engine(self._est, self._intern_rows, self._drain_rounds,
-                     *routed)
+        self._engine(self._est, self._ist, self._drain_rounds, *routed)
         self._epoch += 1
 
     def _flush_dispatch(self) -> None:

@@ -37,13 +37,17 @@ each shard's bucket watermark.  With ``lane_cap`` equal to ``n_in``
 (``static_no_overflow``) the one round reads nothing.
 
 **Stage 2, engine** (:func:`make_engine_step`): every replica interns its
-whole bucket first (:func:`intern_buckets`: first come, first served in
+whole bucket first (:func:`intern_changes`: first come, first served in
 delivery order, ``u`` before ``v``), then all replicas run ``max_s
-ceil(count_s / batch)`` engine rounds (JAX's ``pmax``, from the buckets
-the interning read), padding-only rounds included, so that every
-replica's PRNG cursor advances in lockstep.  The route stage's extra drain
-rounds are added to the carried telemetry (``int32[n_dev]``, one entry a
-position: ``telem += rounds - 1``).
+ceil(count_s / batch)`` engine rounds (JAX's ``pmax``), padding-only
+rounds included, so that every replica's PRNG cursor advances in
+lockstep.  The route stage's extra drain rounds are added to the carried
+telemetry (``int32[n_dev]``, one entry a position: ``telem += rounds -
+1``).  The stage steps the branching step on host copies of the ids,
+one host read a position and chunk.  JAX steps its ``"vmap"`` stages by
+the dense step (``trial.step_fn(..., dense=True)``); on the card that
+lowering took many times the branching one's time a change (``PERF.md``,
+``tools/intern_check.py --router``), so the port keeps the branching one.
 
 **Replica layout.**  Each position's replicas are one stacked
 :class:`~repro_torch.core.engine.state.EngineState` and one stacked
@@ -65,16 +69,12 @@ leaf-bitwise equal:
   same layout there by default.  It is not the faster layout on the CPU:
   ``"vmap"`` takes fewer host reads there too.
 
-Interning works on the rows of the stacked intern state, which the
-router writes in place.
-
-**Interning.**  One probe launch a position resolves the ``2 n_loc``
-pre-lookups of a chunk (u and v of every replica, prehashed, against the
-tables at chunk entry), and one host read brings back the buckets, the
-pre-lookups and the counters.  The host then walks the endpoints that
-were not found, in order: the first occurrence of a key takes the next id
-and is inserted (one insert-mode probe launch and the writes, no sync), a
-repeat within the call gets the id just given.  The insert order is the
+**Interning.**  Each position's stacked intern state takes its buckets in
+one call of the intern kernel (``kernels/intern.py``, ``csrc/intern.cu``):
+a parallel pre-lookup of every endpoint against the tables at chunk
+entry, then the endpoints that were not found, in order, each probed
+against the table as it stands and inserted if new.  No host read, no
+per-key host work: the ids stay on the device.  The insert order is the
 table layout, so ``h2l`` matches JAX's slot for slot.
 """
 from __future__ import annotations
@@ -86,13 +86,12 @@ from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from repro_torch.core.engine.hashtable import (M32, HashTable, ht_new,
-                                               ht_set, probe_many, u32)
+from repro_torch.core.engine.hashtable import M32, HashTable, ht_new, u32
 from repro_torch.core.engine.ops import host_read
 from repro_torch.core.engine.state import (EngineConfig, EngineState,
-                                           _table_words, copy_state,
-                                           state_from_numpy, state_rows,
-                                           state_to_numpy)
+                                           _map_leaves, _table_words,
+                                           copy_state, state_from_numpy,
+                                           state_rows, state_to_numpy)
 from repro_torch.core.engine.trial import step_fn
 from repro_torch.device import at_position
 
@@ -181,90 +180,30 @@ def drain_telemetry_restore(saved, n_dev: int, device) -> torch.Tensor:
     return torch.full((n_dev,), count, dtype=torch.int32, device=device)
 
 
-def _insert(ist: InternState, hi: torch.Tensor, lo: torch.Tensor,
-            nid: int) -> None:
-    """Intern one absent key (one-lane device tensors) as ``nid``, which
-    must equal ``ist.n_nodes``: the upsert probe, the writes and the
-    counter, all queued on the device with no sync."""
-    ht_set(ist.h2l, hi, lo, ist.n_nodes.reshape(1), prehashed=True)
-    ist.l2h[nid, 0:1] = hi
-    ist.l2h[nid, 1:2] = lo
-    ist.n_nodes += 1
+def intern_changes(ist: InternState, uh: torch.Tensor, ul: torch.Tensor,
+                   vh: torch.Tensor, vl: torch.Tensor, n_cap: int,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intern a hashed change sequence in order: ``(u_nid, v_nid)``, the
+    state written in place.
 
-
-def intern_buckets(ists: Sequence[InternState], buckets: torch.Tensor,
-                   n_cap: int,
-                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Intern replica ``r``'s change sequence ``buckets[r]`` (``int32[R, L,
-    5]`` rows ``(uh, ul, vh, vl, ins)``, ``-1`` padded) into ``ists[r]``.
-
-    Returns ``(u, v, host)``: the local ids ``int32[R, L]`` (``-1`` for
-    padding and for a change with a dropped endpoint, whose ``u`` stays
-    interned) and the buckets as read back to the host.  ``n_dropped``
-    counts every dropped endpoint intern, repeats included.  Bitwise the
-    JAX package's ``intern_changes`` of each row; one probe launch for
-    the ``2 R`` pre-lookups, one host read, and one insert probe per new
-    key.
+    The JAX package's ``intern_changes`` for one intern state with
+    ``int32[L]`` words, or for a stacked block (every leaf ``[R, ...]``)
+    with ``[R, L]`` words, row ``r``'s changes into row ``r`` (JAX's
+    ``jax.vmap`` of it).  A change with a dropped endpoint maps to ``(-1,
+    -1)``, and ``n_dropped`` counts every dropped endpoint intern, repeats
+    included.  Both of JAX's lowerings (its ``dense`` flag) give these
+    bits.  One call of :func:`repro_torch.kernels.ops.intern`: on the card
+    one launch of the intern kernel, with no host read, the ids left on
+    the card; on the CPU the plain version.
     """
-    uh, ul, vh, vl, _ = buckets.unbind(-1)
-    valid = (uh >= 0) & (vh >= 0)
-    # invalid lanes probe key (0, 0), as in JAX
-    h1u, h2u, h1v, h2v = (torch.where(valid, w, 0) for w in (uh, ul, vh, vl))
-    jobs = []
-    for r, ist in enumerate(ists):
-        jobs.append((ist.h2l, h1u[r], h2u[r], True, "find"))
-        jobs.append((ist.h2l, h1v[r], h2v[r], True, "find"))
-    probed = probe_many(jobs)
-    n_rep, n_lanes = uh.shape
-    flat = np.asarray(host_read(torch.cat(
-        [buckets.reshape(-1)]
-        + [p[1].to(torch.int32) for p in probed] + [p[2] for p in probed]
-        + [torch.stack([i.n_nodes, i.n_dropped]) for i in ists])), np.int32)
-    n_b, n_f = buckets.numel(), 2 * n_rep * n_lanes
-    host = flat[:n_b].reshape(buckets.shape)
-    found = flat[n_b:n_b + n_f].reshape(2 * n_rep, n_lanes)
-    val = flat[n_b + n_f:n_b + 2 * n_f].reshape(2 * n_rep, n_lanes)
-    counts = flat[n_b + 2 * n_f:].reshape(n_rep, 2)
-
-    u_out = np.full((n_rep, n_lanes), INVALID, np.int32)
-    v_out = np.full((n_rep, n_lanes), INVALID, np.int32)
-    for r, ist in enumerate(ists):
-        n_nodes, n_dropped = (int(x) for x in counts[r])
-        fresh: Dict[Tuple[int, int], int] = {}   # keys inserted by this call
-        words = (h1u[r], h2u[r], h1v[r], h2v[r])
-        for i in np.flatnonzero((host[r, :, 0] >= 0) & (host[r, :, 2] >= 0)):
-            nids = []
-            for side in (0, 1):
-                j = 2 * r + side
-                if found[j, i]:
-                    nids.append(int(val[j, i]))
-                    continue
-                key = tuple(int(w) for w in host[r, i, 2 * side:2 * side + 2])
-                nid = fresh.get(key)
-                if nid is None:
-                    if n_nodes < n_cap:
-                        nid = fresh[key] = n_nodes
-                        _insert(ist, words[2 * side][i:i + 1],
-                                words[2 * side + 1][i:i + 1], nid)
-                        n_nodes += 1
-                    else:
-                        n_dropped += 1
-                        nid = INVALID
-                nids.append(nid)
-            if nids[0] >= 0 and nids[1] >= 0:
-                u_out[r, i], v_out[r, i] = nids
-        if n_dropped != counts[r, 1]:
-            ist.n_dropped += n_dropped - int(counts[r, 1])
-    return u_out, v_out, host
-
-
-def intern_changes(ist: InternState, uh, ul, vh, vl, n_cap: int,
-                   ) -> Tuple[np.ndarray, np.ndarray]:
-    """Intern one hashed change sequence in order (``int32[L]`` device
-    tensors): ``(u_nid, v_nid)`` on the host, in place on ``ist``."""
-    buckets = torch.stack([uh, ul, vh, vl, torch.zeros_like(uh)], -1)
-    u, v, _ = intern_buckets([ist], buckets[None], n_cap)
-    return u[0], v[0]
+    # the kernel layer imports the engine, which imports this module
+    from repro_torch.kernels import ops as kops
+    if ist.n_nodes.dim() == 0:      # one state: a block of one row (views)
+        u, v = intern_changes(_map_leaves(ist, lambda t: t[None]),
+                              *(w[None] for w in (uh, ul, vh, vl)), n_cap)
+        return u[0], v[0]
+    return kops.intern((ist.h2l.k1, ist.h2l.k2, ist.h2l.val), ist.l2h,
+                       ist.n_nodes, ist.n_dropped, (uh, ul, vh, vl), n_cap)
 
 
 # --------------------------------------------------------------------------- #
@@ -310,24 +249,46 @@ def _step_rounds(est: EngineState, u: np.ndarray, v: np.ndarray,
             step_fn(row, u[s, sl], v[s, sl], ins[s, sl] != 0, cfg)
 
 
+def _intern_block(ist: InternState, blk: torch.Tensor,
+                  n_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intern a position's ``int32[n_loc, L, 5]`` buckets (rows ``(uh, ul,
+    vh, vl, ins)``) into its stacked intern state: device ids."""
+    return intern_changes(ist, blk[..., 0], blk[..., 1], blk[..., 2],
+                          blk[..., 3], n_cap)
+
+
+def _read_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Int tensors of one device as int32 numpy arrays of their shapes, in
+    one host read (the branching step's one read a position: the ids,
+    the insert flags and the delivered counts)."""
+    flat = np.asarray(host_read(torch.cat(
+        [t.reshape(-1).to(torch.int32) for t in tensors])), np.int32)
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].reshape(t.shape))
+        off += t.numel()
+    return out
+
+
 def make_bucketed_step(cfg: EngineConfig, replica_exec: str):
     """The step over host-bucketed ``[n_shards, batch]`` hash-word rounds:
-    ``(ests, ists, uh, ul, vh, vl, ins)`` with each
-    position's stacked engine state (``ests[d]``, ``n_loc`` rows), its
-    intern rows (``ists[d]``) and numpy arrays, states updated in place.
-    Each position copies its shards' rows to its device, interns its round
-    and steps once (:func:`for_positions`)."""
+    ``(ests, ists, uh, ul, vh, vl, ins)`` with each position's stacked
+    engine and intern states (``ests[d]``, ``ists[d]``, ``n_loc`` rows)
+    and numpy arrays, states updated in place.  Each position copies its
+    shards' rows to its device, interns them (one kernel launch on the
+    card) and steps once after one host read of the ids
+    (:func:`for_positions`)."""
 
     def bucketed(ests, ists, uh, ul, vh, vl, ins) -> None:
         host = np.stack([uh, ul, vh, vl, ins], -1).astype(np.int32)
-        ins = np.asarray(ins)
-        n_loc = len(ists[0])
+        n_loc = ists[0].n_nodes.shape[0]
 
         def position(d: int) -> None:
             rows = slice(d * n_loc, (d + 1) * n_loc)
-            buckets = torch.from_numpy(host[rows]).to(ests[d].device)
-            u, v, _ = intern_buckets(ists[d], buckets, cfg.n_cap)
-            _step_rounds(ests[d], u, v, ins[rows], 1, cfg, replica_exec)
+            blk = torch.from_numpy(host[rows]).to(ests[d].device)
+            u, v = _read_host(*_intern_block(ists[d], blk, cfg.n_cap))
+            _step_rounds(ests[d], u, v, host[rows, :, 4], 1, cfg,
+                         replica_exec)
 
         for_positions(position, [e.device for e in ests])
 
@@ -495,13 +456,15 @@ def make_route_step(n_dev: int, n_shards: int, chunk: int, lane_cap: int,
 def make_engine_step(cfg: EngineConfig, n_shards: int, acc_cap: int,
                      replica_exec: str):
     """The state-carrying engine stage for routed buckets:
-    ``(ests, ists, telem, buckets, rounds)`` with each
-    position's stacked engine state and intern rows, in place.  Every
-    position interns its ``int32[n_loc, acc_cap, 5]`` buckets, then every
-    replica runs ``max_s ceil(count_s / batch)`` engine rounds, the
-    maximum over all ``n_shards`` shards (JAX's ``pmax``); the positions
-    run in turn (:func:`for_positions`).
-    Adds the route stage's extra drain rounds to ``telem``."""
+    ``(ests, ists, telem, buckets, rounds)`` with each position's stacked
+    engine and intern states, in place.  Every position interns its
+    ``int32[n_loc, acc_cap, 5]`` buckets on its device (one kernel launch
+    on the card, no host read), then every replica runs ``max_s
+    ceil(count_s / batch)`` engine rounds, the maximum over all
+    ``n_shards`` shards (JAX's ``pmax``); the positions run in turn
+    (:func:`for_positions`), each by the branching step after one host
+    read a position of its ids, insert flags and delivered counts.  Adds
+    the route stage's extra drain rounds to ``telem``."""
     b = cfg.batch
 
     def engine(ests, ists, telem, buckets, rounds: int) -> None:
@@ -511,21 +474,24 @@ def make_engine_step(cfg: EngineConfig, n_shards: int, acc_cap: int,
                 raise ValueError(f"buckets must be [{n_loc}, {acc_cap}, 5] "
                                  f"a position: {tuple(blk.shape)}")
         devices = [blk.device for blk in buckets]
-        interned = for_positions(
-            lambda d: intern_buckets(ists[d], buckets[d], cfg.n_cap),
-            devices)
-        counts = np.concatenate([(host[..., 0] >= 0).sum(1)
-                                 for _, _, host in interned])
+
+        def intern(d: int):
+            blk = buckets[d]
+            u, v = _intern_block(ists[d], blk, cfg.n_cap)
+            return _read_host(u, v, blk[..., 4], (blk[..., 0] >= 0).sum(1))
+
+        interned = for_positions(intern, devices)
+        counts = np.concatenate([c for *_, c in interned])
         erounds = int((-(-counts // b)).max())
         # one spare round of padding, so a round's slice never runs short
         pad = np.full((n_loc, b), INVALID, np.int32)
 
         def step(d: int) -> None:
-            u, v, host = interned[d]
+            u, v, ins, _ = interned[d]
             _step_rounds(ests[d], np.concatenate([u, pad], 1),
                          np.concatenate([v, pad], 1),
-                         np.concatenate([host[..., 4], np.zeros_like(pad)],
-                                        1), erounds, cfg, replica_exec)
+                         np.concatenate([ins, np.zeros_like(pad)], 1),
+                         erounds, cfg, replica_exec)
 
         for_positions(step, devices)
         telem += rounds - 1

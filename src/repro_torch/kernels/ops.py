@@ -9,7 +9,8 @@ wrapper launches it and nowhere else: ``ht_probe.launches`` (with
 ``ht_probe.by_batch`` by each job's ``(mode, lanes)`` and
 ``ht_probe.by_position`` by the current mesh position;
 :func:`ht_probe` and :func:`ht_probe_many` share them),
-``ht_rebuild.launches``,
+``ht_rebuild.launches``, ``intern.launches`` (with
+``intern.by_position``),
 ``segment_reduce.launches``
 (incremented by :func:`segment_reduce_csr`, forward and backward, the one
 place that launches the CSR kernel; ``segment_reduce.backward_launches``
@@ -42,6 +43,7 @@ from repro_torch.kernels.ht_probe import (Probe, ProbeJob, ht_probe_many_cuda,
                                           ht_probe_many_plain, probe_op)
 from repro_torch.kernels.ht_rebuild import (Table, ht_rebuild_cuda,
                                             ht_rebuild_plain)
+from repro_torch.kernels.intern import Ids, intern_cuda, intern_plain
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -121,6 +123,27 @@ def ht_rebuild(k1: torch.Tensor, k2: torch.Tensor, val: torch.Tensor, *,
 
 
 ht_rebuild.launches = 0
+
+
+def intern(table: Table, l2h: torch.Tensor, n_nodes: torch.Tensor,
+           n_dropped: torch.Tensor, words: Sequence[torch.Tensor],
+           n_cap: int) -> Ids:
+    """Node interning of a stacked block of R intern states: the local ids
+    ``(u, v)`` of the changes ``words = (uh, ul, vh, vl)`` (``[R, L]``),
+    tables and counters written in place (see ``kernels/intern.py``).  A
+    CUDA block goes to the intern kernel, one launch, and its ids stay on
+    the card (or the call raises); a CPU block to the plain version."""
+    if _route(table[0], "intern"):
+        out = intern_cuda(table, l2h, n_nodes, n_dropped, words, n_cap)
+        if out[0].numel():      # an empty block launches nothing
+            intern.launches += 1
+            intern.by_position[current_position()] += 1
+        return out
+    return intern_plain(table, l2h, n_nodes, n_dropped, words, n_cap)
+
+
+intern.launches = 0
+intern.by_position = Counter()
 
 
 # --------------------------------------------------------------------- #
@@ -362,6 +385,8 @@ def reset_counts() -> None:
     ht_probe.by_batch = Counter()
     ht_probe.by_position = Counter()
     ht_rebuild.launches = 0
+    intern.launches = 0
+    intern.by_position = Counter()
     segment_reduce.launches = 0
     segment_reduce.backward_launches = 0
     attention.launches = 0

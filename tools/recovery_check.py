@@ -3,8 +3,8 @@
 
     timeout 1100 python3 tools/recovery_check.py
 
-Builds the probe kernel, then runs ``chip_smoke.py``'s phase 3 (the
-batched summarizer at ``full_config()`` over the stream of
+Builds the probe and intern kernels, then runs ``chip_smoke.py``'s phase
+3 (the batched summarizer at ``full_config()`` over the stream of
 ``chip_smoke.NODES`` BA nodes: phase 13's stream and its baseline us
 per change), phase 13 (batched kill, recover and fallback at full width,
 each chunk of the journaled run also timed beside an unjournaled twin),
@@ -33,13 +33,13 @@ def main() -> int:
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke
-    from repro_torch.kernels import _build, ht_probe
+    from repro_torch.kernels import _build, ht_probe, intern
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     chip_smoke.log(f"card: {smi}; torch {torch.__version__}")
-    _build.build_all([ht_probe.SOURCE])
+    _build.build_all([ht_probe.SOURCE, intern.SOURCE])
     path_res, bs, _, _, stream = chip_smoke.main_path(chip_smoke.NODES, 4, 0)
     del bs
     torch.cuda.empty_cache()

@@ -4,10 +4,10 @@
     timeout 900 python3 tools/sharded_check.py [--no-batched] [--no-modes]
         [--mesh-only]
 
-Builds the probe kernel, then runs ``chip_smoke.py``'s stacked probe
-check of phase 2 (a ``[4, 2^20]`` table as row jobs and as one stacked
-job), its phase 3 (the batched summarizer at ``full_config()``; skipped
-with ``--no-batched``), its phase 11 (``ShardedSummarizer(full_config(),
+Builds the probe and intern kernels, then runs ``chip_smoke.py``'s
+stacked probe check of phase 2 (a ``[4, 2^20]`` table as row jobs and
+as one stacked job), its phase 3 (the batched summarizer at
+``full_config()``; skipped with ``--no-batched``), its phase 11 (``ShardedSummarizer(full_config(),
 n_shards=4)``, the card's default ``replica_exec="vmap"``) over the same
 stream of ``chip_smoke.NODES`` BA nodes, its phase 19 (``"map"`` and
 ``"vmap"`` side by side, leaf-bitwise) and phase 20 (the same changes
@@ -37,13 +37,13 @@ def main() -> int:
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke
-    from repro_torch.kernels import _build, ht_probe
+    from repro_torch.kernels import _build, ht_probe, intern
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     chip_smoke.log(f"card: {smi}; torch {torch.__version__}")
-    _build.build_all([ht_probe.SOURCE])
+    _build.build_all([ht_probe.SOURCE, intern.SOURCE])
     chip_smoke.load_rates()
     out = dict(card=smi, device_count=torch.cuda.device_count())
     if "--mesh-only" in sys.argv:
