@@ -139,7 +139,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    fold (k1, k2, val) on tables of caps 8, 16 and 32 built by ``ht_set``
    whose runs wrap past slot 0 (and full ones), 2^16 and 2^20 slots at
    53% and 70%, plain and prehashed, and 2^22 at 70%, where the host fold
-   that the kernel replaces is timed; a table with a key behind an EMPTY
+   that the kernel replaces is timed; a 2^20-slot prehashed table at 60%
+   whose keys home into narrow windows (``repro_torch.testing.tables``:
+   runs over 32 slots, across the kernel's tile ends, one past a tile's
+   halo, one wrapping past the last slot), timed; full tables (no EMPTY
+   slot) of 32 and 8,192 slots; a table with a key behind an EMPTY
    slot of its chain must raise; (b) the kernel on phase 2's 2^25-slot
    tables at 70% (plain and prehashed) and a 2^24-slot one: every old
    live key found by the probe kernel with its old value, the live count
@@ -236,13 +240,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    mesh=EngineMesh(devices), n_shards=4)`` over phase 19's changes and
    calls, ``devices`` the first 4 cards (2 on a host of 2 or 3), or
    ``["cuda:0"] * 4`` on a host of one, its positions stepped in turn
-   (the default); under ``"vmap"`` over phase 19's changes and ``"map"``
-   over its first call (at one replica a position the two step alike),
-   every replica and intern leaf equal on the card to phase 19's
-   one-position run after each call and after the flush, the engine
-   counters of ``stats()`` equal to that run's at the same point; per
-   mode us per change, host reads and probe launches per change by
-   position, the peak memory of each card;
+   (the default); under ``"vmap"`` over phase 19's changes (its
+   ``"map"`` half was cut by the time limit: at one replica a position
+   the two step alike, and phase 19 drives ``"map"``), every replica
+   and intern leaf equal on the card to phase 19's one-position run
+   after each call and after the flush, the engine counters of
+   ``stats()`` equal to that run's at the same point; us per change,
+   host reads and probe launches per change by position, the peak
+   memory of each card;
    then one hub chunk at ``lane_cap`` 2 (the star of JAX's
    ``tests/test_router.py:409``, 90 leaves, ``router_chunk`` 128) on 4 ×
    ``smoke_config()`` (the route stage's skew does not depend on the
@@ -264,9 +269,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    2^22 slots holding 2^19 keys each, at 1, 256, 1,024 and 2,048 changes
    a row of hits only, misses only and repeats; a drop case at ``n_cap``
    1,536; phase 11's first chunk routed to its 4 shards on fresh intern
-   states; at 256 and 1,024 changes and the chunk, the device time, a
-   call from Python and the plain version beside the byte bound and the
-   ordered tail's dependent steps; (b), the router's engine stage under
+   states; the hard cases of ``repro_torch.testing.tables`` on tables
+   that also hold 2^15 tombstones (64 keys a row on one start, groups
+   spilling into other groups' starts, starts before tombstones, starts
+   in the last 32 slots, 3,000 changes a row: two shared-memory
+   segments) and the room running out mid-chunk with repeats of dropped
+   keys; at 256 and 1,024 changes, the chunk, one start, the spills and
+   the long rows, the device time, a call from Python and the plain
+   version beside the byte bound and the ordered tail's dependent steps;
+   (b), the router's engine stage under
    JAX's dense lowering beside the port's, is ``tools/intern_check.py
    --router``'s, not this script's; (c) phase 11's probe launches and
    host reads a change beside the router's with its host intern loop
@@ -315,6 +326,9 @@ DENSE_CHANGES = 4                 # phase 21: changes after the first batch
                                   # (cut from 8 by the time limit)
 INTERN_LANES = (1, 256, 1024, 2048)  # phase 22(a): changes a row of a call
 INTERN_DROP_CAP = 1536            # phase 22(a): the drop case's n_cap
+INTERN_LONG = 3000                # phase 22(a): changes a row, two segments
+# phase 22(a): the hard cases timed beside the random ones
+INTERN_TIMED = ("shared_start", "spills", "long")
 # phase 22(c): phase 11's probe launches and host reads a change when the
 # router interned on the host (a pre-lookup launch, a host read, an insert
 # launch a new key), by the number of changes phase 11 ran then
@@ -1335,7 +1349,7 @@ def mesh_devices():
 def mesh_path(stream, snapshots, modes: dict) -> dict:
     """Phase 20: ``ShardedSummarizer(full_config(), mesh=EngineMesh(...),
     n_shards=SHARDS)`` in phase 19's calls, under ``"vmap"`` over its
-    changes and ``"map"`` over its first call: every replica and intern
+    changes: every replica and intern
     leaf equal on the card to phase 19's one-position run (``snapshots``:
     after each call and the flush; the pipelined state after call k + 1
     is the flushed state after call k) after each call and after the
@@ -1374,83 +1388,77 @@ def mesh_path(stream, snapshots, modes: dict) -> dict:
         for c in cards:
             torch.cuda.synchronize(c)
 
-    for mode, changes in (("vmap", stream), ("map", stream[:MODES_CHUNK])):
+    mode, changes = "vmap", stream
+    sync()
+    held = {c: torch.cuda.memory_allocated(c) for c in cards}
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    ss = ShardedSummarizer(cfg, mesh=EngineMesh(devices),
+                           n_shards=SHARDS, router_chunk=MODES_CHUNK,
+                           replica_exec=mode)
+    if len(ss._est) != len(devices):
+        raise AssertionError(f"phase 20: {len(ss._est)} positions")
+    r = dict(seconds=0.0, reads=Counter(), launches=Counter(), jobs=0)
+
+    def timed(fn) -> None:
+        ops.reset_counts()
+        reset_host_reads()
         sync()
-        held = {c: torch.cuda.memory_allocated(c) for c in cards}
-        for c in cards:
-            torch.cuda.reset_peak_memory_stats(c)
-        ss = ShardedSummarizer(cfg, mesh=EngineMesh(devices),
-                               n_shards=SHARDS, router_chunk=MODES_CHUNK,
-                               replica_exec=mode)
-        if len(ss._est) != len(devices):
-            raise AssertionError(f"phase 20: {len(ss._est)} positions")
-        r = dict(seconds=0.0, reads=Counter(), launches=Counter(), jobs=0)
+        t = time.perf_counter()
+        fn()
+        sync()
+        r["seconds"] += time.perf_counter() - t
+        r["reads"].update(host_read.by_position)
+        r["launches"].update(ops.ht_probe.by_position)
+        r["jobs"] += ops.ht_probe.jobs
 
-        def timed(fn) -> None:
-            ops.reset_counts()
-            reset_host_reads()
-            sync()
-            t = time.perf_counter()
-            fn()
-            sync()
-            r["seconds"] += time.perf_counter() - t
-            r["reads"].update(host_read.by_position)
-            r["launches"].update(ops.ht_probe.by_position)
-            r["jobs"] += ops.ht_probe.jobs
-
-        calls, n = 0, len(changes)
-        for off in range(0, n, MODES_CHUNK):
-            timed(lambda: ss.process(changes[off:off + MODES_CHUNK]))
-            check_blocks((ss._est, ss._ist), snapshots[calls],
-                         f"phase 20 {mode}: the mesh vs one position after "
-                         f"process call {calls + 1}")
-            calls += 1
-        timed(ss.flush)
+    calls, n = 0, len(changes)
+    for off in range(0, n, MODES_CHUNK):
+        timed(lambda: ss.process(changes[off:off + MODES_CHUNK]))
         check_blocks((ss._est, ss._ist), snapshots[calls],
-                     f"phase 20 {mode}: the mesh vs one position after the "
-                     f"flush")
-        stats = ss.stats()
-        want = (modes["stats"] if n == len(stream) else
-                {k: sum(int(getattr(snapshots[calls][0][d], name).sum())
-                        for d in range(len(snapshots[calls][0])))
-                 for k, name in zip(ENGINE_COUNTERS, (
-                     "phi", "num_edges", "n_trials", "n_accept",
-                     "n_skipped"))})
-        bad = [k for k in ENGINE_COUNTERS if stats[k] != want[k]]
-        if bad or sum(r["launches"].values()) == 0:
-            raise AssertionError(f"phase 20 {mode}: counters {bad} differ "
-                                 f"from phase 19's, or no probe launch: "
-                                 f"{stats} {dict(r['launches'])}")
-        peak = {c: torch.cuda.max_memory_allocated(c) - held[c]
-                for c in cards}
-        one = modes[mode]
-        out = dict(changes=n, seconds=r["seconds"],
-                   us_per_change=1e6 * r["seconds"] / n,
-                   reads_per_change={str(k): v / n
-                                     for k, v in sorted(r["reads"].items(),
-                                                        key=str)},
-                   launches_per_change={str(k): v / n for k, v in sorted(
-                       r["launches"].items(), key=str)},
-                   jobs_per_change=r["jobs"] / n,
-                   peak_bytes=peak, stats=stats,
-                   one_position=dict(us_per_change=one["us_per_change"],
-                                     syncs_per_change=one["syncs_per_change"],
-                                     launches_per_change=one[
-                                         "launches_per_change"]))
-        res[mode] = out
-        log(f"phase 20 {mode}: the mesh == one position over {n} changes, "
-            f"every replica and intern leaf after each of {calls} calls and "
-            f"the flush; "
-            f"{out['us_per_change']:.1f} us/change (one position, phase 19: "
-            f"{one['us_per_change']:.1f}); host reads per change by "
-            f"position {out['reads_per_change']} (one position: "
-            f"{one['syncs_per_change']:.2f} in all); probe launches per "
-            f"change by position {out['launches_per_change']} (one "
-            f"position: {one['launches_per_change']:.2f}); peak above the "
-            f"held memory by card "
-            + ", ".join(f"{c}: {b / 2**30:.3f} GiB" for c, b in peak.items()))
-        del ss
-        torch.cuda.empty_cache()
+                     f"phase 20 {mode}: the mesh vs one position after "
+                     f"process call {calls + 1}")
+        calls += 1
+    timed(ss.flush)
+    check_blocks((ss._est, ss._ist), snapshots[calls],
+                 f"phase 20 {mode}: the mesh vs one position after the "
+                 f"flush")
+    stats = ss.stats()
+    bad = [k for k in ENGINE_COUNTERS if stats[k] != modes["stats"][k]]
+    if bad or sum(r["launches"].values()) == 0:
+        raise AssertionError(f"phase 20 {mode}: counters {bad} differ "
+                             f"from phase 19's, or no probe launch: "
+                             f"{stats} {dict(r['launches'])}")
+    peak = {c: torch.cuda.max_memory_allocated(c) - held[c]
+            for c in cards}
+    one = modes[mode]
+    out = dict(changes=n, seconds=r["seconds"],
+               us_per_change=1e6 * r["seconds"] / n,
+               reads_per_change={str(k): v / n
+                                 for k, v in sorted(r["reads"].items(),
+                                                    key=str)},
+               launches_per_change={str(k): v / n for k, v in sorted(
+                   r["launches"].items(), key=str)},
+               jobs_per_change=r["jobs"] / n,
+               peak_bytes=peak, stats=stats,
+               one_position=dict(us_per_change=one["us_per_change"],
+                                 syncs_per_change=one["syncs_per_change"],
+                                 launches_per_change=one[
+                                     "launches_per_change"]))
+    res[mode] = out
+    log(f"phase 20 {mode}: the mesh == one position over {n} changes, "
+        f"every replica and intern leaf after each of {calls} calls and "
+        f"the flush; "
+        f"{out['us_per_change']:.1f} us/change (one position, phase 19: "
+        f"{one['us_per_change']:.1f}); host reads per change by "
+        f"position {out['reads_per_change']} (one position: "
+        f"{one['syncs_per_change']:.2f} in all); probe launches per "
+        f"change by position {out['launches_per_change']} (one "
+        f"position: {one['launches_per_change']:.2f}); peak above the "
+        f"held memory by card "
+        + ", ".join(f"{c}: {b / 2**30:.3f} GiB" for c, b in peak.items()))
+    del ss
+    torch.cuda.empty_cache()
 
     # the hub chunk: a star whose centre's hash undercuts every leaf's, so
     # every change routes to one shard, 2 a (source, shard) lane and round
@@ -3537,11 +3545,18 @@ def rebuild_kernel_vs_plain(seed: int) -> dict:
     """Phase 15(a): the kernel bitwise against the fold on tables of caps
     8/16/32 made by ``ht_set`` with wrapped runs (and full), 2^16 and 2^20
     at 53% and 70% plain and prehashed, and 2^22 at 70%, whose fold is
-    timed; a table with a key behind an EMPTY slot of its chain raises."""
+    timed; a 2^20-slot prehashed table at 60% whose keys home into narrow
+    windows (runs over 32 slots, across the kernel's tile ends, past a
+    tile's halo, one wrapping past the last slot), timed; full tables
+    (no EMPTY slot) of one tile and of several; a table with a key behind
+    an EMPTY slot of its chain raises."""
     import random
+
+    import numpy as np
     import torch
     from repro_torch.core.engine.hashtable import _probe_start, ht_new
     from repro_torch.kernels import ht_rebuild as hr
+    from repro_torch.testing import tables
     rng = random.Random(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n = err = 0
@@ -3569,6 +3584,34 @@ def rebuild_kernel_vs_plain(seed: int) -> dict:
     table, _ = bulk_table(REBUILD_BIG, *rebuild_counts(REBUILD_BIG, "70%"),
                           False, gen)
     _, big_s, e = rebuild_vs_plain(table, False, "cap=2^22 load=70%")
+    err = max(err, e)
+    # keys homed into narrow windows (repro_torch.testing.tables): runs
+    # over 32 slots, across tile ends, past a tile's halo, wrapping
+    nrng = np.random.default_rng(seed + 15)
+    cap = REBUILD_CAPS[-1]
+    hard = tables.clustered_table(
+        cap, 0.6, tables.rebuild_clusters(cap, hr.TILE, hr.HALO, nrng), nrng)
+    runs = tables.describe_runs(hard[0], hr.TILE, hr.HALO)
+    if not all(runs[k] for k in ("over_32", "cross_tile", "past_halo",
+                                 "wraps")):
+        raise AssertionError(f"phase 15(a): the clustered table lacks a "
+                             f"hard run: {runs}")
+    hard = tuple(torch.from_numpy(a).cuda() for a in hard)
+    _, hard_s, hard_e = rebuild_vs_plain(hard, True, "clustered 2^20")
+    n += 1
+    err = max(err, hard_e)
+    for full_cap in (32, 8192):                 # one tile, several tiles
+        keys = tables.crafted_keys(nrng.integers(0, full_cap, full_cap))
+        fk1, fk2, _ = tables.round_build(full_cap, *keys, tables.homes(
+            *keys, full_cap, True))
+        fval = nrng.integers(-2 ** 31, 2 ** 31, full_cap).astype(np.int32)
+        tables.tombstone(fk1, fk2, fval, 2, nrng)
+        _, _, e = rebuild_vs_plain(
+            tuple(torch.from_numpy(a).cuda() for a in (fk1, fk2, fval)),
+            True, f"full cap={full_cap}")
+        err = max(err, e)
+        n += 1
+    hard_time = time_rebuild(hard, True)
     broken = ht_new(64, "cuda")
     home = int(_probe_start(torch.tensor([7]), torch.tensor([9]), 64, False))
     broken.k1[(home + 2) % 64], broken.k2[(home + 2) % 64] = 7, 9
@@ -3579,14 +3622,23 @@ def rebuild_kernel_vs_plain(seed: int) -> dict:
     else:
         raise AssertionError("ht_rebuild took a key behind an EMPTY slot")
     res = dict(tables=n + 1, plain_s=plain_s, plain_s_2p22=big_s,
-               max_abs_err=max(err, e), big=time_rebuild(table, False))
+               max_abs_err=err, big=time_rebuild(table, False),
+               clustered=dict(hard_time, runs=runs, plain_s=hard_s))
     b = res["big"]
     log(f"phase 15(a): ht_rebuild kernel == plain fold bitwise on {n + 1} "
         f"tables (caps {list(REBUILD_TINY_CAPS)} built by ht_set with "
         f"wrapped runs and full, {[c.bit_length() - 1 for c in REBUILD_CAPS]}"
-        f" (2^k) at 53%/70% plain and prehashed, 2^22 at 70%); a broken "
-        f"chain raises; the host fold at 2^22, 70%: {big_s:.2f} s against "
-        f"the kernel call's {b['call_ms']:.3f} ms")
+        f" (2^k) at 53%/70% plain and prehashed, 2^22 at 70%, a clustered "
+        f"2^20 table, full tables of 32 and 8,192 slots); a broken chain "
+        f"raises; the host fold at 2^22, 70%: {big_s:.2f} s against the "
+        f"kernel call's {b['call_ms']:.3f} ms")
+    log(f"phase 15(a): the clustered 2^20 table ({runs['runs']} runs, "
+        f"{runs['over_32']} over 32 slots, {runs['cross_tile']} across a "
+        f"tile end of {hr.TILE}, {runs['past_halo']} past the halo of "
+        f"{hr.HALO}, the longest {runs['longest']} slots, "
+        f"{runs['wraps']} wrapping): kernel {hard_time['kernel_ms']:.3f} "
+        f"ms, call {hard_time['ms']:.3f} ms, bound "
+        f"{hard_time['bound_ms']:.3f} ms")
     return res
 
 
@@ -3847,15 +3899,15 @@ def dense_one_trip(stream) -> dict:
 # --------------------------------------------------------------------- #
 
 
-def _intern_block(cfg, keys: int, gen, n_cap=None):
+def _intern_block(cfg, keys: int, gen, n_cap=None, n_tomb: int = 0):
     """``SHARDS`` stacked intern states of ``intern_cap(cfg)`` slots on
     the card, each table holding ``keys`` prehashed keys (phase 2's bulk
-    build; ids 0..keys-1, ``n_nodes`` = keys), ``l2h`` of ``n_cap`` rows
-    (default ``cfg.n_cap``)."""
+    build; ids 0..keys-1, ``n_nodes`` = keys), ``n_tomb`` of them then
+    deleted, ``l2h`` of ``n_cap`` rows (default ``cfg.n_cap``)."""
     import torch
     from repro_torch.core.engine.hashtable import HashTable
     from repro_torch.dist.router import InternState, intern_cap
-    tables = [bulk_table(intern_cap(cfg), keys, 0, True, gen)[0]
+    tables = [bulk_table(intern_cap(cfg), keys, n_tomb, True, gen)[0]
               for _ in range(SHARDS)]
     k1, k2, val = (torch.stack([t[w] for t in tables]) for w in range(3))
     val -= (k1 >= 0).to(torch.int32)           # bulk ids start at 1
@@ -3910,8 +3962,9 @@ def intern_case(base, buckets, n_cap: int, name: str, time_it: bool):
     """One phase 22(a) case: the kernel on a copy of ``base`` against the
     plain version on a host copy, bitwise (ids and every leaf); with
     ``time_it`` the kernel's device time (after a spin kernel, so the
-    host's launch is hidden), a call from Python, the plain version, the
-    byte bound and the ordered tail's dependent steps."""
+    host's launch is hidden), a call from Python (to a sync) and its host
+    part (calls enqueued back to back), the plain version, the byte bound
+    and the ordered tail's dependent steps."""
     import torch
     from repro_torch.core.engine.state import copy_state
     from repro_torch.kernels import ops
@@ -3965,22 +4018,30 @@ def intern_case(base, buckets, n_cap: int, name: str, time_it: bool):
     reps = 10
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    args = _intern_args(work, buckets)     # the router's own views
     dev_ms = call_ms = 0.0
     for _ in range(reps):
         restore()
         torch.cuda._sleep(2_000_000)     # keeps the card busy meanwhile
         start.record()
-        ops.intern(*_intern_args(work, buckets), n_cap)
+        ops.intern(*args, n_cap)
         end.record()
         torch.cuda.synchronize()
         dev_ms += start.elapsed_time(end) / reps
         restore()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        ops.intern(*_intern_args(work, buckets), n_cap)
+        ops.intern(*args, n_cap)
         torch.cuda.synchronize()
         call_ms += 1e3 * (time.perf_counter() - t) / reps
-    res.update(ms=dev_ms, call_ms=call_ms,
+    # the host's part of a call: the wrapper's checks, allocation and
+    # launch, enqueued back to back without a sync
+    t = time.perf_counter()
+    for _ in range(reps):
+        ops.intern(*args, n_cap)
+    host_ms = 1e3 * (time.perf_counter() - t) / reps
+    torch.cuda.synchronize()
+    res.update(ms=dev_ms, call_ms=call_ms, host_ms=host_ms,
                bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_bytes=nbytes,
                tail_steps=tail)
     del work, st
@@ -4023,13 +4084,23 @@ def intern_kernel_vs_plain(stream, gen) -> dict:
     case at ``n_cap`` 1,536 (1,024 keys held, 2,048 changes of repeats);
     and phase 11's first chunk (routed to its 4 shards: 1,024 lanes a
     row) on fresh intern states, the mix the sharded path interns first.
-    At 256 and 1,024 changes and at the mix: the kernel's device time, a
-    call from Python and the plain version's time beside the byte bound
-    and the ordered tail's dependent steps (the largest row's endpoints
-    not found at entry) at the time a step costs, fitted from the
-    misses-only times at 256 and 1,024 changes."""
+    Then the hard cases of ``repro_torch.testing.tables`` on tables that
+    also hold ``n_cap / 32`` tombstones: 64 keys a row on one start,
+    groups spilling into other groups' starts, starts just before
+    tombstones, starts in the last 32 slots (chains wrapping past
+    ``cap - 1``), ``INTERN_LONG`` changes a row (more than one
+    shared-memory segment) and, on the 1,024-key tables, the room running
+    out mid-chunk (``n_cap`` 300 above ``n_nodes``, a pool drawn with
+    repeats: repeats of dropped keys).  At 256 and 1,024 changes, at the
+    mix, 64 on one start, the spills and the long rows: the kernel's
+    device time, a call from Python and the plain version's time beside
+    the byte bound and the ordered tail's dependent steps (the largest
+    row's endpoints not found at entry) at the time a step costs, fitted
+    from the misses-only times at 256 and 1,024 changes."""
+    import numpy as np
     import torch
     from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.testing import tables
 
     t0 = time.perf_counter()
     cfg = full_config()
@@ -4055,6 +4126,28 @@ def intern_kernel_vs_plain(stream, gen) -> dict:
                       f"x{buckets.shape[1]}", time_it=True)
     rows.append(mix)
     del fresh, buckets
+    rng = np.random.default_rng(22)
+    base = _intern_block(cfg, cfg.n_cap // 2, gen, n_tomb=cfg.n_cap // 32)
+    cap = base.h2l.k1.shape[1]
+    for kind in tables.INTERN_KINDS:
+        if kind == "room":
+            continue
+        lanes = INTERN_LONG if kind == "long" else 1024
+        k1 = base.h2l.k1.cpu().numpy() if kind == "tombs" else None
+        b = torch.from_numpy(tables.intern_buckets(
+            kind, SHARDS, lanes, cap, rng, k1=k1)).cuda()
+        rows.append(intern_case(base, b, cfg.n_cap, f"{kind} x{lanes}",
+                                time_it=kind in INTERN_TIMED))
+    del base
+    small = _intern_block(cfg, 1024, gen, n_cap=1024 + 300)
+    room = intern_case(small, torch.from_numpy(tables.intern_buckets(
+        "room", SHARDS, 1024, cap, rng)).cuda(), 1024 + 300, "room x1024",
+        time_it=False)
+    if room["inserts"] != SHARDS * 300 or room["dropped"] == 0:
+        raise AssertionError(f"phase 22(a): the room case filled no row or "
+                             f"dropped nothing: {room}")
+    rows.append(room)
+    del small
     torch.cuda.empty_cache()
     at = {r["case"]: r for r in rows}
     m256, m1024 = at["misses x256"], at["misses x1024"]
@@ -4069,7 +4162,8 @@ def intern_kernel_vs_plain(stream, gen) -> dict:
                 f"{r['dropped']}); plain {r['plain_ms']:.2f} ms")
         if "ms" in r:
             line += (f"; kernel {1e3 * r['ms']:.2f} us (call "
-                     f"{1e3 * r['call_ms']:.2f} us), bytes bound "
+                     f"{1e3 * r['call_ms']:.2f} us, of it on the host "
+                     f"{1e3 * r['host_ms']:.2f} us), bytes bound "
                      f"{1e3 * r['bound_ms']:.3f} us, ordered tail "
                      f"{r['tail_steps']} steps = "
                      f"{1e3 * r['latency_scale_ms']:.2f} us at "
@@ -4495,8 +4589,7 @@ def main() -> int:
                      for mode in ("map", "vmap")},
                  mesh_devices=mesh_res["devices"],
                  mesh_launches_per_change={
-                     mode: mesh_res[mode]["launches_per_change"]
-                     for mode in ("map", "vmap")},
+                     "vmap": mesh_res["vmap"]["launches_per_change"]},
                  sharded_max_lanes_per_job=sharded["max_lanes_per_job"],
                  recovery_launches=recovery["recovery_probe_launches"],
                  sharded_recovery_launches=kill_bar["cuda"]["probe_launches"],
@@ -4575,7 +4668,11 @@ def main() -> int:
                                  "table", "prehashed", "kernel_ms", "ms",
                                  "call_ms", "bound_ms", "longest_run")}
                              for r in rebuild_b],
-                         plain_s_2p22=rebuild_a["plain_s_2p22"])
+                         plain_s_2p22=rebuild_a["plain_s_2p22"],
+                         clustered_2p20={
+                             k: rebuild_a["clustered"][k] for k in (
+                                 "kernel_ms", "ms", "call_ms", "bound_ms",
+                                 "runs")})
     mix = intern_res["mix"]
     intern_entry = dict(name="intern", route="cuda",
                         source="src/repro_torch/csrc/intern.cu",
@@ -4593,7 +4690,7 @@ def main() -> int:
                               f"{mix['lanes']} changes on fresh 2^22-slot "
                               f"intern tables",
                         cases=[{k: r.get(k) for k in (
-                            "case", "ms", "call_ms", "plain_ms",
+                            "case", "ms", "call_ms", "host_ms", "plain_ms",
                             "bound_ms", "latency_scale_ms", "inserts",
                             "dropped")}
                             for r in intern_res["rows"]])

@@ -20,11 +20,14 @@ A table always keeps one EMPTY slot for the next insert (at most cap - 1
 keys precede the last), so the walk ends within cap steps.
 
 **On the card** every maximal run of the old table's non-EMPTY slots is
-replayed on its own, by one thread of ``csrc/ht_rebuild.cu``: the tables
-that this hashtable's operations make keep each live key behind a chain
-of non-EMPTY slots from its home, so a run's keys stay inside the run in
-the new table (the source gives the argument).  The kernel checks that
-chain for every key and the wrapper raises on a table that breaks it.
+replayed on its own by ``csrc/ht_rebuild.cu``: the tables that this
+hashtable's operations make keep each live key behind a chain of
+non-EMPTY slots from its home, so a run's keys stay inside the run in the
+new table (the source gives the argument).  A block takes a tile of
+``TILE`` slots and a halo of ``HALO`` past it in shared memory, and
+replays the runs that start in its tile from there, a bitmap of each
+run's taken offsets giving every key its slot.  The kernel checks each
+key's chain and the wrapper raises on a table that breaks it.
 
 * :func:`ht_rebuild_plain` is the sequential fold on CPU tensors.  The CPU
   tests and ``maybe_compact`` on the CPU run it, and ``chip_smoke.py``
@@ -49,6 +52,11 @@ from repro_torch.core.engine.hashtable import EMPTY, _probe_start
 from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "ht_rebuild.cu"
+# the kernel's tile and halo (kTile, kHalo in the source; the CPU tests
+# hold the two equal): what the hard tables of repro_torch.testing.tables
+# are shaped against
+TILE = 2048
+HALO = 256
 
 Table = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 

@@ -26,10 +26,11 @@ insert order is the table layout, so the contract is bitwise.
 
 * :func:`intern_plain` is that sequence on CPU tensors, step by step.  The
   CPU tests hold it to JAX, and ``chip_smoke.py`` holds the kernel to it.
-* :func:`intern_cuda` launches ``csrc/intern.cu`` (one block a row; the
-  source says what bounds it) on the tensors' device, built with ``nvcc``
-  at first use into ``build/`` and loaded with ``ctypes``
-  (``kernels/_build.py``).
+* :func:`intern_cuda` launches ``csrc/intern.cu`` (one block a row: the
+  keys not found at entry deduplicated, ranked by a prefix sum and placed
+  in parallel where their first free slots differ; the source says what
+  bounds it) on the tensors' device, built with ``nvcc`` at first use
+  into ``build/`` and loaded with ``ctypes`` (``kernels/_build.py``).
 
 Nothing here imports a GPU toolchain at import time.
 """
@@ -54,10 +55,12 @@ def check_args(table: Table, l2h, n_nodes, n_dropped,
                words: Sequence[torch.Tensor], n_cap: int) -> Tuple[int, int]:
     """Raise on what neither version takes; returns ``(R, L)``.  Every
     tensor int32 on one CPU or CUDA device; the tables, ``l2h`` and the
-    counters contiguous; the four words ``[R, L]`` with equal strides."""
+    counters contiguous; the four words ``[R, L]`` with equal strides.
+    One pass over the ten tensors: a kernel call pays it on the host."""
     k1 = table[0]
-    if k1.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"intern runs on CUDA or CPU tensors: {k1.device}")
+    device = k1.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"intern runs on CUDA or CPU tensors: {device}")
     if k1.dim() != 2:
         raise ValueError(f"the table must be [R, cap]: {tuple(k1.shape)}")
     n_rep, cap = k1.shape
@@ -66,27 +69,27 @@ def check_args(table: Table, l2h, n_nodes, n_dropped,
                          f"2^30: {cap}")
     if len(words) != 4:
         raise ValueError(f"words are (uh, ul, vh, vl): {len(words)}")
-    n_lanes = words[0].shape[-1] if words[0].dim() == 2 else -1
-    shapes = ((table[0], (n_rep, cap)), (table[1], (n_rep, cap)),
-              (table[2], (n_rep, cap)), (l2h, (n_rep, n_cap, 2)),
-              (n_nodes, (n_rep,)), (n_dropped, (n_rep,)))
-    for t, shape in shapes + tuple((w, (n_rep, n_lanes)) for w in words):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"intern expects shape {shape}: "
+    lanes = (n_rep, words[0].shape[1] if words[0].dim() == 2 else -1)
+    row, rows = (n_rep, cap), (n_rep,)
+    for n, (t, shape) in enumerate(zip(
+            (*table, l2h, n_nodes, n_dropped, *words),
+            (row, row, row, (n_rep, n_cap, 2), rows, rows) + (lanes,) * 4)):
+        if t.shape != shape:
+            raise ValueError(f"intern expects shape {tuple(shape)}: "
                              f"{tuple(t.shape)}")
-        if t.dtype != torch.int32:
+        if t.dtype is not torch.int32:
             raise TypeError(f"intern takes int32 tensors: {t.dtype}")
-        if t.device != k1.device:
+        if t.device != device:
             raise ValueError(f"a tensor is on {t.device}, the table on "
-                             f"{k1.device}")
-    for t, _ in shapes:
-        if not t.is_contiguous():
+                             f"{device}")
+        if n < 6 and not t.is_contiguous():
             raise ValueError("the tables, l2h and the counters must be "
                              "contiguous")
-    if len({w.stride() for w in words}) != 1:
+    strides = words[0].stride()
+    if any(w.stride() != strides for w in words[1:]):
         raise ValueError(f"the four words must share strides: "
                          f"{[w.stride() for w in words]}")
-    return n_rep, n_lanes
+    return n_rep, lanes[1]
 
 
 # --------------------------------------------------------------------- #
@@ -177,8 +180,8 @@ def intern_plain(table: Table, l2h, n_nodes, n_dropped,
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.intern_launch.argtypes = (
-        [ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int]
-        + [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+         ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2
         + [ctypes.c_void_p] * 3)
     lib.intern_launch.restype = ctypes.c_int
 
@@ -186,26 +189,28 @@ def _bind(lib: ctypes.CDLL) -> None:
 def intern_cuda(table: Table, l2h, n_nodes, n_dropped,
                 words: Sequence[torch.Tensor], n_cap: int) -> Ids:
     """One launch of the kernel on the tensors' device and its current
-    stream, no sync; ``(u, v)`` on the card, bitwise
-    :func:`intern_plain`'s.  Every tensor must lie on one CUDA device."""
+    stream, no sync; ``(u, v)`` on the card (views of one ``[2, R, L]``
+    allocation), bitwise :func:`intern_plain`'s.  Every tensor must lie on
+    one CUDA device; the launcher sets that device for the launch itself,
+    so the caller's current device does not matter."""
     n_rep, n_lanes = check_args(table, l2h, n_nodes, n_dropped, words,
                                 n_cap)
     device = table[0].device
     if device.type != "cuda":            # before building the kernel
         raise ValueError(f"intern_cuda needs CUDA tensors: {device}")
-    u = torch.empty((n_rep, n_lanes), dtype=torch.int32, device=device)
-    v = torch.empty_like(u)
+    uv = torch.empty((2, n_rep, n_lanes), dtype=torch.int32, device=device)
     if n_rep == 0 or n_lanes == 0:
-        return u, v
+        return uv[0], uv[1]
     lib = _build.load(SOURCE, _bind)
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    row_stride, lane_stride = words[0].stride()
-    with torch.cuda.device(device.index):
-        err = lib.intern_launch(
-            n_rep, n_lanes, table[0].shape[1], n_cap,
-            *(t.data_ptr() for t in (*table, l2h, n_nodes, n_dropped,
-                                     *words)),
-            row_stride, lane_stride, u.data_ptr(), v.data_ptr(), stream)
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    u_ptr = uv.data_ptr()
+    err = lib.intern_launch(
+        index, n_rep, n_lanes, table[0].shape[1], n_cap,
+        *(t.data_ptr() for t in (*table, l2h, n_nodes, n_dropped, *words)),
+        *words[0].stride(), u_ptr, u_ptr + 4 * n_rep * n_lanes,
+        torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"intern kernel launch failed: CUDA error {err}")
-    return u, v
+    return uv[0], uv[1]

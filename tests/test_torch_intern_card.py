@@ -9,8 +9,14 @@ Stacked blocks of intern states, built by interning (so every table is
 one the router makes), then one more call: hits only, misses only,
 repeats within the call, padding, tombstones planted in the chains, a
 drop at a small ``n_cap``, tiny tables whose chains wrap, and the words
-as strided columns of the router's ``[R, L, 5]`` buckets.  Every id and
-every leaf equal, bitwise; one launch a call.
+as strided columns of the router's ``[R, L, 5]`` buckets.  Then the hard
+cases of ``repro_torch.testing.tables`` (the kernel's groups and its
+ordered fallback): keys sharing a start, spills into other groups' first
+free slots, starts before planted tombstones, chains wrapping past
+``cap - 1``, the room running out with repeats of dropped keys, a row
+longer than the kernel's shared-memory segment, and tables that run out
+of free slots or have none.  Every id and every leaf equal, bitwise; one
+launch a call.
 """
 import numpy as np
 import pytest
@@ -20,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.engine.hashtable import EMPTY, TOMB  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.intern import intern_plain  # noqa: E402
+from repro_torch.testing import tables  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +143,47 @@ def test_empty_block_counts_no_launch(card):
         u, v = ops.intern(table, l2h, nn, nd, words, 2)
         assert u.shape == v.shape == (rows, lanes)
         assert ops.intern.launches == before
+
+
+def _from_numpy(st):
+    return (tuple(torch.from_numpy(st[k].copy()) for k in ("k1", "k2",
+                                                            "val")),
+            *(torch.from_numpy(st[k].copy()) for k in ("l2h", "n_nodes",
+                                                       "n_dropped")))
+
+
+@pytest.mark.parametrize("kind", tables.INTERN_KINDS)
+def test_hard_cases(card, kind):
+    """Each hard bucket kind on 4 rows of 2^14-slot tables holding 2,048
+    keys (256 of them deleted): 1,024 changes a row, 3,000 for ``long``
+    (two segments); ``room`` at an ``n_cap`` 100 above ``n_nodes``."""
+    rng = np.random.default_rng(tables.INTERN_KINDS.index(kind))
+    cap, n_cap = 1 << 14, 2048 + (100 if kind == "room" else 4096)
+    st = tables.intern_table(4, cap, n_cap, 2048, rng, n_tomb=256)
+    lanes = 3000 if kind == "long" else 1024
+    buckets = torch.from_numpy(tables.intern_buckets(kind, 4, lanes, cap,
+                                                     rng, k1=st["k1"]))
+    state = _from_numpy(st)
+    before = ops.intern.launches
+    got = _call(_clone(state), buckets, n_cap, card)
+    assert ops.intern.launches - before == 1
+    want = _call(state, buckets, n_cap, None)
+    _equal(got, want, kind)
+    if kind == "room":
+        assert int(want[1][3].sum()) > 0          # drops
+
+
+@pytest.mark.parametrize("n_empty,n_tomb", [(2, 2), (0, 0), (0, 3)],
+                         ids=["runs_out", "full", "tombs_only"])
+def test_out_of_free_slots(card, n_empty, n_tomb):
+    """Tables of 32 slots that run out of free slots mid-call, have none
+    (the insert goes at the start, over a live key) or only TOMBs."""
+    rng = np.random.default_rng(50 + n_empty + n_tomb)
+    st = tables.intern_table(3, 32, 64, 0, rng, n_tomb=n_tomb,
+                             n_empty=n_empty)
+    buckets = torch.from_numpy(tables.intern_buckets("room", 3, 12, 32,
+                                                     rng, pad=0.1))
+    state = _from_numpy(st)
+    got = _call(_clone(state), buckets, 64, card)
+    want = _call(state, buckets, 64, None)
+    _equal(got, want, "out of free slots")

@@ -3,7 +3,7 @@
 chosen against.
 
     timeout 900 python3 tools/intern_check.py [--sharded] [--router]
-        [--host-loop]
+        [--host-loop] [--host]
 
 Builds the probe and intern kernels (printing ``nvcc``'s register and
 spill lines for ``csrc/intern.cu``), runs ``tests/test_torch_intern_card.py``
@@ -27,7 +27,9 @@ program does not keep:
   11's stream: every replica and intern leaf equal, or the run fails;
   per lowering host reads a chunk, probe launches a change, us a change.
 
-Each phase fails the run as it does there.  Writes the results to
+``--host`` splits a call's host time (the wrapper's checks, the
+allocation, the pointers, the stream, the bare launch).  Each phase fails
+the run as it does there.  Writes the results to
 ``build/intern_check.json``.
 """
 from __future__ import annotations
@@ -271,6 +273,56 @@ def dense_router_stage(stream) -> dict:
     return res
 
 
+def host_split(stream, gen) -> dict:
+    """``--host``: where a call's host time goes, on phase 11's first chunk
+    with its arguments built once: ``ops.intern`` and ``intern_cuda``
+    enqueued back to back (hits only: the second call of the chunk finds
+    every key, so the state does not move), ``check_args`` alone, the
+    output's allocation, the pointers, the stream, and the bare ``ctypes``
+    launch; mean us of 200 each."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.configs.mosso_stream import full_config
+    from repro_torch.kernels import _build, intern, ops
+    fresh, buckets = cs.chunk_buckets(stream, full_config())
+    args = cs._intern_args(fresh, buckets)
+    n_cap = full_config().n_cap
+    ops.intern(*args, n_cap)           # every key held from here on
+    torch.cuda.synchronize()
+    table, l2h, nn, nd, words = args
+    lib = _build.load(intern.SOURCE, intern._bind)
+    uv = torch.empty((2, *words[0].shape), dtype=torch.int32, device="cuda")
+    ptrs = [t.data_ptr() for t in (*table, l2h, nn, nd, *words)]
+    stream_ptr = torch._C._cuda_getCurrentRawStream(0)
+    parts = {
+        "ops.intern": lambda: ops.intern(*args, n_cap),
+        "intern_cuda": lambda: intern.intern_cuda(*args, n_cap),
+        "check_args": lambda: intern.check_args(*args, n_cap),
+        "torch.empty": lambda: torch.empty((2, *words[0].shape),
+                                           dtype=torch.int32,
+                                           device="cuda"),
+        "data_ptr x12": lambda: [t.data_ptr() for t in (
+            *table, l2h, nn, nd, *words)],
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "ctypes launch": lambda: lib.intern_launch(
+            0, buckets.shape[0], buckets.shape[1], table[0].shape[1], n_cap,
+            *ptrs, *words[0].stride(), uv[0].data_ptr(), uv[1].data_ptr(),
+            stream_ptr),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(200):
+            fn()
+        out[name] = 1e6 * (time.perf_counter() - t) / 200
+        torch.cuda.synchronize()
+    cs.log("host split of an intern call (us, mean of 200 enqueued): "
+           + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -309,6 +361,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
     out["intern"] = chip_smoke.intern_kernel_vs_plain(stream, gen)
+    if "--host" in sys.argv:
+        out["host_split"] = host_split(stream, gen)
     if "--host-loop" in sys.argv:
         out["host_loop"] = host_loop_vs_kernel(stream, gen)
     if "--router" in sys.argv:
